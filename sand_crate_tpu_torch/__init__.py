@@ -1,0 +1,33 @@
+"""sand_crate_tpu_torch: the PyTorch / CUDA port of sand_crate_tpu.
+
+The same 2D particle-liquid simulator as the JAX package beside it — a pure
+step over fixed-capacity particle tensors with a cell-sorted state — running
+on an NVIDIA Hopper GPU, with the p-major pair passes as hand-written CUDA
+kernels (``csrc/pmajor.cu``).  It imports neither JAX nor ``sand_crate_tpu``.
+On CPU tensors every kernel runs as its plain torch version.
+"""
+
+from .config import COEFFICIENT_NAMES, Config, load_config, load_config_dict
+from .engine import Crate
+from .physics import rollout, step
+from .scene import build_scene, init_state
+from .state import FORCE_LABELS, CrateState, Diagnostics, Params, Scene
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Config",
+    "Crate",
+    "CrateState",
+    "Diagnostics",
+    "FORCE_LABELS",
+    "COEFFICIENT_NAMES",
+    "Params",
+    "Scene",
+    "build_scene",
+    "init_state",
+    "load_config",
+    "load_config_dict",
+    "rollout",
+    "step",
+]

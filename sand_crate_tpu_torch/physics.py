@@ -1,0 +1,530 @@
+"""The physics tick as one functional step on tensors.
+
+The PyTorch counterpart of ``sand_crate_tpu/physics.py`` for the p-major
+backend.  Tick order (must match the reference crate.py:91-129):
+
+  1.  spawn from sources, cull out-of-box particles
+  2.  advance rigid bodies
+  3.  virtual colliders (boundary ghosts) on pre-fix positions, then the
+      hard wall projection
+  4.  stable cell-id sort of (vel, pre-fix pos, uid), ghost pass recomputed
+      on the sorted order, then the pair sums (ops/pmajor.py: feature rows
+      -> pass A -> cell pressure -> pass B)
+  5.  tension, gravity, pressure, spring (flag-gated), viscosity, wall
+      bounce, continuous collision kicks
+  6.  integrate positions
+
+The state stays permanently cell-sorted (``uid`` carries identity), as in
+the JAX package.  Nothing here reads a tensor back to the host, so
+:func:`rollout` queues ticks on the device without waiting for them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import geometry as geo
+from .cellwise import PairSums, cell_ids_grid
+from .config import BODY_FIXED, BODY_FREE, BODY_MOTORED
+from .ops.pmajor import neighbor_forces_pmajor_sorted
+from .state import NUM_FORCES, CrateState, Diagnostics, Params, Scene
+
+EPS = 1e-12
+
+
+class _TorchNamespace:
+    """The numpy-named functions an ExprMotor may call, on tensors.
+
+    Numbers among the arguments become tensors like the first tensor
+    argument (0-d f32 on the CPU if there is none), since several torch
+    functions take tensors only."""
+
+    _ALIASES = {"power": torch.pow, "absolute": torch.abs}
+
+    def __getattr__(self, name):
+        if name == "cbrt":
+            fn = lambda x: torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)  # noqa: E731
+        else:
+            fn = self._ALIASES.get(name) or getattr(torch, name)
+
+        def call(*args):
+            like = next((a for a in args if isinstance(a, torch.Tensor)), None)
+            kw = {} if like is None else dict(dtype=like.dtype, device=like.device)
+            return fn(*(torch.as_tensor(a, **kw) for a in args))
+
+        return call
+
+
+TORCH_XP = _TorchNamespace()
+
+
+def motor_value(motor: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Evaluate ``offset + amp * cos(freq * t + phase)`` motors.
+
+    ``motor``: (..., 4) = (amplitude, frequency, phase, offset)."""
+    amp, freq, phase, offset = (motor[..., i] for i in range(4))
+    return offset + amp * torch.cos(freq * t + phase)
+
+
+# --------------------------------------------------------------------------
+# 1. particle lifecycle
+# --------------------------------------------------------------------------
+
+
+def spawn_particles(
+    state: CrateState, params: Params, scene: Scene, generator: torch.Generator
+) -> tuple[CrateState, torch.Tensor]:
+    """Emit from every active source into free slots (crate.py:138-147).
+
+    Spawn count per source is Binomial(flow, dt) clamped by the remaining
+    ``max_particles`` budget, applied sequentially across sources; free slots
+    are assigned in ascending index order.  The draws come from ``generator``
+    (not the JAX package's PRNG), so spawn positions differ from it.
+
+    Returns ``(state, truncated)`` where ``truncated`` counts emissions lost
+    to the static per-tick ``max_spawn`` bound (mean + 6 sigma, scene.py).
+    """
+    device = state.pos.device
+    if scene.num_sources == 0:
+        return state, torch.zeros((), dtype=torch.int32, device=device)
+    P = scene.capacity
+    ns = scene.max_spawn
+    pos, vel, alive = state.pos, state.vel, state.alive
+
+    # Ascending free-slot list (sentinel P afterwards), shared by all sources:
+    # dead slot i scores P - i (> 0), alive slots -1, so the largest scores
+    # are the lowest dead indices.
+    n_slots = min(P, scene.num_sources * ns)
+    iota = torch.arange(P, dtype=torch.int32, device=device)
+    score = torch.where(alive, -1, P - iota)
+    top = torch.topk(score, n_slots).values
+    free_slots = torch.where(top > 0, P - top, P)
+    free_slots = torch.cat(
+        [free_slots, torch.full((ns,), P, dtype=torch.int32, device=device)]
+    )
+
+    budget = torch.clamp(params.max_particles - state.particle_count, min=0)
+    offset = torch.zeros((), dtype=torch.int64, device=device)
+    truncated = torch.zeros((), dtype=torch.int32, device=device)
+    lane = torch.arange(ns, device=device)
+    pos = torch.cat([pos, pos.new_zeros((1, 2))])  # row P swallows dropped writes
+    vel = torch.cat([vel, vel.new_zeros((1, 2))])
+    alive = torch.cat([alive, alive.new_zeros((1,))])
+    p = torch.clamp(params.dt.to(torch.float32), 0.0, 1.0)
+    for z in range(scene.num_sources):
+        active = state.tick < scene.src_active_ticks[z]
+        n_raw = torch.binomial(
+            scene.src_flow[z].to(torch.float32), p, generator=generator
+        ).to(torch.int32)
+        want = torch.minimum(torch.where(active, n_raw, 0), budget).to(torch.int32)
+        n = torch.clamp(want, max=ns)
+        truncated = truncated + (want - n)
+
+        # Clamped start, as lax.dynamic_slice clamps in the JAX package.
+        start = torch.clamp(offset, max=free_slots.shape[0] - ns)
+        slots = free_slots[start + lane].long()
+        slots = torch.where(lane < n, slots, P)  # P = out of bounds -> dropped
+
+        u_pos = torch.rand((ns, 2), generator=generator, device=device)
+        u_vel = torch.rand((ns, 2), generator=generator, device=device)
+        pos[slots] = scene.src_position[z] + (u_pos - 0.5) * scene.src_radius[z]
+        vel[slots] = scene.src_velocity[z] + (u_vel - 0.5) * scene.src_noise[z]
+        alive[slots] = True
+        budget = budget - n
+        offset = offset + n
+    return (
+        state._replace(pos=pos[:P], vel=vel[:P], alive=alive[:P]),
+        truncated,
+    )
+
+
+def cull_particles(state: CrateState, params: Params) -> CrateState:
+    """Kill particles outside [-r, 1+r]^2 (crate.py:149-159) by mask flip."""
+    r = params.particle_radius
+    inside = ((state.pos >= -r) & (state.pos <= 1.0 + r)).all(dim=-1)
+    return state._replace(alive=state.alive & inside)
+
+
+# --------------------------------------------------------------------------
+# 2. rigid bodies
+# --------------------------------------------------------------------------
+
+
+def body_point_velocity(points, body_idx, body_center, body_lin_vel, body_ang_vel):
+    """Linearized rigid velocity field v = v_c + w * rot90cw(p - c)
+    (rigid_body.py:28-34).  ``points``: (..., 2), ``body_idx``: (...)."""
+    c = body_center[body_idx]
+    lin = body_lin_vel[body_idx]
+    ang = body_ang_vel[body_idx]
+    return lin + ang[..., None] * geo.rot90_cw(points - c)
+
+
+def advance_bodies(state: CrateState, params: Params, scene: Scene) -> CrateState:
+    """apply_bodies_velocity (crate.py:95,363-365 + rigid_body.py:42-68).
+
+    Motored bodies re-evaluate their motors at the advanced time; fixed
+    bodies never move; free bodies keep integrating their center velocity.
+    """
+    t_new = state.time + params.dt
+    motored = scene.body_kind == BODY_MOTORED
+    lin = torch.where(
+        motored[:, None], motor_value(scene.motor_lin, t_new), state.body_lin_vel
+    )
+    ang = torch.where(motored, motor_value(scene.motor_ang, t_new), state.body_ang_vel)
+    if scene.motor_exprs:
+        lin, ang = lin.clone(), ang.clone()
+    for b, ch, fn in scene.motor_exprs:
+        val = torch.as_tensor(fn(t_new, xp=TORCH_XP), dtype=lin.dtype, device=lin.device)
+        if ch == 2:
+            ang[b] = val
+        else:
+            lin[b, ch] = val
+
+    moving = (scene.body_kind != BODY_FIXED)[scene.seg_body]  # (S,)
+    ends_vel = body_point_velocity(
+        state.segments, scene.seg_body[:, None], scene.body_center, lin, ang
+    )  # (S, 2, 2)
+    segments = torch.where(
+        moving[:, None, None], state.segments + ends_vel * params.dt, state.segments
+    )
+    return state._replace(
+        segments=segments, body_lin_vel=lin, body_ang_vel=ang, time=t_new
+    )
+
+
+# --------------------------------------------------------------------------
+# 3. the tick phases
+# --------------------------------------------------------------------------
+
+
+def _alive_mean_dv(dv: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Mean ||dv|| over alive particles (force_monitor.py:27-33 semantics)."""
+    n = torch.sqrt(torch.clamp((dv * dv).sum(dim=-1), min=0.0))
+    cnt = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
+    return torch.where(alive, n, 0.0).sum() / cnt
+
+
+class GhostInfo(NamedTuple):
+    """Boundary-ghost reductions shared by the later force phases."""
+
+    pos: torch.Tensor  # (P, 2) hard-wall-corrected positions
+    g_cnt: torch.Tensor  # (P,)   ghosts per particle
+    gsum: torch.Tensor  # (P, 2) sum of mirror ghost vectors
+    gvel_sum: torch.Tensor  # (P, 2) sum of ghost contact velocities
+
+
+def _ghost_geom(prepos, alive, segments, params: Params, scene: Scene):
+    """Ghost-contact geometry on pre-fix positions (crate.py:202-243), as
+    (S, P) planes."""
+    r = params.particle_radius
+    px, py = prepos[:, 0], prepos[:, 1]
+    nx_, ny_, seg_dist = geo.points_to_segments_soa(px, py, segments)
+    gmask = (seg_dist <= r * 1.2) & scene.seg_valid[:, None] & alive[None]
+    gm = gmask.to(prepos.dtype)  # (S, P)
+    gvx = 2.0 * (px[None] - nx_)  # mirror ghost offsets (S, P)
+    gvy = 2.0 * (py[None] - ny_)
+    return nx_, ny_, gm, gvx, gvy
+
+
+def _ghost_vel(nx_, ny_, body_lin_vel, body_ang_vel, scene: Scene):
+    """Ghost velocity from the owning body's point-velocity field at contact:
+    v = lin + ang * rot90_cw(contact - center) (rigid_body.py:28-34)."""
+    b_lin = body_lin_vel[scene.seg_body]  # (S, 2)
+    b_ang = body_ang_vel[scene.seg_body][:, None]  # (S, 1)
+    b_cx = scene.body_center[scene.seg_body, 0][:, None]
+    b_cy = scene.body_center[scene.seg_body, 1][:, None]
+    gvelx = b_lin[:, 0][:, None] + b_ang * (ny_ - b_cy)
+    gvely = b_lin[:, 1][:, None] - b_ang * (nx_ - b_cx)
+    return gvelx, gvely
+
+
+def _ghost_reductions(gm, gvx, gvy, gvelx, gvely):
+    g_cnt = gm.sum(dim=0)
+    gsum = torch.stack([(gm * gvx).sum(dim=0), (gm * gvy).sum(dim=0)], -1)
+    gvel_sum = torch.stack([(gm * gvelx).sum(dim=0), (gm * gvely).sum(dim=0)], -1)
+    return g_cnt, gsum, gvel_sum
+
+
+def ghost_sums(prepos, alive, segments, body_lin_vel, body_ang_vel, params, scene):
+    """The (g_cnt, gsum, gvel_sum) reductions of ghost_phase, standalone."""
+    nx_, ny_, gm, gvx, gvy = _ghost_geom(prepos, alive, segments, params, scene)
+    gvelx, gvely = _ghost_vel(nx_, ny_, body_lin_vel, body_ang_vel, scene)
+    return _ghost_reductions(gm, gvx, gvy, gvelx, gvely)
+
+
+def _ghost_core(
+    prepos, alive, segments, body_lin_vel, body_ang_vel, params, scene
+) -> GhostInfo:
+    """Hard-wall-corrected position plus the three ghost reductions
+    (crate.py:97-99, 202-243).
+
+    A pure per-particle function of the PRE-fix position (the S-axis
+    reduction order is fixed), so re-running it on a permutation of prepos
+    gives the permuted outputs: the sort carries only prepos and this is
+    recomputed after it."""
+    r = params.particle_radius
+    nx_, ny_, gm, gvx, gvy = _ghost_geom(prepos, alive, segments, params, scene)
+    gvelx, gvely = _ghost_vel(nx_, ny_, body_lin_vel, body_ang_vel, scene)
+
+    # -- hard wall projection (crate.py:202-211) ----------------------------
+    gnorm = torch.sqrt(torch.clamp(gvx * gvx + gvy * gvy, min=0.0))  # (S, P)
+    vrd = torch.clamp(r / torch.clamp(gnorm, min=EPS), min=0.5) - 0.5
+    correction = torch.stack(
+        [(gm * gvx * vrd).sum(dim=0), (gm * gvy * vrd).sum(dim=0)], dim=-1
+    )
+    pos = torch.where(alive[:, None], prepos + correction, prepos)
+    g_cnt, gsum, gvel_sum = _ghost_reductions(gm, gvx, gvy, gvelx, gvely)
+    return GhostInfo(pos=pos, g_cnt=g_cnt, gsum=gsum, gvel_sum=gvel_sum)
+
+
+def ghost_phase(state: CrateState, params: Params, scene: Scene) -> GhostInfo:
+    """Virtual colliders on pre-fix positions + hard wall projection
+    (reference "Virtual Colliders" phase, crate.py:97-99, 202-243)."""
+    return _ghost_core(
+        state.pos, state.alive, state.segments, state.body_lin_vel,
+        state.body_ang_vel, params, scene,
+    )
+
+
+class TickOperands(NamedTuple):
+    """Per-particle operands of the force phases in cell-sorted order, plus
+    their pair sums."""
+
+    pos: torch.Tensor
+    vel: torch.Tensor
+    alive: torch.Tensor
+    uid: torch.Tensor
+    ghost: GhostInfo
+    sums: PairSums
+
+
+def neighbor_stage(
+    vel: torch.Tensor,
+    alive: torch.Tensor,
+    uid: torch.Tensor,
+    ghost: GhostInfo,
+    tick: torch.Tensor,
+    params: Params,
+    scene: Scene,
+    *,
+    prepos: torch.Tensor,
+    segments: torch.Tensor,
+    body_lin_vel: torch.Tensor,
+    body_ang_vel: torch.Tensor,
+) -> TickOperands:
+    """Neighbor detection + collider population + pressures (crate.py:102-108)
+    on the p-major backend.
+
+    A stable sort by cell id permutes (vel, prepos, uid); the hard-wall-fixed
+    position and the ghost sums are recomputed on the sorted pre-fix
+    positions (_ghost_core), which gives the permuted values exactly.  Dead
+    particles sort last (cell id NC), so ``alive == sorted_cid < NC``."""
+    cid = cell_ids_grid(ghost.pos, alive, scene)
+    sorted_cid, order = torch.sort(cid, stable=True)
+    vel, prepos, uid = vel[order], prepos[order], uid[order]
+    alive = sorted_cid < scene.num_cells
+    ghost = _ghost_core(
+        prepos, alive, segments, body_lin_vel, body_ang_vel, params, scene
+    )
+    diam = params.diameter
+    sums = neighbor_forces_pmajor_sorted(
+        ghost.pos,
+        vel,
+        alive,
+        sorted_cid,
+        diam * params.collider_noise_level,
+        tick,
+        diam,
+        params.surface_smoothing,
+        params.target_pressure,
+        params.ignored_pressure,
+        params.spring_overlap_balance,
+        scene,
+        # Enables the folded tension+pressure pass-B sum when
+        # scene.fold_pairs is set.
+        pressure_amplifier=params.pressure_amplifier,
+    )
+    return TickOperands(pos=ghost.pos, vel=vel, alive=alive, uid=uid, ghost=ghost, sums=sums)
+
+
+def apply_tension(vel, alive, sums: PairSums, params: Params):
+    """Surface tension kick (crate.py:335-358)."""
+    dv = torch.where(alive[:, None], params.dt * sums.dv_tension, 0.0)
+    return vel + dv, _alive_mean_dv(dv, alive)
+
+
+def apply_gravity(vel, alive, params: Params):
+    """Gravity on particles (crate.py:309-310)."""
+    dv = torch.where(alive[:, None], params.dt * params.gravity[None, :], 0.0)
+    return vel + dv, _alive_mean_dv(dv, alive)
+
+
+def apply_pressure_force(vel, alive, sums: PairSums, ghost: GhostInfo, params: Params):
+    """Pressure force incl. ghost push-off (crate.py:286-307).
+
+    sum_s m_s * p_i * gvec_s factors as p_i * (sum_s m_s gvec_s) = p_i * gsum.
+    """
+    ghost_term = sums.p_i[:, None] * ghost.gsum
+    dv = params.dt * params.pressure_amplifier * (sums.pressure_real + ghost_term)
+    dv = torch.where(alive[:, None], dv, 0.0)
+    return vel + dv, _alive_mean_dv(dv, alive)
+
+
+def apply_spring(vel, alive, sums: PairSums, ghost: GhostInfo, params: Params):
+    """Spring force (crate.py:325-333; reference ships it disabled :117-118)."""
+    pull_ghost = params.spring_overlap_balance * ghost.gsum
+    total = sums.nbr_cnt + ghost.g_cnt
+    dv = (
+        params.dt
+        * params.spring_amplifier
+        * (sums.spring_real + pull_ghost)
+        / torch.clamp(total, min=1.0)[:, None]
+    )
+    dv = torch.where(alive[:, None] & (total > 0)[:, None], dv, 0.0)
+    return vel + dv, _alive_mean_dv(dv, alive)
+
+
+def apply_viscosity(vel, alive, sums: PairSums, params: Params):
+    """Viscosity: stale v_j snapshot, fresh v_i (crate.py:316-323)."""
+    dv = params.dt * params.viscosity * (sums.visc_vsum - sums.nbr_cnt[:, None] * vel)
+    dv = torch.where(alive[:, None], dv, 0.0)
+    return vel + dv, _alive_mean_dv(dv, alive)
+
+
+def apply_wall_bounce(vel, alive, ghost: GhostInfo, params: Params):
+    """Wall bounce against the moving-wall contact velocity (crate.py:245-259)."""
+    denom = torch.clamp(ghost.g_cnt, min=1.0)[:, None]
+    normal = ghost.gsum / denom  # mean ghost direction
+    contact_vel = ghost.gvel_sum / denom
+    n_unit, _ = geo.safe_normalize(normal)
+    rel_vel = vel - contact_vel
+    approach = (rel_vel * n_unit).sum(dim=-1)  # (P,)
+    bounce = -approach[:, None] * n_unit * (1.0 + params.wall_collision_decay)
+    hit = alive & (ghost.g_cnt > 0) & (approach < 0.0)
+    dv = torch.where(hit[:, None], bounce, 0.0)
+    return vel + dv, _alive_mean_dv(dv, alive)
+
+
+def apply_continuous_collision(pos, vel, alive, segments, params: Params, scene: Scene):
+    """Continuous collision velocity clamp (crate.py:177-200)."""
+    walls = geo.pad_segments(segments, params.particle_radius)  # (2S,2,2)
+    wall_valid = torch.cat([scene.seg_valid, scene.seg_valid])
+    crossing, t_hit = geo.segment_crossings_soa(
+        pos[:, 0], pos[:, 1], vel[:, 0] * params.dt, vel[:, 1] * params.dt, walls
+    )  # (2S, P)
+    crossing = crossing & wall_valid[:, None] & alive[None]
+    factor = torch.where(crossing, t_hit, torch.inf).amin(dim=0)
+    fix = torch.clamp(factor, max=1.0)  # 1 where no crossing
+    new_vel = vel * fix[:, None]
+    return new_vel, _alive_mean_dv(new_vel - vel, alive)
+
+
+def gravity_on_free_bodies(state: CrateState, params: Params, scene: Scene):
+    """Gravity integrates into free bodies' center velocity (crate.py:311-314)."""
+    free = scene.body_kind == BODY_FREE
+    return torch.where(
+        free[:, None], state.body_lin_vel + params.dt * params.gravity[None, :],
+        state.body_lin_vel,
+    )
+
+
+def finish_tick(
+    state: CrateState,
+    ops: TickOperands,
+    vel,
+    body_lin_vel,
+    dv_log,
+    spawn_truncated,
+    params: Params,
+) -> tuple[CrateState, Diagnostics]:
+    """Integrate positions (crate.py:360-361) and assemble diagnostics.
+
+    ``vel`` is the post-force velocity in the operands' (sorted) order;
+    dead slots' velocities are untouched by every force phase."""
+    pos, alive, sums = ops.pos, ops.alive, ops.sums
+    pos = torch.where(alive[:, None], pos + params.dt * vel, pos)
+    new_state = state._replace(
+        pos=pos,
+        vel=vel,
+        alive=alive,
+        pressure=torch.where(alive, sums.p_i, 0.0),
+        uid=ops.uid,
+        body_lin_vel=body_lin_vel,
+        tick=state.tick + 1,
+    )
+    speed2 = (vel * vel).sum(dim=-1)
+    finite = (torch.isfinite(pos) & torch.isfinite(vel)).all(dim=-1)
+    diag = Diagnostics(
+        force_dv=torch.stack(dv_log),
+        particle_count=new_state.particle_count,
+        neighbor_overflow=sums.overflow,
+        max_speed=torch.sqrt(torch.where(alive, speed2, 0.0).max()),
+        non_finite=(alive & ~finite).sum(dtype=torch.int32),
+        spawn_truncated=spawn_truncated,
+    )
+    assert diag.force_dv.shape == (NUM_FORCES,)
+    return new_state, diag
+
+
+def step(
+    state: CrateState, params: Params, scene: Scene, generator: torch.Generator
+) -> tuple[CrateState, Diagnostics]:
+    """One physics tick: (state, params, scene) -> (state, diagnostics).
+
+    ``generator`` supplies the emitters' random draws (a torch.Generator on
+    the state's device)."""
+    # -- lifecycle ---------------------------------------------------------
+    state, spawn_truncated = spawn_particles(state, params, scene, generator)
+    state = cull_particles(state, params)
+    state = advance_bodies(state, params, scene)
+
+    # -- boundary ghosts + hard wall (crate.py:97-99) ------------------------
+    ghost = ghost_phase(state, params, scene)
+
+    # -- cell sort + pair sums (crate.py:102-108, 161-358) --------------------
+    ops = neighbor_stage(
+        state.vel, state.alive, state.uid, ghost, state.tick, params, scene,
+        prepos=state.pos, segments=state.segments,
+        body_lin_vel=state.body_lin_vel, body_ang_vel=state.body_ang_vel,
+    )
+    pos, vel, alive, ghost, sums = ops.pos, ops.vel, ops.alive, ops.ghost, ops.sums
+
+    dv_log = []
+    vel, dv = apply_tension(vel, alive, sums, params)
+    dv_log.append(dv)
+    vel, dv = apply_gravity(vel, alive, params)
+    dv_log.append(dv)
+    body_lin_vel = gravity_on_free_bodies(state, params, scene)
+    vel, dv = apply_pressure_force(vel, alive, sums, ghost, params)
+    dv_log.append(dv)
+    if scene.enable_spring:
+        vel, dv = apply_spring(vel, alive, sums, ghost, params)
+        dv_log.append(dv)
+    else:
+        dv_log.append(torch.zeros((), dtype=pos.dtype, device=pos.device))
+    vel, dv = apply_viscosity(vel, alive, sums, params)
+    dv_log.append(dv)
+    vel, dv = apply_wall_bounce(vel, alive, ghost, params)
+    dv_log.append(dv)
+    vel, dv = apply_continuous_collision(pos, vel, alive, state.segments, params, scene)
+    dv_log.append(dv)
+
+    return finish_tick(state, ops, vel, body_lin_vel, dv_log, spawn_truncated, params)
+
+
+def rollout(
+    state: CrateState,
+    params: Params,
+    scene: Scene,
+    num_ticks: int,
+    generator: torch.Generator,
+) -> tuple[CrateState, Diagnostics]:
+    """Run ``num_ticks`` steps; returns the final state and the last tick's
+    diagnostics, both on the device.  No tensor is read back to the host
+    inside the loop, so on a GPU the ticks queue without waiting."""
+    diag = None
+    for _ in range(num_ticks):
+        state, diag = step(state, params, scene, generator)
+    return state, diag

@@ -1,0 +1,150 @@
+"""The port's config, scene and initial state against the JAX package's.
+
+Every shipped config builds the same Scene and initial CrateState in both
+packages (``forces_mode="pmajor"`` on both sides), the ``*_from_numpy``
+converters carry the JAX pytrees into the port and back unchanged, and the
+port imports neither JAX nor the JAX package nor PyYAML.
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from sand_crate_tpu import load_config as jax_load_config
+from sand_crate_tpu.scene import build_scene as jax_build_scene
+from sand_crate_tpu.scene import init_state as jax_init_state
+from sand_crate_tpu.state import Params as JaxParams
+from sand_crate_tpu_torch import load_config, load_config_dict
+from sand_crate_tpu_torch.scene import build_scene, init_state
+from sand_crate_tpu_torch.state import (
+    Params,
+    params_from_numpy,
+    scene_from_numpy,
+    state_from_numpy,
+    to_numpy,
+)
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+CONFIGS = sorted(p.name for p in (REPO / "configs").glob("*.yaml"))
+# JAX Scene fields that tune TPU tactics or backends the port does not have.
+TPU_ONLY = {
+    "row_block", "cell_capacity", "max_neighbors", "chunk_halo", "chunk_cs",
+    "pmajor_w", "pmajor_cs", "pmajor_split",
+}
+
+
+def _jax_fields(tree):
+    if dataclasses.is_dataclass(tree):
+        items = {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
+    else:
+        items = tree._asdict()
+    items.pop("key", None)  # the JAX PRNG key: the port holds a torch.Generator
+    return {k: np.asarray(v) if hasattr(v, "shape") else v for k, v in items.items()}
+
+
+def test_five_configs_ship():
+    assert len(CONFIGS) == 5, CONFIGS
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_scene_and_initial_state_match_jax(name):
+    jworld = jax_load_config(REPO / "configs" / name).world_config
+    tworld = load_config(REPO / "configs" / name).world_config
+    jscene = jax_build_scene(jworld, forces_mode="pmajor")
+    tscene = build_scene(tworld, forces_mode="pmajor")
+    jf, tf = _jax_fields(jscene), to_numpy(tscene)
+    assert set(jf) - set(tf) == TPU_ONLY
+    assert set(tf) <= set(jf)
+    for k, v in tf.items():
+        if k == "motor_exprs":
+            assert [(b, c, e.src) for b, c, e in v] == [(b, c, e.src) for b, c, e in jf[k]]
+        elif isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(v, jf[k], err_msg=k)
+        else:
+            assert v == jf[k], k
+
+    jstate = _jax_fields(jax_init_state(jworld, jscene, seed=3))
+    tstate = to_numpy(init_state(tworld, tscene, seed=3))
+    assert set(jstate) == set(tstate)
+    for k, v in tstate.items():
+        np.testing.assert_array_equal(v, jstate[k], err_msg=k)
+        assert v.dtype == jstate[k].dtype, k
+
+    jparams = _jax_fields(JaxParams.from_coefficients(jworld.coefficients))
+    tparams = to_numpy(Params.from_coefficients(tworld.coefficients))
+    for k, v in tparams.items():
+        np.testing.assert_array_equal(v, jparams[k], err_msg=k)
+        assert v.dtype == jparams[k].dtype, k
+
+
+@pytest.mark.parametrize("name", ["stirring_cup.yaml", "dam_break.yaml"])
+def test_from_numpy_round_trip(name):
+    """JAX pytrees -> port (leaf by leaf) -> numpy: unchanged."""
+    jworld = jax_load_config(REPO / "configs" / name).world_config
+    jscene = jax_build_scene(jworld, forces_mode="pmajor", capacity=256)
+    jstate = _jax_fields(jax_init_state(jworld, jscene, seed=1))
+    jparams = _jax_fields(JaxParams.from_coefficients(jworld.coefficients))
+    jscene_f = _jax_fields(jscene)
+    for conv, src in (
+        (state_from_numpy, jstate),
+        (params_from_numpy, jparams),
+        (scene_from_numpy, jscene_f),
+    ):
+        back = to_numpy(conv(src))
+        for k, v in back.items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(v, src[k], err_msg=k)
+            else:
+                assert v == src[k], k
+
+
+def test_forces_modes():
+    world = load_config(REPO / "configs" / "stirring_cup.yaml").world_config
+    assert build_scene(world).forces_mode == "pmajor"  # "auto" at every size
+    scene = build_scene(world, enable_spring=True)
+    assert (scene.fold_pairs, scene.pmajor_symm) == (False, True)
+    for mode in ("dense", "chunked", "gather", "cellwise", "pallas"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_scene(world, forces_mode=mode)
+
+
+def test_chip_smoke_dam_break_equals_yaml():
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    raw = yaml.safe_load((REPO / "configs" / "dam_break.yaml").read_text())
+    assert chip_smoke.DAM_BREAK == raw
+    # The dict parses to the same world as the file.
+    a = load_config_dict(chip_smoke.DAM_BREAK).world_config
+    b = load_config(REPO / "configs" / "dam_break.yaml").world_config
+    assert a == b
+
+
+def test_port_imports_no_jax_nor_yaml():
+    # Only modules that the imports below add count (an interpreter start-up
+    # hook may have loaded others before).
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import sand_crate_tpu_torch, sand_crate_tpu_torch.ops.pmajor\n"
+        "import sand_crate_tpu_torch.ops.cuda_build, sand_crate_tpu_torch.engine\n"
+        "import chip_smoke\n"
+        "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'sand_crate_tpu', 'yaml')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
