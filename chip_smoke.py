@@ -1,29 +1,46 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
 Phases (any failure raises and exits non-zero before the last line):
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi).
-2. build: compile the hand-written CUDA kernels (csrc/pmajor.cu) with nvcc.
+2. build: compile the hand-written CUDA kernels (csrc/pmajor.cu and
+   csrc/grid_pair.cu, one nvcc each, started together).
 3. world: the dam break (a dict equal to configs/dam_break.yaml) rescaled
    as bench.py rescales it, to 1,000,000 target particles (1,001,700 alive).
-4. kernels: after SETTLE_TICKS ticks, both pair-pass kernels (pass A, and
-   pass B folded and split) against their plain torch versions on the same
-   device inputs: max abs/rel error per output row, neighbor counts exact,
-   and the median times of both from CUDA events.  Then an independent
-   check of both passes at that state: for a random sample of selves, the
-   sums over every particle of the world within one diameter (brute force,
-   no cell grid or candidate ranges), in float64.
-5. main path: Crate.run for MAIN_TICKS ticks; the kernel launch counters
-   must rise by one per pass per tick; no non-finite values, no overflow,
-   the alive count conserved (closed box, no sources), uids a permutation,
-   and no blow-up (speed bounds below).  Prints steps/s and the step p50
-   with the card name.
-6. trajectory: a ~10k-particle dam break for 20 ticks on the card, once on
-   the kernel path and once with both pair passes swapped for their plain
-   torch versions, compared uid-aligned at tests/test_pmajor.py:371-374's
-   tolerance.
+4. pmajor kernels: after SETTLE_TICKS ticks, both pair-pass kernels (pass
+   A, and pass B folded and split) against their plain torch versions on
+   the same device inputs: max abs/rel error per output row, neighbor
+   counts exact, and the median times of both from CUDA events.  Then an
+   independent check of both passes at that state: for a random sample of
+   selves, the sums over every particle of the world within one diameter
+   (brute force, no cell grid or candidate ranges), in float64.
+5. pmajor main path: Crate.run for MAIN_TICKS ticks; the kernel launch
+   counters must rise by one per pass per tick; no non-finite values, no
+   overflow, the alive count conserved (closed box, no sources), uids a
+   permutation, and no blow-up (speed bounds below).  Prints steps/s and
+   the step p50 with the card name.
+6. pmajor trajectory: a ~10k-particle dam break for 20 ticks on the card,
+   once on the kernel path and once with both pair passes swapped for
+   their plain torch versions, compared uid-aligned at
+   tests/test_pmajor.py:371-374's tolerance.
+7. grid kernels: the same 1M world on the slot-grid backend
+   (forces_mode="pallas", cell_capacity 16), settled GRID_SETTLE_TICKS
+   ticks; at that state place_grid, pair_pass_a, pair_pass_b (grid mode)
+   and pair_pass_b_emit against their plain versions (max abs/rel error
+   per plane, the grid and the counts exact), emit mode equal bit for bit
+   to grid mode plus gather_pair_sums, median times, and for place_grid the
+   time of the one PyTorch call that does the same scatter (index_put_).
+   Then the particle-order provider (neighbor_forces_pallas, the path that
+   runs grid-mode pass B) is driven once with the counters reset.
+8. grid main path: Crate.run for GRID_TICKS ticks at 1M on the slot grid;
+   the counters rise by one per kernel per tick, non_finite 0, the last
+   tick's overflow equal to an independent count (bincount) of alive
+   particles past 16 in a cell, alive count and uids kept, the same
+   blow-up bounds; steps/s and step p50.
+9. grid trajectory: as phase 6 on the slot-grid backend, the three grid
+   wrappers swapped for their plain versions.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -101,6 +118,17 @@ MAIN_TICKS = 200
 P50_TICKS = 30
 TRAJ_PARTICLES = 10_000
 TRAJ_TICKS = 20
+GRID_SETTLE_TICKS = 20
+GRID_TICKS = 100
+GRID_SLOTS = 16  # the JAX default cell_capacity
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and f32 flop/s
+# outside the tensor cores; a kernel's bound is the larger of its bytes
+# over the first and its operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# f32 operations per pair that passes the mask, an upper estimate from the
+# kernels' sources (geometry with jitter ~26, pass-A sums ~8, pass-B ~21).
+PAIR_FLOPS = 50
 # Kernel vs plain version, same inputs: both perform the same IEEE f32
 # operations in the same order (csrc/pmajor.cu), so they are expected to
 # agree bit for bit; the check allows 1e-4 of each row's largest magnitude,
@@ -121,6 +149,7 @@ RUNAWAY_SPEED = 100.0
 RUNAWAY_SHARE = 1e-3
 SOURCE = "sand_crate_tpu_torch/csrc/pmajor.cu"
 REPLACES = "sand_crate_tpu/ops/pmajor.py:183"
+GRID_SOURCE = "sand_crate_tpu_torch/csrc/grid_pair.cu"
 
 
 def check(ok: bool, what: str) -> None:
@@ -157,6 +186,22 @@ def cuda_ms(fn, reps: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time the card could take for the
+    bytes moved (each input read once, each output written once) and the
+    f32 operations, at the published peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops, library_ms=None):
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def compare(label, got, ref, exact_rows=()):
@@ -202,8 +247,10 @@ def kernels_vs_plain(crate):
 
     out_a = pass_a()
     err_a = compare("pass A", out_a, pass_a_plain(), exact_rows=(3,))
-    rows = [dict(name="pm_pass_a", route="cuda", source=SOURCE, replaces=REPLACES,
-                 max_abs_err=err_a, ms=cuda_ms(pass_a, 20), plain_ms=cuda_ms(pass_a_plain, 3))]
+    P = slab_a.shape[0]
+    pairs = float(out_a[3].sum())  # directed pairs within the cutoff
+    rows = [kernel_row("pm_pass_a", SOURCE, REPLACES, err_a, cuda_ms(pass_a, 20),
+                       cuda_ms(pass_a_plain, 3), (8 + 6 + 6) * 4 * P, pairs * PAIR_FLOPS)]
 
     cp = pmajor.finalize_cp(out_a[0], out_a[3], pr.ignored_pressure)
     err_b = {}
@@ -221,9 +268,9 @@ def kernels_vs_plain(crate):
         err_b[variant] = compare(f"pass B {variant}", out_b, pass_b_plain())
         brute_force(slab_a, slab_b, out_a, out_b, st.alive[order], coef, fold, symm)
         if fold:  # the main path's variant is the one timed and reported
-            rows.append(dict(name="pm_pass_b", route="cuda", source=SOURCE,
-                             replaces=REPLACES, max_abs_err=err_b[variant],
-                             ms=cuda_ms(pass_b, 20), plain_ms=cuda_ms(pass_b_plain, 3)))
+            rows.append(kernel_row("pm_pass_b", SOURCE, REPLACES, err_b[variant],
+                                   cuda_ms(pass_b, 20), cuda_ms(pass_b_plain, 3),
+                                   (8 + 6 + 2) * 4 * P, pairs * PAIR_FLOPS))
     for r in rows:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (median, CUDA events)")
     return rows
@@ -279,68 +326,180 @@ def brute_force(slab_a, slab_b, out_a, out_b, alive, coef, fold, symm):
           f"max count {int(ref_a[3].max())}")
 
 
-def uid_aligned(crate):
-    s = crate.state
-    order = s.uid.long().cpu().argsort()
-    return s.pos.cpu()[order], s.vel.cpu()[order], s.alive.cpu()[order]
-
-
-def main() -> int:
+def grid_kernels_vs_plain(crate):
+    """Phase 7: the three grid kernels, every mode, against their plain
+    versions at the crate's current state, cell-sorted as the tick sorts it.
+    Returns (rows, sorted operands) for the provider phase."""
     import torch
 
-    # -- 1. card ---------------------------------------------------------------
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print("card (nvidia-smi name, power.limit):")
-    print(smi, flush=True)
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+    from sand_crate_tpu_torch.ops import pair_kernel as pk
+    from sand_crate_tpu_torch.ops import placement as pl
+    from sand_crate_tpu_torch.ops.pallas_forces import (
+        gather_pair_sums, grid_width, pair_sums_from_planes,
+    )
 
-    from sand_crate_tpu_torch import Crate
-    from sand_crate_tpu_torch.ops import cuda_build, pmajor
+    st, sc, pr = crate.state, crate.scene, crate.params
+    M, nx, ny = sc.cell_capacity, sc.grid_nx, sc.grid_ny
+    nxp = grid_width(nx)
+    sorted_cid, order = torch.sort(cell_ids_grid(st.pos, st.alive, sc), stable=True)
+    pos, vel, alive = st.pos[order], st.vel[order], st.alive[order]
+    slab, row_start, gather_slot, overflow = pl.slab_from_sorted(
+        pos, alive, vel, sorted_cid, M, nx, ny)
+    P, p_pad = pos.shape[0], slab.shape[1]
+    amp = pr.diameter * pr.collider_noise_level
+    coefs = (pr.diameter, pr.surface_smoothing, pr.target_pressure,
+             pr.spring_overlap_balance, pr.ignored_pressure, amp, st.tick)
+    spring = sc.enable_spring
+
+    def place():
+        return pl.place_grid(slab, row_start, M, nx, ny, nxp)
+
+    def place_plain():
+        return pl.place_grid_plain(slab, row_start, M, nx, ny, nxp)
+
+    valid = slab[7] > 0
+    cx, rank, row = (slab[r][valid].long() for r in (4, 5, 6))
+    feats = slab[:4][:, valid]
+
+    def place_library():  # the one-call scatter, timed as a yardstick only
+        g = torch.zeros((4, ny + 2, M, nxp), dtype=torch.float32, device=slab.device)
+        g[:, row + 1, rank, cx + 1] = feats
+        return g
+
+    grid = place()
+    check(torch.equal(grid, place_plain()), "place_grid differs from its plain version")
+    check(torch.equal(grid, place_library()), "place_grid differs from the index_put_ scatter")
+    plane = grid[0].numel()
+    occupied = int((grid[0] > pk.ALIVE_THRESHOLD).sum())
+    print(f"  grid (4, {ny + 2}, {M}, {nxp}): {occupied} of {plane} slots occupied "
+          f"({occupied / plane:.4f}); overflow {int(overflow)}; place_grid exact")
+
+    def pass_a():
+        return pk.pair_pass_a(grid, pr.diameter, amp, st.tick)
+
+    def pass_a_plain():
+        return pk.pair_pass_a_plain(grid, pr.diameter, amp, st.tick)
+
+    ps = pass_a()
+    err_a = compare("pair_pass_a", ps.reshape(4, -1), pass_a_plain().reshape(4, -1), exact_rows=(3,))
+    pairs = float(ps[3].sum())
+
+    def pass_b():
+        return pk.pair_pass_b(grid, ps, *coefs, enable_spring=spring)
+
+    def pass_b_plain():
+        return pk.pair_pass_b_plain(grid, ps, *coefs, enable_spring=spring)
+
+    def emit():
+        return pk.pair_pass_b_emit(grid, ps, slab, row_start, sorted_cid, nx, *coefs,
+                                   enable_spring=spring)
+
+    def emit_plain():
+        return pk.pair_pass_b_plain(grid, ps, *coefs, enable_spring=spring, mode="emit",
+                                    slab=slab, n_particles=P)
+
+    out_g = pass_b()
+    nb = out_g.shape[0]
+    err_g = compare("pair_pass_b grid", out_g.reshape(nb, -1), pass_b_plain().reshape(nb, -1),
+                    exact_rows=(nb - 1,))
+    out_e = emit()
+    err_e = compare("pair_pass_b emit", out_e, emit_plain(), exact_rows=(nb - 1,))
+    check(not out_e[:, P:].any(), "emit: padding columns are not zero")
+    gathered = gather_pair_sums(out_g, gather_slot, M, nx, ny, nxp, spring, overflow,
+                                torch.float32)
+    emitted = pair_sums_from_planes(out_e[:, :P], spring, overflow, torch.float32)
+    for name, a, b in zip(gathered._fields, gathered, emitted):
+        check(torch.equal(a, b), f"emit mode differs from grid mode + gather_pair_sums in {name}")
+    print("  emit mode == grid mode + gather_pair_sums, bit for bit")
+
+    # Bytes each function must move at this state's occupancy: a dense
+    # output is written whole; of a dense input, the posx plane is read
+    # whole where the function must find the occupied slots itself, and the
+    # other planes only at the occupied slots; emit mode finds its slots in
+    # the slab (cx, rank, row) and reads only those.
+    f32 = 4
+    occ_bytes = f32 * occupied  # one plane at the occupied slots
+    emit_pairs = float(out_e[nb - 1].sum())
+    rows = [
+        kernel_row("place_grid", GRID_SOURCE, "sand_crate_tpu/ops/placement.py:145", 0.0,
+                   cuda_ms(place, 20), cuda_ms(place_plain, 3),
+                   f32 * 8 * p_pad + f32 * 4 * plane, 0.0, library_ms=cuda_ms(place_library, 20)),
+        kernel_row("pair_pass_a", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:193", err_a,
+                   cuda_ms(pass_a, 20), cuda_ms(pass_a_plain, 2),
+                   f32 * plane + occ_bytes + f32 * 4 * plane, pairs * PAIR_FLOPS),
+        kernel_row("pair_pass_b_grid", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:666",
+                   err_g, cuda_ms(pass_b, 20), cuda_ms(pass_b_plain, 2),
+                   f32 * plane + 7 * occ_bytes + f32 * nb * ny * M * nxp, pairs * PAIR_FLOPS),
+        kernel_row("pair_pass_b_emit", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:707",
+                   err_e, cuda_ms(emit, 20), cuda_ms(emit_plain, 2),
+                   f32 * 3 * P + 8 * occ_bytes + f32 * nb * p_pad, emit_pairs * PAIR_FLOPS),
+    ]
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f", index_put_ {r['library_ms']:.4f} ms" if r["library_ms"] else ""))
+    return rows, (pos, vel, alive, sorted_cid, amp)
+
+
+def grid_provider_path(crate, sorted_ops):
+    """Phase 7, second part: the particle-order provider, the path that runs
+    grid-mode pass B, driven once with the counters reset; on cell-sorted
+    operands it equals the sorted provider bit for bit."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import pair_kernel as pk
+    from sand_crate_tpu_torch.ops.pallas_forces import (
+        neighbor_forces_pallas, neighbor_forces_pallas_sorted,
+    )
+
+    pos, vel, alive, sorted_cid, amp = sorted_ops
+    pr, sc = crate.params, crate.scene
+    args = (amp, crate.state.tick, pr.diameter, pr.surface_smoothing, pr.target_pressure,
+            pr.ignored_pressure, pr.spring_overlap_balance, sc)
+    sorted_sums = neighbor_forces_pallas_sorted(pos, vel, alive, sorted_cid, *args)
+    reset(pk.LAUNCHES)
+    sums = neighbor_forces_pallas(pos, vel, alive, *args)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    print(f"grid provider path: neighbor_forces_pallas once, launches {launches}")
+    check(launches == {"place_grid": 1, "pair_pass_a": 1, "pair_pass_b_grid": 1,
+                       "pair_pass_b_emit": 0}, "provider path launches")
+    for name, a, b in zip(sums._fields, sums, sorted_sums):
+        check(torch.equal(a, b), f"particle-order and sorted providers differ in {name}")
+    return launches
+
+
+def reset(counts: dict) -> None:
+    for key in counts:
+        counts[key] = 0
+
+
+def drive(crate, ticks: int, label: str, counts: dict, expected: dict, overflow_ref=None):
+    """Run ``ticks`` ticks through Crate.run with ``counts`` reset first, and
+    check the invariants of a closed box; returns (launches, steps/s, p50).
+    ``overflow_ref(state)`` gives the independent overflow count of one
+    tick from the state before it."""
+    import torch
+
     from sand_crate_tpu_torch.physics import step
 
-    # -- 2. build --------------------------------------------------------------
-    t0 = time.perf_counter()
-    cuda_build.load("pmajor")
-    print(f"build: pmajor.cu in {time.perf_counter() - t0:.2f} s")
-    for line in cuda_build.BUILD_LOGS.get("pmajor", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
-    # -- 3. world --------------------------------------------------------------
-    t0 = time.perf_counter()
-    crate = Crate(dam_break_world(N_TARGET), device="cuda")
     n0 = crate.particle_count
-    sc = crate.scene
-    print(f"world: dam break, {n0} alive, capacity {sc.capacity}, grid "
-          f"{sc.grid_nx}x{sc.grid_ny}, built in {time.perf_counter() - t0:.2f} s")
-    check(n0 == 1_001_700 and sc.capacity == 1_050_112, "1M world size")
-
-    # -- 4. kernels against their plain versions ---------------------------------
-    t0 = time.perf_counter()
-    crate.run(SETTLE_TICKS)
-    print(f"settle: {SETTLE_TICKS} ticks in {time.perf_counter() - t0:.2f} s")
-    print("kernels vs plain versions (same device inputs):")
-    rows = kernels_vs_plain(crate)
-
-    # -- 5. main path ------------------------------------------------------------
-    for mode in pmajor.LAUNCHES:
-        pmajor.LAUNCHES[mode] = 0
+    reset(counts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    diag = crate.run(MAIN_TICKS)
+    crate.run(ticks - 1)
+    before = crate.state
+    diag = crate.run(1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(pmajor.LAUNCHES)
-    print(f"main path: Crate.run({MAIN_TICKS}) launches {launches}")
-    check(launches == {"a": MAIN_TICKS, "b": MAIN_TICKS}, "kernel launches != 1 per pass per tick")
+    launches = dict(counts)
+    print(f"{label}: Crate.run({ticks}) launches {launches}")
+    check(launches == expected, f"{label}: launches {launches} != {expected}")
     check(int(diag.non_finite) == 0, f"non_finite {int(diag.non_finite)}")
-    check(int(diag.neighbor_overflow) == 0, "neighbor_overflow")
+    want = 0 if overflow_ref is None else overflow_ref(before)
+    print(f"  overflow {int(diag.neighbor_overflow)} (independent count {want})")
+    check(int(diag.neighbor_overflow) == want, "neighbor_overflow")
     check(int(diag.particle_count) == n0, f"alive count {int(diag.particle_count)} != {n0}")
     st = crate.state
     uids = torch.sort(st.uid[st.alive]).values
@@ -364,39 +523,163 @@ def main() -> int:
         events[k + 1].record()
     torch.cuda.synchronize()
     p50 = statistics.median(events[k].elapsed_time(events[k + 1]) for k in range(P50_TICKS))
-    print(f"main path on {smi}: {n0} particles, {MAIN_TICKS / wall:.3f} steps/s "
-          f"({wall / MAIN_TICKS * 1000:.3f} ms/step mean over {MAIN_TICKS} ticks, "
-          f"host clock + synchronize), step p50 {p50:.3f} ms "
-          f"(CUDA events, {P50_TICKS} ticks)")
+    return launches, ticks / wall, p50, wall
 
-    # -- 6. trajectory: kernel path vs plain path, both on the card -------------
+
+def over_capacity(crate, M: int):
+    """An independent overflow count: the alive particles past ``M`` in
+    their cell, by bincount over the cell ids that the next tick sorts by
+    (cull, bodies and the hard-wall fix applied to ``state`` as the tick
+    applies them)."""
+    import torch
+
+    from sand_crate_tpu_torch import physics
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+
+    def count(state):
+        pr, sc = crate.params, crate.scene
+        s = physics.advance_bodies(physics.cull_particles(state, pr), pr, sc)
+        cid = cell_ids_grid(physics.ghost_phase(s, pr, sc).pos, s.alive, sc)
+        per_cell = torch.bincount(cid[s.alive].long(), minlength=sc.num_cells)
+        return int(torch.clamp(per_cell - M, min=0).sum())
+
+    return count
+
+
+def uid_aligned(crate):
+    s = crate.state
+    order = s.uid.long().cpu().argsort()
+    return s.pos.cpu()[order], s.vel.cpu()[order], s.alive.cpu()[order]
+
+
+def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict):
+    """A ~10k-particle dam break for TRAJ_TICKS ticks on the card, on the
+    kernel path and with ``swaps`` ((module, name, plain), ...) in place;
+    the kernel run must launch the kernels as ``expected``, the plain run
+    none, and the two agree uid-aligned."""
+    import torch
+
+    from sand_crate_tpu_torch import Crate
+
     world = dam_break_world(TRAJ_PARTICLES)
-    with_kernels = Crate(world, device="cuda")
-    with_plain = Crate(world, device="cuda")
-    before = dict(pmajor.LAUNCHES)
+    with_kernels = Crate(world, device="cuda", forces_mode=forces_mode)
+    with_plain = Crate(world, device="cuda", forces_mode=forces_mode)
+    reset(counts)
     with_kernels.run(TRAJ_TICKS)
-    after_kernels = dict(pmajor.LAUNCHES)
-    kernel_pass = pmajor.pm_pass
-    pmajor.pm_pass = pmajor.pm_pass_plain  # the step's passes, as plain torch
+    after_kernels = dict(counts)
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         with_plain.run(TRAJ_TICKS)
     finally:
-        pmajor.pm_pass = kernel_pass
-    check(all(after_kernels[m] - before[m] == TRAJ_TICKS for m in before)
-          and pmajor.LAUNCHES == after_kernels,
-          "trajectory: the kernel run must launch the kernels and the plain run none")
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
+    check(after_kernels == expected and counts == after_kernels,
+          f"{label}: the kernel run must launch the kernels once a tick and the plain run none")
     pk, vk, ak = uid_aligned(with_kernels)
     pp, vp, ap = uid_aligned(with_plain)
-    check(torch.equal(ak, ap), "trajectory alive masks differ")
+    check(torch.equal(ak, ap), f"{label}: alive masks differ")
     dpos = float((pk[ak] - pp[ap]).abs().max())
     dvel = float((vk[ak] - vp[ap]).abs().max())
-    print(f"trajectory: {int(ak.sum())} particles x {TRAJ_TICKS} ticks, kernel path vs "
-          f"plain path on the card: max |dpos| {dpos:.3e}, max |dvel| {dvel:.3e}")
+    print(f"{label}: {int(ak.sum())} particles x {TRAJ_TICKS} ticks, kernel path vs "
+          f"plain path on the card: max |dpos| {dpos:.3e}, max |dvel| {dvel:.3e}, "
+          f"launches {after_kernels}")
     torch.testing.assert_close(pk[ak], pp[ap], rtol=2e-3, atol=2e-4)
 
+
+def main() -> int:
+    import torch
+
+    # -- 1. card ---------------------------------------------------------------
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print("card (nvidia-smi name, power.limit):")
+    print(smi, flush=True)
+
+    from sand_crate_tpu_torch import Crate
+    from sand_crate_tpu_torch.ops import cuda_build, pair_kernel, placement, pmajor
+
+    # -- 2. build --------------------------------------------------------------
+    t0 = time.perf_counter()
+    cuda_build.build("pmajor", "grid_pair")
+    print(f"build: pmajor.cu and grid_pair.cu in {time.perf_counter() - t0:.2f} s")
+    for name in ("pmajor", "grid_pair"):
+        for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    # -- 3. world --------------------------------------------------------------
+    t0 = time.perf_counter()
+    crate = Crate(dam_break_world(N_TARGET), device="cuda")
+    n0 = crate.particle_count
+    sc = crate.scene
+    print(f"world: dam break, {n0} alive, capacity {sc.capacity}, grid "
+          f"{sc.grid_nx}x{sc.grid_ny}, built in {time.perf_counter() - t0:.2f} s")
+    check(n0 == 1_001_700 and sc.capacity == 1_050_112, "1M world size")
+
+    # -- 4. pmajor kernels against their plain versions -------------------------
+    t0 = time.perf_counter()
+    crate.run(SETTLE_TICKS)
+    print(f"settle: {SETTLE_TICKS} ticks in {time.perf_counter() - t0:.2f} s")
+    print("pmajor kernels vs plain versions (same device inputs):")
+    rows = kernels_vs_plain(crate)
+
+    # -- 5. pmajor main path ------------------------------------------------------
+    launches, rate, p50, wall = drive(crate, MAIN_TICKS, "pmajor main path", pmajor.LAUNCHES,
+                                      {"a": MAIN_TICKS, "b": MAIN_TICKS})
+    print(f"pmajor main path on {smi}: {n0} particles, {rate:.3f} steps/s "
+          f"({wall / MAIN_TICKS * 1000:.3f} ms/step mean over {MAIN_TICKS} ticks, "
+          f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
     for r in rows:
         r["launches"] = launches[r["name"][-1]]
-    print(json.dumps({"kernels": rows}))
+    del crate
+
+    # -- 6. pmajor trajectory: kernel path vs plain path, both on the card ------
+    trajectory("pmajor trajectory", "pmajor", [(pmajor, "pm_pass", pmajor.pm_pass_plain)],
+               pmajor.LAUNCHES, {"a": TRAJ_TICKS, "b": TRAJ_TICKS})
+
+    # -- 7. grid kernels against their plain versions ---------------------------
+    t0 = time.perf_counter()
+    grid_crate = Crate(dam_break_world(N_TARGET), device="cuda", forces_mode="pallas",
+                       cell_capacity=GRID_SLOTS)
+    check(grid_crate.particle_count == n0, "1M world size (grid)")
+    grid_crate.run(GRID_SETTLE_TICKS)
+    print(f"grid settle: {GRID_SETTLE_TICKS} ticks in {time.perf_counter() - t0:.2f} s")
+    print("grid kernels vs plain versions (same device inputs):")
+    grid_rows, sorted_ops = grid_kernels_vs_plain(grid_crate)
+    provider = grid_provider_path(grid_crate, sorted_ops)
+    del sorted_ops
+
+    # -- 8. grid main path -------------------------------------------------------
+    launches, rate, p50, wall = drive(
+        grid_crate, GRID_TICKS, "grid main path", pair_kernel.LAUNCHES,
+        {"place_grid": GRID_TICKS, "pair_pass_a": GRID_TICKS, "pair_pass_b_grid": 0,
+         "pair_pass_b_emit": GRID_TICKS},
+        overflow_ref=over_capacity(grid_crate, GRID_SLOTS),
+    )
+    print(f"grid main path on {smi}: {n0} particles, {rate:.3f} steps/s "
+          f"({wall / GRID_TICKS * 1000:.3f} ms/step mean over {GRID_TICKS} ticks, "
+          f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
+    for r in grid_rows:  # grid-mode pass B runs on the provider path, not the tick
+        r["launches"] = (provider if r["name"] == "pair_pass_b_grid" else launches)[r["name"]]
+    del grid_crate
+
+    # -- 9. grid trajectory --------------------------------------------------------
+    trajectory("grid trajectory", "pallas", [
+        (placement, "place_grid", placement.place_grid_plain),
+        (pair_kernel, "pair_pass_a", pair_kernel.pair_pass_a_plain),
+        (pair_kernel, "pair_pass_b", pair_kernel.pair_pass_b_plain),
+    ], pair_kernel.LAUNCHES, {"place_grid": TRAJ_TICKS, "pair_pass_a": TRAJ_TICKS,
+                              "pair_pass_b_grid": 0, "pair_pass_b_emit": TRAJ_TICKS})
+
+    print(json.dumps({"kernels": rows + grid_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

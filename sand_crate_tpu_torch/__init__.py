@@ -2,9 +2,11 @@
 
 The same 2D particle-liquid simulator as the JAX package beside it — a pure
 step over fixed-capacity particle tensors with a cell-sorted state — running
-on an NVIDIA Hopper GPU, with the p-major pair passes as hand-written CUDA
-kernels (``csrc/pmajor.cu``).  It imports neither JAX nor ``sand_crate_tpu``.
-On CPU tensors every kernel runs as its plain torch version.
+on an NVIDIA Hopper GPU, with the pair passes of its two backends as
+hand-written CUDA kernels (``csrc/pmajor.cu`` for "pmajor",
+``csrc/grid_pair.cu`` for the slot-grid "pallas" mode).  It imports neither
+JAX nor ``sand_crate_tpu``.  On CPU tensors every kernel runs as its plain
+torch version.
 """
 
 from .config import COEFFICIENT_NAMES, Config, load_config, load_config_dict

@@ -6,8 +6,10 @@ The counterpart of ``sand_crate_tpu/engine.py``: ``physics_tick()``,
 and the ``particles`` / ``particle_velocities`` / ``particles_pressure`` /
 ``segments`` / ``debug_prints`` views (playback.py:77-81), while the state
 lives on ``device`` as a :class:`~sand_crate_tpu_torch.state.CrateState`
-advanced by the functional step.  The emitters draw from a
-``torch.Generator`` on the same device, seeded from ``seed``.
+advanced by the functional step.  ``device`` defaults to "cuda": without a
+card the constructor raises, and the caller asks for the CPU with
+``device="cpu"``.  The emitters draw from a ``torch.Generator`` on the same
+device, seeded from ``seed``.
 
 Not ported yet (ROADMAP queue 1 items 6 and 10): grid rebuilds on a radius
 edit past the cell size, ``stream_frames``, checkpoints and
@@ -51,20 +53,27 @@ class Crate:
         capacity: Optional[int] = None,
         enable_spring: bool = False,
         forces_mode: str = "auto",
+        cell_capacity: Optional[int] = None,
         pmajor_symm: Optional[bool] = None,
         instrument: bool = False,
-        device="cpu",
+        device="cuda",
     ) -> None:
         if instrument:
             raise NotImplementedError(
                 "instrument=True is not ported yet (ROADMAP queue 1 item 10)"
             )
         device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Crate runs on the CUDA device by default and none is available; "
+                "pass device='cpu' to run on the CPU"
+            )
         scene = build_scene(
             world_config,
             capacity=capacity,
             enable_spring=enable_spring,
             forces_mode=forces_mode,
+            cell_capacity=cell_capacity,
             pmajor_symm=pmajor_symm,
             device=device,
         )

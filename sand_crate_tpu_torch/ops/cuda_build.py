@@ -25,9 +25,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# pmajor: -fmad=false keeps every multiply and add separately rounded, so the
-# kernel reproduces its plain torch version bit for bit (see csrc/pmajor.cu).
-SOURCE_FLAGS = {"pmajor": ("-fmad=false",)}
+# -fmad=false keeps every multiply and add separately rounded, so the kernels
+# reproduce their plain torch versions bit for bit (see each source's note).
+SOURCE_FLAGS = {"pmajor": ("-fmad=false",), "grid_pair": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}  # name -> nvcc/ptxas output of this process's build
@@ -41,27 +41,45 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _library(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> None:
+    """Compile the named sources that are not built yet, one nvcc process
+    each, all started together."""
+    jobs = []
+    for name in names:
+        so = _library(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, proc))
+    failed = []
+    for name, so, tmp, proc in jobs:  # wait for every process, then report
+        out = proc.communicate()[0]
+        BUILD_LOGS[name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}.cu:\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu`` as a loaded library, compiled on first use."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-    so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}) building {src.name}:\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        BUILD_LOGS[name] = res.stdout + res.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    build(name)
+    lib = ctypes.CDLL(str(_library(name)))
     _LIBS[name] = lib
     return lib

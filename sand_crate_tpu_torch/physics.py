@@ -1,7 +1,8 @@
 """The physics tick as one functional step on tensors.
 
 The PyTorch counterpart of ``sand_crate_tpu/physics.py`` for the p-major
-backend.  Tick order (must match the reference crate.py:91-129):
+and slot-grid ("pallas") backends.  Tick order (must match the reference
+crate.py:91-129):
 
   1.  spawn from sources, cull out-of-box particles
   2.  advance rigid bodies
@@ -9,7 +10,8 @@ backend.  Tick order (must match the reference crate.py:91-129):
       hard wall projection
   4.  stable cell-id sort of (vel, pre-fix pos, uid), ghost pass recomputed
       on the sorted order, then the pair sums (ops/pmajor.py: feature rows
-      -> pass A -> cell pressure -> pass B)
+      -> pass A -> cell pressure -> pass B; or ops/pallas_forces.py: slab
+      -> slot grid -> pass A -> pass B emitted in sorted order)
   5.  tension, gravity, pressure, spring (flag-gated), viscosity, wall
       bounce, continuous collision kicks
   6.  integrate positions
@@ -28,6 +30,7 @@ import torch
 from . import geometry as geo
 from .cellwise import PairSums, cell_ids_grid
 from .config import BODY_FIXED, BODY_FREE, BODY_MOTORED
+from .ops.pallas_forces import neighbor_forces_pallas_sorted
 from .ops.pmajor import neighbor_forces_pmajor_sorted
 from .state import NUM_FORCES, CrateState, Diagnostics, Params, Scene
 
@@ -315,12 +318,13 @@ def neighbor_stage(
     body_ang_vel: torch.Tensor,
 ) -> TickOperands:
     """Neighbor detection + collider population + pressures (crate.py:102-108)
-    on the p-major backend.
+    on the scene's backend, p-major or the slot grid ("pallas").
 
     A stable sort by cell id permutes (vel, prepos, uid); the hard-wall-fixed
     position and the ghost sums are recomputed on the sorted pre-fix
     positions (_ghost_core), which gives the permuted values exactly.  Dead
-    particles sort last (cell id NC), so ``alive == sorted_cid < NC``."""
+    particles sort last (cell id NC), so ``alive == sorted_cid < NC``.  Both
+    backends share the sort and the recompute, as in the JAX package."""
     cid = cell_ids_grid(ghost.pos, alive, scene)
     sorted_cid, order = torch.sort(cid, stable=True)
     vel, prepos, uid = vel[order], prepos[order], uid[order]
@@ -329,7 +333,7 @@ def neighbor_stage(
         prepos, alive, segments, body_lin_vel, body_ang_vel, params, scene
     )
     diam = params.diameter
-    sums = neighbor_forces_pmajor_sorted(
+    args = (
         ghost.pos,
         vel,
         alive,
@@ -342,10 +346,15 @@ def neighbor_stage(
         params.ignored_pressure,
         params.spring_overlap_balance,
         scene,
+    )
+    if scene.forces_mode == "pallas":
+        sums = neighbor_forces_pallas_sorted(*args)
+    else:
         # Enables the folded tension+pressure pass-B sum when
         # scene.fold_pairs is set.
-        pressure_amplifier=params.pressure_amplifier,
-    )
+        sums = neighbor_forces_pmajor_sorted(
+            *args, pressure_amplifier=params.pressure_amplifier
+        )
     return TickOperands(pos=ghost.pos, vel=vel, alive=alive, uid=uid, ghost=ghost, sums=sums)
 
 

@@ -23,7 +23,6 @@ _NOT_PORTED = {
     "chunked": "ROADMAP queue 1 item 7",
     "gather": "ROADMAP queue 1 item 8",
     "cellwise": "ROADMAP queue 1 item 8",
-    "pallas": "ROADMAP queue 1 item 9",
 }
 
 
@@ -60,6 +59,7 @@ def build_scene(
     capacity: int | None = None,
     enable_spring: bool = False,
     forces_mode: str = "auto",
+    cell_capacity: int | None = None,
     fold_pairs: bool | None = None,
     pmajor_symm: bool | None = None,
     device="cpu",
@@ -67,10 +67,13 @@ def build_scene(
 ) -> Scene:
     """Build the immutable Scene from a parsed world config.
 
-    ``forces_mode``: "pmajor", or "auto", which resolves to "pmajor" at every
-    size until the small-crate backends are ported (the JAX thresholds at
-    sand_crate_tpu/scene.py:86-98 were tuned on a TPU).  Every other JAX mode
-    raises NotImplementedError naming the ROADMAP item that ports it.
+    ``forces_mode``: "pmajor", "pallas" (the slot-grid backend), or "auto",
+    which resolves to "pmajor" at every size until the small-crate backends
+    are ported (the JAX thresholds at sand_crate_tpu/scene.py:86-98 were
+    tuned on a TPU; the JAX "auto" never picks "pallas" either).  Every
+    other JAX mode raises NotImplementedError naming the ROADMAP item that
+    ports it.  ``cell_capacity``: the pallas grid's slots per cell (default
+    16, as in the JAX package).
     """
     if forces_mode == "auto":
         forces_mode = "pmajor"
@@ -78,8 +81,10 @@ def build_scene(
         raise NotImplementedError(
             f"forces_mode={forces_mode!r} is not ported yet ({_NOT_PORTED[forces_mode]})"
         )
-    if forces_mode != "pmajor":
+    if forces_mode not in ("pmajor", "pallas"):
         raise ValueError(f"unknown forces_mode {forces_mode!r}")
+    if cell_capacity is None:
+        cell_capacity = 16
     coeff = world.coefficients
     diameter = 2.0 * float(coeff["particle_radius"])
     capacity = capacity or default_capacity(int(coeff["max_particles"]))
@@ -158,9 +163,9 @@ def build_scene(
 
     # ---- p-major pair options (JAX defaults, scene.py:208-221) ----
     if fold_pairs is None:
-        fold_pairs = not enable_spring
+        fold_pairs = forces_mode == "pmajor" and not enable_spring
     if pmajor_symm is None:
-        pmajor_symm = True
+        pmajor_symm = forces_mode == "pmajor"
 
     # ---- spawn cap ----
     dt = float(coeff["dt"])
@@ -188,6 +193,7 @@ def build_scene(
             max_spawn=max_spawn,
             enable_spring=enable_spring,
             forces_mode=forces_mode,
+            cell_capacity=int(cell_capacity),
             fold_pairs=bool(fold_pairs),
             pmajor_symm=bool(pmajor_symm),
             motor_exprs=tuple(motor_exprs),

@@ -76,10 +76,11 @@ class Scene:
 
     Tensor fields live on the crate's device; the trailing int/float/bool
     fields are host values the step branches on.  The JAX Scene's
-    TPU-tactic fields (``row_block``, ``cell_capacity``, ``max_neighbors``,
-    ``chunk_halo``, ``chunk_cs``, ``pmajor_w``, ``pmajor_cs``,
-    ``pmajor_split``) have no counterpart: the port's p-major kernel visits
-    every candidate, and the backends those fields tune are not ported yet.
+    TPU-tactic fields (``row_block``, ``max_neighbors``, ``chunk_halo``,
+    ``chunk_cs``, ``pmajor_w``, ``pmajor_cs``, ``pmajor_split``) have no
+    counterpart: the port's p-major kernel visits every candidate, the grid
+    kernels need no row block, and the backends the other fields tune are
+    not ported yet.
     """
 
     # --- rigid bodies (reference: rigid_body.py:36-40) ---------------------
@@ -110,10 +111,15 @@ class Scene:
     grid_ny: int = 104
     max_spawn: int = 64
     enable_spring: bool = False
-    # Neighbor-force backend.  The port has "pmajor" only (the grid-free
-    # sorted-slab pair kernels, ops/pmajor.py); scene.build_scene rejects the
-    # JAX package's other modes until they are ported.
+    # Neighbor-force backend: "pmajor" (the grid-free sorted-slab pair
+    # kernels, ops/pmajor.py) or "pallas" (the padded slot grid,
+    # ops/pallas_forces.py); scene.build_scene rejects the JAX package's
+    # other modes until they are ported.
     forces_mode: str = "pmajor"
+    # Slots per grid cell of the "pallas" backend (M of the (F, NYP, M, NXP)
+    # grid).  It changes results: particles past rank M in a cell take
+    # their rank % M cellmate's sums and are counted in the overflow.
+    cell_capacity: int = 16
     # Fold tension and pressure into one pass-B force sum (see the JAX
     # Scene.fold_pairs): the PairSums then carry the combined kick in
     # dv_tension and zeros in pressure_real.
@@ -172,7 +178,7 @@ class Diagnostics(NamedTuple):
 
     force_dv: torch.Tensor  # (NUM_FORCES,) f32 — mean ||dv|| over alive
     particle_count: torch.Tensor  # () int32
-    neighbor_overflow: torch.Tensor  # () int32 — pairs lost (0: exact kernel)
+    neighbor_overflow: torch.Tensor  # () int32 — over-capacity particles (pmajor: 0)
     max_speed: torch.Tensor  # () f32
     non_finite: torch.Tensor  # () int32 — alive particles with NaN/inf
     spawn_truncated: torch.Tensor  # () int32 — emissions past max_spawn

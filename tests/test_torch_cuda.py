@@ -15,7 +15,12 @@ import torch
 from sand_crate_tpu_torch.cellwise import cell_ids_grid
 from sand_crate_tpu_torch.config import load_config_dict
 from sand_crate_tpu_torch.engine import Crate
-from sand_crate_tpu_torch.ops import pmajor
+from sand_crate_tpu_torch.ops import pair_kernel, placement, pmajor
+from sand_crate_tpu_torch.ops.pallas_forces import (
+    gather_pair_sums,
+    grid_width,
+    pair_sums_from_planes,
+)
 
 BOX = [[[0.0, 0.0], [0.0, 1.0]], [[0.0, 0.0], [1.0, 0.0]],
        [[1.0, 0.0], [1.0, 1.0]], [[0.0, 1.0], [1.0, 1.0]]]
@@ -97,3 +102,88 @@ def test_pm_pass_rejects_cpu_mixed_inputs(cuda):
         pmajor.pm_pass(slab, ranges, torch.zeros(3, device=cuda), "a")
     with pytest.raises(ValueError):
         pmajor.pm_pass(slab.double(), ranges.to(cuda), torch.zeros(3, device=cuda), "a")
+
+
+def _deep_particles(cuda, n=20000):
+    """Random particles with a 30-deep and a 12-deep cell (f32 on the card)."""
+    rng = np.random.default_rng(3)
+    pos = rng.random((n, 2)) * 0.4 + 0.3
+    pos[:30] = 0.5 + (rng.random((30, 2)) - 0.5) * 0.002
+    pos[30:42] = 0.6 + (rng.random((12, 2)) - 0.5) * 0.002
+    vel = rng.random((n, 2)) - 0.5
+    alive = rng.random(n) < 0.95
+    alive[:42] = True
+    f32 = dict(dtype=torch.float32, device=cuda)
+    return (torch.as_tensor(pos, **f32), torch.as_tensor(vel, **f32),
+            torch.as_tensor(alive, device=cuda))
+
+
+@pytest.mark.cuda
+def test_grid_kernels_bit_identical_to_plain(cuda):
+    """place_grid, pair_pass_a and pair_pass_b in both modes (spring off and
+    on, noise on, a row offset in grid mode) at M = 8 and 16 on sorted
+    particles with deep cells: kernel and plain version agree bit for bit,
+    and emit mode equals grid mode plus gather_pair_sums bit for bit."""
+    pos, vel, alive = _deep_particles(cuda)
+    base = Crate(_world(), device=cuda, forces_mode="pallas").scene
+    nx, ny = base.grid_nx, base.grid_ny
+    nxp = grid_width(nx)
+    diam, amp = torch.tensor(0.0044, device=cuda), torch.tensor(4e-4, device=cuda)
+    tick = torch.tensor(9, dtype=torch.int32, device=cuda)
+    coefs = (diam, torch.tensor(100.0, device=cuda), torch.tensor(-2.0, device=cuda),
+             torch.tensor(0.5, device=cuda), torch.tensor(0.3, device=cuda), amp, tick)
+    for M in (8, 16):
+        scene = dataclasses.replace(base, cell_capacity=M)
+        cid, order = torch.sort(cell_ids_grid(pos, alive, scene), stable=True)
+        slab, row_start, gather_slot, overflow = placement.slab_from_sorted(
+            pos[order], alive[order], vel[order], cid, M, nx, ny)
+        assert int(overflow) >= 30 - M
+        grid = placement.place_grid(slab, row_start, M, nx, ny, nxp)
+        assert torch.equal(grid, placement.place_grid_plain(slab, row_start, M, nx, ny, nxp))
+        ps = pair_kernel.pair_pass_a(grid, diam, amp, tick)
+        assert torch.equal(ps, pair_kernel.pair_pass_a_plain(grid, diam, amp, tick))
+        assert float(ps[3].max()) >= M - 1  # the deep cell's slots see each other
+        shifted = pair_kernel.pair_pass_a(grid, diam, amp, tick, row_offset=5)
+        assert torch.equal(shifted, pair_kernel.pair_pass_a_plain(grid, diam, amp, tick,
+                                                                  row_offset=5))
+        for spring in (False, True):
+            kw = dict(enable_spring=spring)
+            out_g = pair_kernel.pair_pass_b(grid, ps, *coefs, **kw)
+            assert torch.equal(out_g, pair_kernel.pair_pass_b_plain(grid, ps, *coefs, **kw))
+            off = pair_kernel.pair_pass_b(grid, ps, *coefs, row_offset=5, **kw)
+            assert torch.equal(off, pair_kernel.pair_pass_b_plain(grid, ps, *coefs,
+                                                                  row_offset=5, **kw))
+            out_e = pair_kernel.pair_pass_b_emit(grid, ps, slab, row_start, cid, nx, *coefs, **kw)
+            plain_e = pair_kernel.pair_pass_b_plain(grid, ps, *coefs, mode="emit", slab=slab,
+                                                    n_particles=cid.shape[0], **kw)
+            assert torch.equal(out_e, plain_e)
+            gathered = gather_pair_sums(out_g, gather_slot, M, nx, ny, nxp, spring, overflow,
+                                        torch.float32)
+            emitted = pair_sums_from_planes(out_e[:, :cid.shape[0]], spring, overflow,
+                                            torch.float32)
+            for a, b in zip(gathered, emitted):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pallas_crate_runs_through_the_grid_kernels(cuda):
+    """Crate.run on the slot grid launches placement, pass A and emit-mode
+    pass B once per tick, and keeps the invariants."""
+    crate = Crate(_world(), device=cuda, forces_mode="pallas")
+    n0 = crate.particle_count
+    for key in pair_kernel.LAUNCHES:
+        pair_kernel.LAUNCHES[key] = 0
+    diag = crate.run(10)
+    assert pair_kernel.LAUNCHES == {"place_grid": 10, "pair_pass_a": 10,
+                                    "pair_pass_b_grid": 0, "pair_pass_b_emit": 10}
+    assert int(diag.particle_count) == n0 and int(diag.non_finite) == 0
+
+
+@pytest.mark.cuda
+def test_grid_wrappers_reject_mixed_inputs(cuda):
+    grid = torch.zeros((4, 6, 8, 128), device=cuda)
+    z = torch.zeros((), device=cuda)
+    with pytest.raises(ValueError):  # the pass-A planes on the CPU
+        pair_kernel.pair_pass_b(grid, grid.cpu(), z, z, z, z, z, z, z)
+    with pytest.raises(ValueError):  # f64 grid
+        pair_kernel.pair_pass_a(grid.double(), z, z, z)

@@ -36,7 +36,7 @@ REPO = Path(__file__).resolve().parent.parent
 CONFIGS = sorted(p.name for p in (REPO / "configs").glob("*.yaml"))
 # JAX Scene fields that tune TPU tactics or backends the port does not have.
 TPU_ONLY = {
-    "row_block", "cell_capacity", "max_neighbors", "chunk_halo", "chunk_cs",
+    "row_block", "max_neighbors", "chunk_halo", "chunk_cs",
     "pmajor_w", "pmajor_cs", "pmajor_split",
 }
 
@@ -111,9 +111,16 @@ def test_forces_modes():
     assert build_scene(world).forces_mode == "pmajor"  # "auto" at every size
     scene = build_scene(world, enable_spring=True)
     assert (scene.fold_pairs, scene.pmajor_symm) == (False, True)
-    for mode in ("dense", "chunked", "gather", "cellwise", "pallas"):
+    for mode in ("dense", "chunked", "gather", "cellwise"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_scene(world, forces_mode=mode)
+    # The slot-grid backend resolves its options as the JAX build_scene does.
+    jworld = jax_load_config(REPO / "configs" / "stirring_cup.yaml").world_config
+    for kw in ({}, {"cell_capacity": 8}, {"enable_spring": True}):
+        got = build_scene(world, forces_mode="pallas", **kw)
+        ref = jax_build_scene(jworld, forces_mode="pallas", **kw)
+        for name in ("forces_mode", "cell_capacity", "fold_pairs", "pmajor_symm", "enable_spring"):
+            assert getattr(got, name) == getattr(ref, name), (kw, name)
 
 
 def test_chip_smoke_dam_break_equals_yaml():
@@ -137,6 +144,7 @@ def test_port_imports_no_jax_nor_yaml():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import sand_crate_tpu_torch, sand_crate_tpu_torch.ops.pmajor\n"
+        "import sand_crate_tpu_torch.ops.pallas_forces, sand_crate_tpu_torch.ops.placement\n"
         "import sand_crate_tpu_torch.ops.cuda_build, sand_crate_tpu_torch.engine\n"
         "import chip_smoke\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "

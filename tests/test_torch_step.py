@@ -197,7 +197,8 @@ def test_dam_break_trajectory_matches_jax():
     tests/test_pmajor.py:371-374's tolerance, and the same diagnostics."""
     raw = _small_dam_break()
     jc = JaxCrate(jax_load_config_dict(copy.deepcopy(raw)).world_config, forces_mode="pmajor")
-    tc = Crate(load_config_dict(copy.deepcopy(raw)).world_config, forces_mode="pmajor")
+    tc = Crate(load_config_dict(copy.deepcopy(raw)).world_config, forces_mode="pmajor",
+               device="cpu")
     assert tc.scene.capacity == jc.scene.capacity <= 1024
     assert (tc.scene.pmajor_symm, tc.scene.fold_pairs) == (True, True)
     jstate, jdiag = jphys.rollout(jc.state, jc.params, jc.scene, 20)
@@ -228,7 +229,7 @@ def test_emitter_scene_invariants():
     particle budget, truncation is counted (>= 0), identities stay unique,
     and every alive particle stays finite."""
     world = load_config(REPO / "configs" / "stirring_cup.yaml").world_config
-    crate = Crate(world, seed=5)
+    crate = Crate(world, seed=5, device="cpu")
     budget = int(world.coefficients["max_particles"])
     counts = []
     for _ in range(4):
@@ -243,7 +244,7 @@ def test_emitter_scene_invariants():
     assert uids.unique().numel() == uids.numel()
     assert bool(torch.isfinite(st.pos[st.alive]).all())
     # The same seed replays the same emission.
-    again = Crate(world, seed=5)
+    again = Crate(world, seed=5, device="cpu")
     for _ in range(4):
         again.run(15)
     assert torch.equal(again.state.pos, crate.state.pos)
@@ -253,7 +254,7 @@ def test_crate_surface():
     """Coefficient get/set on device tensors, the views, and the parts that
     are not ported yet raising NotImplementedError."""
     world = load_config(REPO / "configs" / "hourglass.yaml").world_config
-    crate = Crate(world)
+    crate = Crate(world, device="cpu")
     n = crate.particle_count
     assert crate.particles.shape == (n, 2) == crate.particle_velocities.shape
     assert crate.particles_pressure.shape == (n,)
@@ -270,6 +271,19 @@ def test_crate_surface():
     crate.physics_tick()
     assert crate.tick == 1 and "Tick: 1" in crate.debug_prints
     for call in (lambda: crate.stream_frames(1), lambda: crate.save_checkpoint("x"),
-                 lambda: Crate(world, instrument=True)):
+                 lambda: Crate(world, instrument=True, device="cpu")):
         with pytest.raises(NotImplementedError):
             call()
+
+
+def test_crate_defaults_to_the_card():
+    """An entry point runs on the card unless the caller asks for the CPU:
+    with no device argument, Crate builds its state on CUDA, and without a
+    card it raises instead of falling back."""
+    world = load_config(REPO / "configs" / "stirring_cup.yaml").world_config
+    if torch.cuda.is_available():
+        assert Crate(world).state.pos.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Crate(world)
+    assert Crate(world, device="cpu").state.pos.device.type == "cpu"
