@@ -2,29 +2,42 @@
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
-Phases (any failure raises and exits non-zero before the last line):
+Phases (any failure raises and exits non-zero before the last line; each
+prints its wall time as "[phase] name: s"):
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi).
-2. build: compile the hand-written CUDA kernels (csrc/pmajor.cu and
-   csrc/grid_pair.cu, one nvcc each, started together).
-3. world: the dam break (a dict equal to configs/dam_break.yaml) rescaled
-   as bench.py rescales it, to 1,000,000 target particles (1,001,700 alive).
-4. pmajor kernels: after SETTLE_TICKS ticks, both pair-pass kernels (pass
-   A, and pass B folded and split) against their plain torch versions on
-   the same device inputs: max abs/rel error per output row, neighbor
-   counts exact, and the median times of both from CUDA events.  Then an
-   independent check of both passes at that state: for a random sample of
-   selves, the sums over every particle of the world within one diameter
-   (brute force, no cell grid or candidate ranges), in float64.
+2. build: compile the hand-written CUDA kernels (csrc/pmajor.cu with K1/K2
+   and K10, csrc/grid_pair.cu; one nvcc each, started together) and print
+   every kernel's ptxas registers and spills.
+3. world: the dam break (sand_crate_tpu_torch.bench.DAM_BREAK, equal to
+   configs/dam_break.yaml) rescaled as bench.py rescales it, to 1,000,000
+   target particles (1,001,700 alive).
+4. pmajor kernels: after SETTLE_TICKS ticks, K1/K2 (pass A, and pass B
+   folded and split) against their plain torch versions on the same device
+   inputs: max abs/rel error per output row, neighbor counts exact, and the
+   median times of both from CUDA events.  Then an independent check of
+   both passes at that state: for a random sample of selves, the sums over
+   every particle of the world within one diameter (brute force, no cell
+   grid or candidate ranges), in float64.
+   (b) K10 at that state, chunks of 32 and 128 selves, passes A, B folded
+   and B split with the spring: bit-identical to its plain version and to
+   K1/K2 one-sided; window sizes, candidate tests per self, median times of
+   K10 and K1/K2 one-sided, the bound.
 5. pmajor main path: Crate.run for MAIN_TICKS ticks; the kernel launch
    counters must rise by one per pass per tick; no non-finite values, no
    overflow, the alive count conserved (closed box, no sources), uids a
    permutation, and no blow-up (speed bounds below).  Prints steps/s and
    the step p50 with the card name.
-6. pmajor trajectory: a ~10k-particle dam break for 20 ticks on the card,
-   once on the kernel path and once with both pair passes swapped for
-   their plain torch versions, compared uid-aligned at
-   tests/test_pmajor.py:371-374's tolerance.
+   (c) the same under SAND_CRATE_PMSUB=1 (K10 launches, K1/K2 none), on a
+   fresh world settled as in phase 4.
+   (d) GATE_TICKS ticks under SAND_CRATE_PMAJOR_GATE=1 (K1/K2 launch, K10
+   none); the gate's pair sums equal K10's bit for bit (both one-sided).
+   (f) instrumented ticks (fold off, spring on) per schedule, in turns:
+   the Collisions phase of K1/K2 two-sided, one-sided, and K10.
+6. trajectories: a ~10k-particle dam break for 20 ticks on the card, once
+   on the kernel path and once with the pair passes swapped for their plain
+   torch versions, compared uid-aligned at tests/test_pmajor.py:371-374's
+   tolerance; on K1/K2 and on K10 (SAND_CRATE_PMSUB=1).
 7. grid kernels: the same 1M world on the slot-grid backend
    (forces_mode="pallas", cell_capacity 16), settled GRID_SETTLE_TICKS
    ticks; at that state place_grid, pair_pass_a, pair_pass_b (grid mode)
@@ -41,6 +54,12 @@ Phases (any failure raises and exits non-zero before the last line):
    blow-up bounds; steps/s and step p50.
 9. grid trajectory: as phase 6 on the slot-grid backend, the three grid
    wrappers swapped for their plain versions.
+(e) bench entry: python -m sand_crate_tpu_torch.bench --particles 1000000
+   --ticks BENCH_TICKS as a subprocess; its JSON line parses and its stderr
+   line shows overflow 0.
+(f) instrument: Crate(instrument=True) on the 10k world equals a fused run
+   with fold off over INSTRUMENT_TICKS ticks, bit for bit; the PhaseTimer.
+(g) stream_frames on the 10k world equals a synchronous trajectory.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -48,69 +67,14 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
-import copy
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
-
-# configs/dam_break.yaml as a dict (PyYAML need not be installed);
-# tests/test_torch_scene.py holds the two equal.
-DAM_BREAK = {
-    "playback": {
-        "save_recording": False,
-        "ticks_to_record": 600,
-        "recording_output_dir_path": "data/recordings",
-        "screen_x": 1000,
-        "screen_y": 1000,
-    },
-    "world": {
-        "coefficients": {
-            "dt": 0.002,
-            "particle_radius": 0.0015,
-            "wall_collision_decay": 0.2,
-            "spring_overlap_balance": 0.5,
-            "spring_amplifier": 100,
-            "pressure_amplifier": 30,
-            "ignored_pressure": 0.3,
-            "collider_noise_level": 0.1,
-            "viscosity": 8,
-            "max_particles": 100000,
-            "surface_smoothing": 100,
-            "target_pressure": -2,
-            "gravity": [0, 9.8],
-        },
-        "particle_sources": [],
-        "initial_particles": [
-            {
-                "block": {
-                    "x0": 0.02,
-                    "y0": 0.1,
-                    "x1": 0.42,
-                    "y1": 0.98,
-                    "spacing": 0.00265,
-                    "velocity": [0.0, 0.0],
-                    "jitter": 0.2,
-                }
-            }
-        ],
-        "rigid_bodies": [
-            {
-                "fixed": {
-                    "name": "box",
-                    "segments": [
-                        [[0.0, 0.0], [0.0, 1.0]],
-                        [[0.0, 0.0], [1.0, 0.0]],
-                        [[1.0, 0.0], [1.0, 1.0]],
-                        [[0.0, 1.0], [1.0, 1.0]],
-                    ],
-                }
-            }
-        ],
-    },
-}
 
 N_TARGET = 1_000_000  # bench.py's default size: 1,001,700 alive, capacity 1,050,112
 SETTLE_TICKS = 50
@@ -121,6 +85,11 @@ TRAJ_TICKS = 20
 GRID_SETTLE_TICKS = 20
 GRID_TICKS = 100
 GRID_SLOTS = 16  # the JAX default cell_capacity
+GATE_TICKS = 10
+BENCH_TICKS = 100
+INSTRUMENT_TICKS = 5
+TURN_TICKS = 10
+STREAM_FRAMES = 6
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and f32 flop/s
 # outside the tensor cores; a kernel's bound is the larger of its bytes
 # over the first and its operations over the second.
@@ -149,6 +118,7 @@ RUNAWAY_SPEED = 100.0
 RUNAWAY_SHARE = 1e-3
 SOURCE = "sand_crate_tpu_torch/csrc/pmajor.cu"
 REPLACES = "sand_crate_tpu/ops/pmajor.py:183"
+REPLACES_K10 = "sand_crate_tpu/ops/pmajor.py:685"
 GRID_SOURCE = "sand_crate_tpu_torch/csrc/grid_pair.cu"
 
 
@@ -158,16 +128,9 @@ def check(ok: bool, what: str) -> None:
 
 
 def dam_break_world(n_target: int):
-    """bench.py's dam_break_world, on the port's config parser."""
-    from sand_crate_tpu_torch import load_config_dict
+    from sand_crate_tpu_torch.bench import dam_break_world as world
 
-    w = load_config_dict(copy.deepcopy(DAM_BREAK)).world_config
-    area = (0.42 - 0.02) * (0.98 - 0.10)
-    spacing = math.sqrt(area / n_target)
-    w.initial_particles[0].spacing = spacing
-    w.coefficients["particle_radius"] = spacing * 0.55
-    w.coefficients["max_particles"] = int(n_target * 1.05)
-    return w
+    return world(n_target)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -229,12 +192,13 @@ def kernels_vs_plain(crate):
 
     st, sc, pr = crate.state, crate.scene, crate.params
     sorted_cid, order = torch.sort(cell_ids_grid(st.pos, st.alive, sc), stable=True)
-    slab_a, ranges = pmajor.pass_a_inputs(
-        st.pos[order], st.vel[order], st.alive[order], sorted_cid,
-        pr.diameter * pr.collider_noise_level, st.tick, sc,
-    )
-    coef = pmajor.coef_stack(pr.diameter, pr.target_pressure, pr.spring_overlap_balance)
     symm = sc.pmajor_symm
+    slab_a = pmajor.pass_a_slab(
+        st.pos[order], st.vel[order], st.alive[order], sorted_cid,
+        pr.diameter * pr.collider_noise_level, st.tick, sc, symm=symm,
+    )
+    ranges = pmajor.candidate_ranges(sorted_cid, st.alive[order], sc.grid_nx, sc.grid_ny)
+    coef = pmajor.coef_stack(pr.diameter, pr.target_pressure, pr.spring_overlap_balance)
     spans = (ranges[3:] - ranges[:3]).sum(dim=0)[st.alive[order]].float()
     print(f"  candidates per alive particle: mean {float(spans.mean()):.2f} "
           f"max {int(spans.max())}")
@@ -324,6 +288,256 @@ def brute_force(slab_a, slab_b, out_a, out_b, alive, coef, fold, symm):
     compare(f"brute force, pass B {'fold' if fold else 'split'}", out_b[:, idx].to(f64), ref_b)
     print(f"  brute force: {idx.numel()} selves, {int(ref_a[3].sum())} pairs, "
           f"max count {int(ref_a[3].max())}")
+
+
+def k10_vs_plain(crate):
+    """Phase (b): K10 (pms_pass) at both chunk sizes, passes A, B folded and
+    B split with the spring, against its plain version and against K1/K2
+    one-sided (pm_pass, symm off) on the same inputs at the crate's settled
+    state: all bit-identical.  Returns the kernel rows at PMS_CHUNK."""
+    import torch
+
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+    from sand_crate_tpu_torch.ops import pmajor
+
+    st, sc, pr = crate.state, crate.scene, crate.params
+    nx, ny = sc.grid_nx, sc.grid_ny
+    sorted_cid, order = torch.sort(cell_ids_grid(st.pos, st.alive, sc), stable=True)
+    alive = st.alive[order]
+    slab_a = pmajor.pass_a_slab(st.pos[order], st.vel[order], alive, sorted_cid,
+                                pr.diameter * pr.collider_noise_level, st.tick, sc, symm=False)
+    ranges = pmajor.candidate_ranges(sorted_cid, alive, nx, ny)
+    coef = pmajor.coef_stack(pr.diameter, pr.target_pressure, pr.spring_overlap_balance)
+    out_a = pmajor.pm_pass(slab_a, ranges, coef, "a")
+    cp = pmajor.finalize_cp(out_a[0], out_a[3], pr.ignored_pressure)
+    variants = [  # (row name, mode, options, slab)
+        ("pms_pass_a", "a", {}, slab_a),
+        ("pms_pass_b", "b", dict(fold=True),
+         pmajor.pass_b_slab(slab_a, out_a, cp * (1.0 + pr.pressure_amplifier),
+                            pr.surface_smoothing)),
+        ("pms_pass_b_split", "b", dict(spring=True),
+         pmajor.pass_b_slab(slab_a, out_a, cp, pr.surface_smoothing)),
+    ]
+    P = slab_a.shape[0]
+    n_alive = int(alive.sum())
+    pairs = float(out_a[3].sum())
+    spans = (ranges[3:] - ranges[:3]).sum(dim=0)[alive].float()
+    print(f"  K1/K2 candidate tests per alive self: {float(spans.mean()):.2f} "
+          f"(exact ranges); pairs within the cutoff per alive self: {pairs / n_alive:.2f}")
+    rows = []
+    for chunk in pmajor.PMS_CHUNKS:
+        win = pmajor.chunk_windows(sorted_cid, alive, nx, ny, chunk)
+        selves = (win[6] - torch.arange(win.shape[1], device=win.device) * chunk).clamp(min=0)
+        cand = (win[3:6] - win[:3]).sum(dim=0)
+        live = selves > 0
+        tests = float((cand * selves).sum()) / n_alive
+        print(f"  chunk {chunk}: {int(live.sum())} live chunks; candidates per chunk window "
+              f"(3 row offsets): mean {float(cand[live].float().mean()):.2f} max "
+              f"{int(cand[live].max())}; candidate tests per alive self {tests:.2f}")
+        for name, mode, kw, slab in variants:
+            def run(slab=slab, mode=mode, kw=kw, win=win, chunk=chunk):
+                return pmajor.pms_pass(slab, sorted_cid, win, coef, mode, nx=nx, chunk=chunk, **kw)
+
+            def plain(slab=slab, mode=mode, kw=kw, win=win, chunk=chunk):
+                return pmajor.pms_pass_plain(slab, sorted_cid, win, coef, mode, nx=nx,
+                                             chunk=chunk, **kw)
+
+            def k1k2(slab=slab, mode=mode, kw=kw):
+                return pmajor.pm_pass(slab, ranges, coef, mode, **kw)
+
+            got = run()
+            ref = plain()
+            err = float((got - ref).abs().max())
+            check(torch.equal(got, ref), f"{name} chunk {chunk}: kernel differs from its plain "
+                                         f"version (max abs err {err})")
+            check(torch.equal(got, k1k2()), f"{name} chunk {chunk}: differs from K1/K2 one-sided")
+            ms, k1k2_ms = cuda_ms(run, 20), cuda_ms(k1k2, 20)
+            n_out = got.shape[0]
+            row = kernel_row(name, SOURCE, REPLACES_K10, err, ms,
+                             cuda_ms(plain, 2) if chunk == pmajor.PMS_CHUNK else None,
+                             (8 + 1 + n_out) * 4 * P + 7 * 4 * win.shape[1], pairs * PAIR_FLOPS)
+            print(f"  {name} chunk {chunk}: == plain and == K1/K2 one-sided, bit for bit; "
+                  f"K10 {ms:.4f} ms, K1/K2 one-sided {k1k2_ms:.4f} ms"
+                  + (f", plain {row['plain_ms']:.2f} ms" if row["plain_ms"] else "")
+                  + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}) (median, CUDA events)")
+            if chunk == pmajor.PMS_CHUNK:
+                rows.append(row)
+    return rows
+
+
+@contextlib.contextmanager
+def knob(name):
+    """Set the environment knob ``name`` to "1" for the block (None: none)."""
+    if name is not None:
+        os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        if name is not None:
+            del os.environ[name]
+
+
+@contextlib.contextmanager
+def phase(label: str):
+    t0 = time.perf_counter()
+    yield
+    print(f"[phase] {label}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+class Phases:
+    """A timer for instrumented_tick that keeps every phase's durations."""
+
+    def __init__(self):
+        self.times = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        t0 = time.perf_counter()
+        yield
+        self.times.setdefault(name, []).append(time.perf_counter() - t0)
+
+    def median_ms(self, name):
+        return statistics.median(self.times[name]) * 1e3
+
+
+def pair_sums(crate):
+    """The crate's p-major pair sums at its state, under the current knobs."""
+    from sand_crate_tpu_torch.ops import pmajor
+
+    st, pr = crate.state, crate.params
+    return pmajor.neighbor_forces_pmajor(
+        st.pos, st.vel, st.alive, pr.diameter * pr.collider_noise_level, st.tick,
+        pr.diameter, pr.surface_smoothing, pr.target_pressure, pr.ignored_pressure,
+        pr.spring_overlap_balance, crate.scene, pressure_amplifier=pr.pressure_amplifier)
+
+
+def gate_path(crate):
+    """Phase (d): GATE_TICKS ticks under SAND_CRATE_PMAJOR_GATE=1 launch
+    K1/K2 and not K10; at the state after them, the gate's pair sums equal
+    K10's bit for bit (both one-sided, the same pairs in the same order)."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import pmajor
+
+    with knob("SAND_CRATE_PMAJOR_GATE"):
+        drive(crate, GATE_TICKS, "gate path", pmajor.LAUNCHES,
+              {"a": GATE_TICKS, "b": GATE_TICKS, "sub_a": 0, "sub_b": 0}, allow_culls=True)
+        gate = pair_sums(crate)
+    with knob("SAND_CRATE_PMSUB"):
+        sub = pair_sums(crate)
+    default = pair_sums(crate)
+    for name, a, b in zip(gate._fields, gate, sub):
+        check(torch.equal(a, b), f"gate and PMSUB pair sums differ in {name}")
+    check(not torch.equal(gate.dv_tension, default.dv_tension),
+          "the gate's one-sided sums equal the default two-sided ones")
+    print("  gate pair sums == PMSUB pair sums bit for bit (one-sided); != default (two-sided)")
+
+
+def bench_entry():
+    """Phase (e): python -m sand_crate_tpu_torch.bench at 1M on the default
+    path, as a subprocess; its JSON line parses, its stderr line shows
+    overflow 0."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SAND_CRATE_PMSUB", "SAND_CRATE_PMAJOR_GATE")}
+    cmd = [sys.executable, "-m", "sand_crate_tpu_torch.bench", "--particles", "1000000",
+           "--ticks", str(BENCH_TICKS)]
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(res.returncode == 0, f"bench entry exited {res.returncode}:\n{res.stderr[-3000:]}")
+    result = json.loads(res.stdout.strip().splitlines()[-1])
+    check(set(result) == {"metric", "value", "unit", "vs_baseline"}, f"bench keys {result}")
+    line = [x for x in res.stderr.splitlines() if x.startswith("# ")][-1]
+    print(f"bench entry ({' '.join(cmd[1:])}):\n  {line}\n  {json.dumps(result)}")
+    check(" overflow=0 " in line and "non_finite=0" in line, "bench entry: overflow or non_finite")
+
+
+def collisions_1m(crate):
+    """Phase (f) at 1M: instrumented ticks from the crate's state (fold off,
+    as Crate(instrument=True) builds it, and the spring on) under the
+    default schedule, the gate and K10, in turns (A B C C B A, TURN_TICKS
+    ticks each); prints each schedule's median Collisions phase and the sum
+    of its phase medians.  Returns the K10 runs' launches (pass B is
+    split+spring there)."""
+    import dataclasses
+
+    import torch
+
+    from sand_crate_tpu_torch.instrument import instrumented_tick
+    from sand_crate_tpu_torch.ops import pmajor
+
+    scene = dataclasses.replace(crate.scene, fold_pairs=False, enable_spring=True)
+    schedules = {"K1/K2 two-sided (default)": None,
+                 "K1/K2 one-sided (SAND_CRATE_PMAJOR_GATE=1)": "SAND_CRATE_PMAJOR_GATE",
+                 "K10 (SAND_CRATE_PMSUB=1)": "SAND_CRATE_PMSUB"}
+    recs = {label: Phases() for label in schedules}
+    launches = {label: dict.fromkeys(pmajor.LAUNCHES, 0) for label in schedules}
+    for label in list(schedules) + list(reversed(schedules)):
+        state = crate.state
+        with knob(schedules[label]):
+            reset(pmajor.LAUNCHES)
+            for _ in range(TURN_TICKS):
+                state, _ = instrumented_tick(state, crate.params, scene, crate.generator,
+                                             recs[label])
+            torch.cuda.synchronize()
+            for key, n in pmajor.LAUNCHES.items():
+                launches[label][key] += n
+    for label, rec in recs.items():
+        tick_ms = sum(rec.median_ms(k) for k in rec.times)
+        print(f"  {label}: Collisions {rec.median_ms('Collisions'):.3f} ms of {tick_ms:.3f} ms "
+              f"(medians over {2 * TURN_TICKS} ticks in two turns; sum of phase medians); "
+              f"launches {launches[label]}")
+    k10 = launches["K10 (SAND_CRATE_PMSUB=1)"]
+    check(k10 == {"a": 0, "b": 0, "sub_a": 2 * TURN_TICKS, "sub_b": 2 * TURN_TICKS},
+          f"instrumented K10 launches {k10}")
+    return k10
+
+
+def instrument_10k():
+    """Phase (f) at 10k: Crate(instrument=True) against a fused run whose
+    scene has fold_pairs=False, INSTRUMENT_TICKS ticks each: the same state,
+    bit for bit; prints the PhaseTimer table."""
+    import dataclasses
+
+    import torch
+
+    from sand_crate_tpu_torch import Crate
+
+    world = dam_break_world(TRAJ_PARTICLES)
+    inst = Crate(world, device="cuda", instrument=True)
+    fused = Crate(world, device="cuda")
+    fused.scene = dataclasses.replace(fused.scene, fold_pairs=False)
+    check(not inst.scene.fold_pairs, "Crate(instrument=True) must build its scene with fold off")
+    for _ in range(INSTRUMENT_TICKS):
+        inst.physics_tick()
+        fused.physics_tick()
+    for name, a, b in zip(inst.state._fields, inst.state, fused.state):
+        check(torch.equal(a, b), f"instrumented tick differs from the fused step in {name}")
+    print(f"instrument: {inst.particle_count} particles x {INSTRUMENT_TICKS} ticks, "
+          "state == fused step (fold off) bit for bit; PhaseTimer:")
+    print("  " + inst.debug_timer.report().rstrip().replace("\n", "\n  "))
+
+
+def stream_10k():
+    """Phase (g): Crate.stream_frames on the 10k world yields the frames of
+    a synchronous physics.trajectory, bit for bit."""
+    import numpy as np
+
+    from sand_crate_tpu_torch import Crate
+    from sand_crate_tpu_torch.physics import trajectory as sync_trajectory
+
+    world = dam_break_world(TRAJ_PARTICLES)
+    streamed, ref = Crate(world, device="cuda"), Crate(world, device="cuda")
+    frames = list(streamed.stream_frames(STREAM_FRAMES, ticks_per_frame=2, chunk_frames=4))
+    final, want = sync_trajectory(ref.state, ref.params, ref.scene, STREAM_FRAMES,
+                                  ref.generator, 2)
+    check(len(frames) == STREAM_FRAMES, f"{len(frames)} frames streamed")
+    for key, value in want.items():
+        check(np.array_equal(np.stack([f[key] for f in frames]), value.cpu().numpy()),
+              f"stream_frames differs from trajectory in {key}")
+    check(all(np.array_equal(a.cpu().numpy(), b.cpu().numpy())
+              for a, b in zip(streamed.state, final)), "stream_frames' final state differs")
+    print(f"stream_frames: {STREAM_FRAMES} frames of 2 ticks in chunks of 4 == trajectory, "
+          f"bit for bit ({', '.join(f'{k} {tuple(v.shape)}' for k, v in want.items())})")
 
 
 def grid_kernels_vs_plain(crate):
@@ -475,16 +689,28 @@ def reset(counts: dict) -> None:
         counts[key] = 0
 
 
-def drive(crate, ticks: int, label: str, counts: dict, expected: dict, overflow_ref=None):
+def by_uid(state, values):
+    """``values`` (one per slot) reordered by particle identity (uid)."""
+    out = values.clone()
+    out[state.uid.long()] = values
+    return out
+
+
+def drive(crate, ticks: int, label: str, counts: dict, expected: dict, overflow_ref=None,
+          allow_culls=False):
     """Run ``ticks`` ticks through Crate.run with ``counts`` reset first, and
     check the invariants of a closed box; returns (launches, steps/s, p50).
     ``overflow_ref(state)`` gives the independent overflow count of one
-    tick from the state before it."""
+    tick from the state before it.  The alive count is conserved; with
+    ``allow_culls`` it may fall by particles culled outside the box (the
+    reference's cull, crate.py:149-159), at most RUNAWAY_SHARE of them, and
+    each lost particle's frozen position must lie outside [-r, 1 + r]^2."""
     import torch
 
     from sand_crate_tpu_torch.physics import step
 
     n0 = crate.particle_count
+    alive0 = by_uid(crate.state, crate.state.alive)
     reset(counts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -500,11 +726,23 @@ def drive(crate, ticks: int, label: str, counts: dict, expected: dict, overflow_
     want = 0 if overflow_ref is None else overflow_ref(before)
     print(f"  overflow {int(diag.neighbor_overflow)} (independent count {want})")
     check(int(diag.neighbor_overflow) == want, "neighbor_overflow")
-    check(int(diag.particle_count) == n0, f"alive count {int(diag.particle_count)} != {n0}")
     st = crate.state
+    alive1 = by_uid(st, st.alive)
+    lost = alive0 & ~alive1
+    culled = int(lost.sum())
+    check(not bool((alive1 & ~alive0).any()), "a particle came alive in a closed box")
+    check(int(diag.particle_count) == n0 - culled, f"alive count {int(diag.particle_count)} "
+                                                   f"!= {n0} - {culled}")
     uids = torch.sort(st.uid[st.alive]).values
-    check(torch.equal(uids, torch.arange(n0, dtype=torch.int32, device="cuda")),
-          "uid over alive slots is not a permutation")
+    check(bool((uids[1:] > uids[:-1]).all()), "uid over alive slots is not unique")
+    if culled:
+        r = crate.params.particle_radius
+        frozen = by_uid(st, st.pos)[lost]
+        outside = ((frozen < -r) | (frozen > 1.0 + r)).any(dim=1)
+        print(f"  culled outside the box: {culled} of {n0} (frozen positions "
+              f"{frozen[:4].cpu().tolist()}...)")
+        check(allow_culls and culled <= RUNAWAY_SHARE * n0, f"{label}: {culled} particles lost")
+        check(bool(outside.all()), f"{label}: a lost particle died inside the box")
     check(bool(torch.isfinite(st.pos).all()), "non-finite positions")
     speed = st.vel[st.alive].norm(dim=1)
     p99 = float(torch.quantile(speed, 0.99))
@@ -588,6 +826,38 @@ def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict
     torch.testing.assert_close(pk[ak], pp[ap], rtol=2e-3, atol=2e-4)
 
 
+def kernel_name(symbol: str) -> str:
+    """A mangled kernel symbol as name<template args>, e.g. pms_kernel<0, 6, 32>."""
+    import re
+
+    m = re.match(r"_ZN(\d+)", symbol)
+    if not m:
+        return symbol
+    rest = symbol[m.end() + int(m.group(1)):]  # past the namespace
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return symbol
+    end = m.end() + int(m.group(1))
+    args = re.findall(r"L[ib](\d+)E", rest[end:].split("EEv")[0] + "E")
+    return f"{rest[m.end():end]}<{', '.join(args)}>"
+
+
+def print_ptxas(names) -> None:
+    """Registers, shared memory and spills of every kernel built."""
+    import re
+
+    from sand_crate_tpu_torch.ops import cuda_build
+
+    for name in names:
+        entry = "?"
+        for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
+            m = re.search(r"(?:entry function|Function properties for) '?(\w+)'?", line)
+            if m:
+                entry = kernel_name(m.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -602,84 +872,131 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print("card (nvidia-smi name, power.limit):")
     print(smi, flush=True)
+    for name in ("SAND_CRATE_PMSUB", "SAND_CRATE_PMAJOR_GATE"):
+        check(name not in os.environ, f"{name} is set: the phases set the knobs themselves")
 
     from sand_crate_tpu_torch import Crate
     from sand_crate_tpu_torch.ops import cuda_build, pair_kernel, placement, pmajor
 
-    # -- 2. build --------------------------------------------------------------
-    t0 = time.perf_counter()
-    cuda_build.build("pmajor", "grid_pair")
-    print(f"build: pmajor.cu and grid_pair.cu in {time.perf_counter() - t0:.2f} s")
-    for name in ("pmajor", "grid_pair"):
-        for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    # -- 2. build (a) ------------------------------------------------------------
+    with phase("build"):
+        cuda_build.build("pmajor", "grid_pair")
+        print("build: pmajor.cu (K1/K2, K10) and grid_pair.cu, one nvcc each, in parallel")
+        print_ptxas(("pmajor", "grid_pair"))
 
     # -- 3. world --------------------------------------------------------------
-    t0 = time.perf_counter()
-    crate = Crate(dam_break_world(N_TARGET), device="cuda")
-    n0 = crate.particle_count
-    sc = crate.scene
-    print(f"world: dam break, {n0} alive, capacity {sc.capacity}, grid "
-          f"{sc.grid_nx}x{sc.grid_ny}, built in {time.perf_counter() - t0:.2f} s")
-    check(n0 == 1_001_700 and sc.capacity == 1_050_112, "1M world size")
+    with phase("world"):
+        crate = Crate(dam_break_world(N_TARGET), device="cuda")
+        n0 = crate.particle_count
+        sc = crate.scene
+        print(f"world: dam break, {n0} alive, capacity {sc.capacity}, grid "
+              f"{sc.grid_nx}x{sc.grid_ny}")
+        check(n0 == 1_001_700 and sc.capacity == 1_050_112, "1M world size")
 
     # -- 4. pmajor kernels against their plain versions -------------------------
-    t0 = time.perf_counter()
-    crate.run(SETTLE_TICKS)
-    print(f"settle: {SETTLE_TICKS} ticks in {time.perf_counter() - t0:.2f} s")
-    print("pmajor kernels vs plain versions (same device inputs):")
-    rows = kernels_vs_plain(crate)
+    with phase("settle + K1/K2 vs plain"):
+        crate.run(SETTLE_TICKS)
+        print(f"settle: {SETTLE_TICKS} ticks")
+        print("pmajor kernels vs plain versions (same device inputs):")
+        rows = kernels_vs_plain(crate)
+
+    # -- (b) K10 against its plain version and K1/K2 one-sided ------------------
+    with phase("K10 vs plain"):
+        print(f"K10 vs plain version and K1/K2 one-sided (same device inputs), main-path "
+              f"chunk {pmajor.PMS_CHUNK}:")
+        k10_rows = k10_vs_plain(crate)
 
     # -- 5. pmajor main path ------------------------------------------------------
-    launches, rate, p50, wall = drive(crate, MAIN_TICKS, "pmajor main path", pmajor.LAUNCHES,
-                                      {"a": MAIN_TICKS, "b": MAIN_TICKS})
-    print(f"pmajor main path on {smi}: {n0} particles, {rate:.3f} steps/s "
-          f"({wall / MAIN_TICKS * 1000:.3f} ms/step mean over {MAIN_TICKS} ticks, "
-          f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
-    for r in rows:
-        r["launches"] = launches[r["name"][-1]]
+    with phase("pmajor main path"):
+        launches, rate, p50, wall = drive(
+            crate, MAIN_TICKS, "pmajor main path", pmajor.LAUNCHES,
+            {"a": MAIN_TICKS, "b": MAIN_TICKS, "sub_a": 0, "sub_b": 0})
+        print(f"pmajor main path on {smi}: {n0} particles, {rate:.3f} steps/s "
+              f"({wall / MAIN_TICKS * 1000:.3f} ms/step mean over {MAIN_TICKS} ticks, "
+              f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
+        for r in rows:
+            r["launches"] = launches[r["name"][-1]]
+
+    # -- (c) the PMSUB main path (K10) ---------------------------------------------
+    with phase("PMSUB main path"), knob("SAND_CRATE_PMSUB"):
+        # A fresh world over the same ticks as phase 5 (the rescaled dam
+        # break grows runaways that leave the box later on).
+        sub_crate = Crate(dam_break_world(N_TARGET), device="cuda")
+        sub_crate.run(SETTLE_TICKS)
+        launches, rate, p50, wall = drive(
+            sub_crate, MAIN_TICKS, "PMSUB main path", pmajor.LAUNCHES,
+            {"a": 0, "b": 0, "sub_a": MAIN_TICKS, "sub_b": MAIN_TICKS}, allow_culls=True)
+        print(f"PMSUB main path on {smi}: {n0} particles, {rate:.3f} steps/s "
+              f"({wall / MAIN_TICKS * 1000:.3f} ms/step mean over {MAIN_TICKS} ticks, "
+              f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
+        for r in k10_rows[:2]:
+            r["launches"] = launches["sub_" + r["name"][-1]]
+        del sub_crate
+
+    # -- (d) the gate path -----------------------------------------------------------
+    with phase("gate path"):
+        gate_path(crate)
+
+    # -- (f) the Collisions phase at 1M, per schedule --------------------------------
+    with phase("instrumented ticks at 1M"):
+        print(f"instrumented ticks at 1M on {smi} (fold off, spring on):")
+        k10_rows[2]["launches"] = collisions_1m(crate)["sub_b"]
     del crate
 
     # -- 6. pmajor trajectory: kernel path vs plain path, both on the card ------
-    trajectory("pmajor trajectory", "pmajor", [(pmajor, "pm_pass", pmajor.pm_pass_plain)],
-               pmajor.LAUNCHES, {"a": TRAJ_TICKS, "b": TRAJ_TICKS})
+    with phase("pmajor trajectory"):
+        trajectory("pmajor trajectory", "pmajor", [(pmajor, "pm_pass", pmajor.pm_pass_plain)],
+                   pmajor.LAUNCHES, {"a": TRAJ_TICKS, "b": TRAJ_TICKS, "sub_a": 0, "sub_b": 0})
+    with phase("PMSUB trajectory"), knob("SAND_CRATE_PMSUB"):
+        trajectory("PMSUB trajectory", "pmajor",
+                   [(pmajor, "pms_pass", pmajor.pms_pass_plain)], pmajor.LAUNCHES,
+                   {"a": 0, "b": 0, "sub_a": TRAJ_TICKS, "sub_b": TRAJ_TICKS})
 
     # -- 7. grid kernels against their plain versions ---------------------------
-    t0 = time.perf_counter()
-    grid_crate = Crate(dam_break_world(N_TARGET), device="cuda", forces_mode="pallas",
-                       cell_capacity=GRID_SLOTS)
-    check(grid_crate.particle_count == n0, "1M world size (grid)")
-    grid_crate.run(GRID_SETTLE_TICKS)
-    print(f"grid settle: {GRID_SETTLE_TICKS} ticks in {time.perf_counter() - t0:.2f} s")
-    print("grid kernels vs plain versions (same device inputs):")
-    grid_rows, sorted_ops = grid_kernels_vs_plain(grid_crate)
-    provider = grid_provider_path(grid_crate, sorted_ops)
-    del sorted_ops
+    with phase("grid settle + kernels vs plain"):
+        grid_crate = Crate(dam_break_world(N_TARGET), device="cuda", forces_mode="pallas",
+                           cell_capacity=GRID_SLOTS)
+        check(grid_crate.particle_count == n0, "1M world size (grid)")
+        grid_crate.run(GRID_SETTLE_TICKS)
+        print(f"grid settle: {GRID_SETTLE_TICKS} ticks")
+        print("grid kernels vs plain versions (same device inputs):")
+        grid_rows, sorted_ops = grid_kernels_vs_plain(grid_crate)
+        provider = grid_provider_path(grid_crate, sorted_ops)
+        del sorted_ops
 
     # -- 8. grid main path -------------------------------------------------------
-    launches, rate, p50, wall = drive(
-        grid_crate, GRID_TICKS, "grid main path", pair_kernel.LAUNCHES,
-        {"place_grid": GRID_TICKS, "pair_pass_a": GRID_TICKS, "pair_pass_b_grid": 0,
-         "pair_pass_b_emit": GRID_TICKS},
-        overflow_ref=over_capacity(grid_crate, GRID_SLOTS),
-    )
-    print(f"grid main path on {smi}: {n0} particles, {rate:.3f} steps/s "
-          f"({wall / GRID_TICKS * 1000:.3f} ms/step mean over {GRID_TICKS} ticks, "
-          f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
-    for r in grid_rows:  # grid-mode pass B runs on the provider path, not the tick
-        r["launches"] = (provider if r["name"] == "pair_pass_b_grid" else launches)[r["name"]]
-    del grid_crate
+    with phase("grid main path"):
+        launches, rate, p50, wall = drive(
+            grid_crate, GRID_TICKS, "grid main path", pair_kernel.LAUNCHES,
+            {"place_grid": GRID_TICKS, "pair_pass_a": GRID_TICKS, "pair_pass_b_grid": 0,
+             "pair_pass_b_emit": GRID_TICKS},
+            overflow_ref=over_capacity(grid_crate, GRID_SLOTS),
+        )
+        print(f"grid main path on {smi}: {n0} particles, {rate:.3f} steps/s "
+              f"({wall / GRID_TICKS * 1000:.3f} ms/step mean over {GRID_TICKS} ticks, "
+              f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
+        for r in grid_rows:  # grid-mode pass B runs on the provider path, not the tick
+            r["launches"] = (provider if r["name"] == "pair_pass_b_grid" else launches)[r["name"]]
+        del grid_crate
 
     # -- 9. grid trajectory --------------------------------------------------------
-    trajectory("grid trajectory", "pallas", [
-        (placement, "place_grid", placement.place_grid_plain),
-        (pair_kernel, "pair_pass_a", pair_kernel.pair_pass_a_plain),
-        (pair_kernel, "pair_pass_b", pair_kernel.pair_pass_b_plain),
-    ], pair_kernel.LAUNCHES, {"place_grid": TRAJ_TICKS, "pair_pass_a": TRAJ_TICKS,
-                              "pair_pass_b_grid": 0, "pair_pass_b_emit": TRAJ_TICKS})
+    with phase("grid trajectory"):
+        trajectory("grid trajectory", "pallas", [
+            (placement, "place_grid", placement.place_grid_plain),
+            (pair_kernel, "pair_pass_a", pair_kernel.pair_pass_a_plain),
+            (pair_kernel, "pair_pass_b", pair_kernel.pair_pass_b_plain),
+        ], pair_kernel.LAUNCHES, {"place_grid": TRAJ_TICKS, "pair_pass_a": TRAJ_TICKS,
+                                  "pair_pass_b_grid": 0, "pair_pass_b_emit": TRAJ_TICKS})
 
-    print(json.dumps({"kernels": rows + grid_rows}))
+    # -- (e) the bench entry, (f) the instrumented Crate, (g) stream_frames ------
+    with phase("bench entry"):
+        bench_entry()
+    with phase("instrument 10k"):
+        instrument_10k()
+    with phase("stream_frames 10k"):
+        stream_10k()
+
+    print(json.dumps({"kernels": rows + k10_rows + grid_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -2,17 +2,23 @@
 
     python3 profile_tick.py            # from the repository root, one GPU
 
-For each backend of the port (pmajor, then the slot grid "pallas") on
-chip_smoke.py's 1,001,700-particle dam break: SETTLE_TICKS ticks, the wall
+For each backend and p-major schedule of the port (pmajor with K1/K2,
+pmajor with K10 under SAND_CRATE_PMSUB=1, then the slot grid "pallas") on
+the bench's 1,001,700-particle dam break: SETTLE_TICKS ticks, the wall
 time per tick over WALL_TICKS ticks (host clock closed by a synchronize,
 no profiler), then PROFILED_TICKS ticks under torch.profiler: the device
 time per tick of the largest kernels (self CUDA time), the sum over all
 kernels, the kernel launches per tick, and the busy share = kernel time /
-wall time.  Prints the card's name and power limit first; needs CUDA.
+wall time.  Then the two p-major schedules in turns (K1/K2, K10, K10,
+K1/K2, twice), WALL_TICKS ticks each from their settled states: the wall
+time per tick and the median per-tick CUDA-event time of each turn.
+Prints the card's name and power limit first; needs CUDA.
 """
 
 from __future__ import annotations
 
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -23,14 +29,44 @@ PROFILED_TICKS = 10
 TOP = 15
 
 
-def profile(forces_mode: str, n_target: int) -> None:
+PMSUB = "SAND_CRATE_PMSUB"
+
+
+def set_schedule(knob) -> None:
+    """Select the p-major schedule: ``knob`` set to "1", or none."""
+    os.environ.pop(PMSUB, None)
+    if knob is not None:
+        os.environ[knob] = "1"
+
+
+def timed_ticks(crate, ticks: int):
+    """(wall ms/tick, median CUDA-event ms/tick) over ``ticks`` ticks."""
+    import torch
+
+    from sand_crate_tpu_torch.physics import step
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(ticks + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events[0].record()
+    for k in range(ticks):
+        crate.state, _ = step(crate.state, crate.params, crate.scene, crate.generator)
+        events[k + 1].record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / ticks * 1e3
+    return wall_ms, statistics.median(events[k].elapsed_time(events[k + 1])
+                                      for k in range(ticks))
+
+
+def profile(forces_mode: str, n_target: int, knob=None):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    from chip_smoke import dam_break_world
     from sand_crate_tpu_torch import Crate
+    from sand_crate_tpu_torch.bench import dam_break_world
 
+    set_schedule(knob)
     crate = Crate(dam_break_world(n_target), device="cuda", forces_mode=forces_mode)
     crate.run(SETTLE_TICKS)
     torch.cuda.synchronize()
@@ -51,12 +87,28 @@ def profile(forces_mode: str, n_target: int) -> None:
                      key=device_us, reverse=True)
     kernel_ms = sum(device_us(e) for e in kernels) / PROFILED_TICKS / 1e3
     launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-    print(f"{forces_mode}: {crate.particle_count} particles, wall {wall_ms:.3f} ms/tick "
+    label = forces_mode + (f" ({knob}=1)" if knob else "")
+    print(f"{label}: {crate.particle_count} particles, wall {wall_ms:.3f} ms/tick "
           f"({WALL_TICKS} ticks, host clock), kernels {kernel_ms:.3f} ms/tick, "
           f"busy share {kernel_ms / wall_ms:.3f}, {launches / PROFILED_TICKS:.0f} launches/tick")
     for e in kernels[:TOP]:
         print(f"  {device_us(e) / PROFILED_TICKS / 1e3:8.4f} ms/tick  "
               f"{e.count / PROFILED_TICKS:5.1f}/tick  {e.key[:110]}")
+    return crate
+
+
+def alternate(crates: dict) -> None:
+    """The p-major schedules in turns from their settled states."""
+    order = list(crates) + list(reversed(crates))
+    names = " ".join(knob or "default" for knob in order)
+    print(f"schedules in turns ({names}, twice; {WALL_TICKS} ticks each):")
+    for _ in range(2):
+        for knob in order:
+            set_schedule(knob)
+            wall_ms, p50 = timed_ticks(crates[knob], WALL_TICKS)
+            print(f"  {knob or 'default (K1/K2)'}: wall {wall_ms:.3f} ms/tick, "
+                  f"CUDA-event p50 {p50:.3f} ms/tick")
+    set_schedule(None)
 
 
 def main() -> int:
@@ -69,8 +121,10 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}")
-    for mode in ("pmajor", "pallas"):
-        profile(mode, 1_000_000)
+    crates = {knob: profile("pmajor", 1_000_000, knob) for knob in (None, PMSUB)}
+    alternate(crates)
+    del crates
+    profile("pallas", 1_000_000)
     return 0
 
 

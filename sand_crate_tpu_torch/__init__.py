@@ -3,10 +3,12 @@
 The same 2D particle-liquid simulator as the JAX package beside it — a pure
 step over fixed-capacity particle tensors with a cell-sorted state — running
 on an NVIDIA Hopper GPU, with the pair passes of its two backends as
-hand-written CUDA kernels (``csrc/pmajor.cu`` for "pmajor",
+hand-written CUDA kernels (``csrc/pmajor.cu`` for "pmajor", per-self K1/K2
+or, under ``SAND_CRATE_PMSUB=1``, the chunk-window K10;
 ``csrc/grid_pair.cu`` for the slot-grid "pallas" mode).  It imports neither
 JAX nor ``sand_crate_tpu``.  On CPU tensors every kernel runs as its plain
-torch version.
+torch version.  ``python -m sand_crate_tpu_torch.bench`` is its headline
+benchmark.
 """
 
 from .config import COEFFICIENT_NAMES, Config, load_config, load_config_dict

@@ -1,31 +1,40 @@
 """Host-side simulation handle — the reference ``Crate`` API on the port.
 
 The counterpart of ``sand_crate_tpu/engine.py``: ``physics_tick()``,
-``run()``, ``editable_coefficients()``, attribute-style coefficient get/set
-(the playback layer's live-editing contract, reference playback.py:221-226)
-and the ``particles`` / ``particle_velocities`` / ``particles_pressure`` /
-``segments`` / ``debug_prints`` views (playback.py:77-81), while the state
-lives on ``device`` as a :class:`~sand_crate_tpu_torch.state.CrateState`
-advanced by the functional step.  ``device`` defaults to "cuda": without a
-card the constructor raises, and the caller asks for the CPU with
-``device="cpu"``.  The emitters draw from a ``torch.Generator`` on the same
-device, seeded from ``seed``.
+``run()``, ``stream_frames()``, ``editable_coefficients()``, attribute-style
+coefficient get/set (the playback layer's live-editing contract, reference
+playback.py:221-226), a grid rebuild when a radius edit outgrows the cell
+size, and the ``particles`` / ``particle_velocities`` /
+``particles_pressure`` / ``segments`` / ``debug_prints`` / ``debug_arrows``
+views (playback.py:77-81), while the state lives on ``device`` as a
+:class:`~sand_crate_tpu_torch.state.CrateState` advanced by the functional
+step.  ``device`` defaults to "cuda": without a card the constructor raises,
+and the caller asks for the CPU with ``device="cpu"``.  The emitters draw
+from a ``torch.Generator`` on the same device, seeded from ``seed``.
 
-Not ported yet (ROADMAP queue 1 items 6 and 10): grid rebuilds on a radius
-edit past the cell size, ``stream_frames``, checkpoints and
-``instrument=True``; each raises NotImplementedError.
+Two execution modes, as in the JAX package:
+* ``physics_tick()`` — one step per call, for interactive playback; with
+  ``instrument=True`` it runs the phase-timed tick of ``instrument.py``.
+* ``run()`` / ``stream_frames()`` — ticks queued on the device with no host
+  read inside; ``stream_frames`` copies each chunk's frames to the host
+  while the next chunk runs.
+
+Checkpoints wait for the recording port (ROADMAP queue 1 item 11) and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
-from .config import COEFFICIENT_NAMES, WorldConfig
+from .config import COEFFICIENT_NAMES, Config, WorldConfig
 from .diagnostics import ForceMonitor, PhaseTimer, yaml_block
-from .physics import rollout, step
+from .instrument import instrumented_tick
+from .physics import rollout, step, trajectory
 from .scene import build_scene, init_state
 from .state import FORCE_LABELS, Diagnostics, Params
 
@@ -42,6 +51,9 @@ class Crate:
         "debug_timer",
         "force_monitor",
         "debug_prints",
+        "debug_arrows",
+        "velocity_arrows_every",
+        "instrument",
         "_coeff_overrides",
     }
 
@@ -58,10 +70,6 @@ class Crate:
         instrument: bool = False,
         device="cuda",
     ) -> None:
-        if instrument:
-            raise NotImplementedError(
-                "instrument=True is not ported yet (ROADMAP queue 1 item 10)"
-            )
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -75,6 +83,9 @@ class Crate:
             forces_mode=forces_mode,
             cell_capacity=cell_capacity,
             pmajor_symm=pmajor_symm,
+            # Instrumented runs want the true per-force monitor split, so
+            # they keep tension and pressure as separate pair sums.
+            fold_pairs=False if instrument else None,
             device=device,
         )
         generator = torch.Generator(device=device)
@@ -88,6 +99,9 @@ class Crate:
             debug_timer=PhaseTimer(),
             force_monitor=ForceMonitor(FORCE_LABELS),
             debug_prints="",
+            debug_arrows=[],
+            velocity_arrows_every=0,
+            instrument=instrument,
             _coeff_overrides={},
         ).items():
             object.__setattr__(self, name, value)
@@ -120,14 +134,37 @@ class Crate:
             raise AttributeError(f"Unknown attribute {name!r}")
 
     def _maybe_regrid(self, radius: float) -> None:
-        """A live radius edit is safe while the diameter fits the cell size
-        (the 3x3 cell stencil still covers the cutoff); rebuilding the grid
-        past it is not ported yet."""
-        if 2.0 * radius > self.scene.cell_size:
-            raise NotImplementedError(
-                "a particle_radius edit past the grid's cell size needs a grid "
-                "rebuild, which is not ported yet (ROADMAP queue 1 item 6)"
-            )
+        """Rebuild the neighbor grid when a live radius edit outgrows it
+        (JAX engine.py:131-167).
+
+        Both backends search the 3x3 cell stencil, which covers the cutoff
+        only while diameter <= cell_size; the cell dims are static Scene
+        fields while particle_radius is a live coefficient.  When an edit
+        pushes 2 * radius past cell_size, the Scene is rebuilt around the
+        new diameter with the same options; the state needs nothing, since
+        every tick sorts it anew."""
+        scene = self.scene
+        if 2.0 * radius <= scene.cell_size:
+            return
+        world = self.world_config
+        coeff = dict(world.coefficients)
+        coeff["particle_radius"] = radius
+        new_scene = build_scene(
+            dataclasses.replace(world, coefficients=coeff),
+            capacity=scene.capacity,
+            enable_spring=scene.enable_spring,
+            forces_mode=scene.forces_mode,
+            cell_capacity=scene.cell_capacity,
+            fold_pairs=scene.fold_pairs,
+            pmajor_symm=scene.pmajor_symm,
+            device=scene.segments0.device,
+            dtype=scene.segments0.dtype,
+        )
+        object.__setattr__(self, "scene", new_scene)
+
+    @property
+    def diameter(self) -> float:
+        return 2.0 * float(self.params.particle_radius)
 
     # -- state views (playback read contract, playback.py:77-81) -------------
 
@@ -162,13 +199,33 @@ class Crate:
     # -- stepping -------------------------------------------------------------
 
     def physics_tick(self) -> None:
-        """Advance one tick (interactive path; reference crate.py:91-129)."""
-        with self.debug_timer("Step"):
-            self.state, diag = step(self.state, self.params, self.scene, self.generator)
-        with self.debug_timer("Sync"):
+        """Advance one tick (interactive path; reference crate.py:91-129).
+
+        With ``instrument=True`` the tick runs as timed phases, so
+        ``debug_timer`` shows the reference-style per-phase breakdown
+        (crate.py:97-124) in the overlay; the default is the whole step."""
+        if self.instrument:
+            self.state, diag = instrumented_tick(
+                self.state, self.params, self.scene, self.generator, self.debug_timer
+            )
             force_dv = diag.force_dv.cpu().numpy()
+        else:
+            with self.debug_timer("Step"):
+                self.state, diag = step(self.state, self.params, self.scene, self.generator)
+            with self.debug_timer("Sync"):
+                force_dv = diag.force_dv.cpu().numpy()
         self.force_monitor.update(force_dv)
         self.set_debug_prints(diag)
+        if self.velocity_arrows_every:
+            self.update_velocity_arrows(self.velocity_arrows_every)
+
+    def update_velocity_arrows(self, every: int = 25, scale: float = 0.02) -> None:
+        """Fill ``debug_arrows`` with sampled per-particle velocity vectors
+        (the debug overlay channel of reference crate.py:34,94 and
+        playback.py:95-107)."""
+        pts = self.particles[::every]
+        vecs = self.particle_velocities[::every] * scale
+        object.__setattr__(self, "debug_arrows", list(zip(pts, vecs)))
 
     def run(self, num_ticks: int) -> Diagnostics:
         """Advance ``num_ticks`` on the device; reads the last tick's
@@ -180,16 +237,62 @@ class Crate:
         self.set_debug_prints(diag)
         return diag
 
-    def stream_frames(self, *args, **kwargs):
-        raise NotImplementedError(
-            "stream_frames waits for the recording port (ROADMAP queue 1 item 6)"
-        )
+    def stream_frames(
+        self, num_frames: int, ticks_per_frame: int = 1, chunk_frames: int = 16
+    ) -> Iterator[dict]:
+        """Yield render frames (dicts of numpy arrays: pos, alive, pressure,
+        segments, force_dv) while stepping in chunks of ``chunk_frames``.
+
+        Double-buffered on a CUDA device: each chunk's frames are copied to
+        pinned host memory on a side stream, behind an event recorded after
+        the chunk's ticks, and the next chunk is dispatched before the
+        previous one's frames are waited for and yielded, so recording
+        never stalls the step loop.  On the CPU it is a plain loop."""
+        cuda = self.state.pos.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.state.pos.device) if cuda else None
+        pending = None  # (host frames, copy-done event, device frames) of a chunk
+        frames_left = num_frames
+        while frames_left > 0 or pending is not None:
+            ready = None
+            if frames_left > 0:
+                n = min(chunk_frames, frames_left)
+                frames_left -= n
+                self.state, frames = trajectory(
+                    self.state, self.params, self.scene, n, self.generator, ticks_per_frame
+                )
+                if cuda:
+                    computed = torch.cuda.Event()
+                    computed.record()
+                    with torch.cuda.stream(copy_stream):
+                        copy_stream.wait_event(computed)
+                        host = {
+                            k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
+                                v, non_blocking=True)
+                            for k, v in frames.items()
+                        }
+                        done = torch.cuda.Event()
+                        done.record(copy_stream)
+                    # The device frames stay referenced until the copy is done.
+                    ready = (host, done, frames)
+                else:
+                    ready = (frames, None, None)
+            if pending is not None:
+                host, done, _ = pending
+                if done is not None:
+                    done.synchronize()
+                for i in range(host["pos"].shape[0]):
+                    yield {k: v[i].numpy() for k, v in host.items()}
+            pending = ready
 
     def save_checkpoint(self, path):
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP queue 1 item 6)")
+        raise NotImplementedError(
+            "checkpoints wait for the recording port (ROADMAP queue 1 item 11)"
+        )
 
     def restore_checkpoint(self, path):
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP queue 1 item 6)")
+        raise NotImplementedError(
+            "checkpoints wait for the recording port (ROADMAP queue 1 item 11)"
+        )
 
     # -- observability ---------------------------------------------------------
 
@@ -220,3 +323,10 @@ class Crate:
             v = getattr(self.params, name).cpu().numpy()
             items.append({name: v.tolist() if v.ndim else v.item()})
         return yaml_block(items)
+
+    def current_coefficients(self) -> dict:
+        return self.params.to_coefficients()
+
+
+def crate_from_config(config: Config, **kwargs) -> Crate:
+    return Crate(config.world_config, **kwargs)

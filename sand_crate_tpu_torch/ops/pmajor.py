@@ -9,20 +9,37 @@ encoded distance <= diameter, candidate row == self row + d, j != i.
     feature rows -> pass A (w_sum, s, count, vsum) -> cell pressure
                  -> pass B (tension [+ pressure] [+ spring] forces)
 
-Each pass is :func:`pm_pass`: on CUDA tensors it launches the hand-written
-kernel ``csrc/pmajor.cu`` (built by ``nvcc`` at first use); on CPU tensors
-it runs :func:`pm_pass_plain`, the vectorised torch version of the same
-function.  The candidate ranges are exact per particle (``torch.searchsorted``
-on the sorted cell ids), so no pair is lost and ``PairSums.overflow`` is 0 —
-where the JAX kernel's fixed window budget ``w`` can lose and count pairs.
-The JAX kernel's TPU tactics (128-lane window anchoring, VMEM residency,
-``split``/``gate`` tiles, the searchsorted-by-sorting merge and the j-side
-staging merge) have no counterpart here.
+Two candidate-walk schedules compute the passes, both hand-written CUDA
+kernels of ``csrc/pmajor.cu`` (built by ``nvcc`` at first use) beside their
+vectorised torch versions, which CPU tensors run:
+
+* :func:`pm_pass` (K1/K2, the default): one thread per self walks its own
+  exact candidate ranges (:func:`candidate_ranges`, ``torch.searchsorted``
+  on the sorted cell ids); plain version :func:`pm_pass_plain`.
+* :func:`pms_pass` (K10, ``SAND_CRATE_PMSUB=1``): chunks of ``PMS_CHUNK``
+  consecutive selves share one candidate window per row offset
+  (:func:`chunk_windows`), staged through shared memory; plain version
+  :func:`pms_pass_plain`.  The same pairs in the same order as K1/K2 with
+  one-sided noise, so the same bits.
+
+Both visit every candidate, so no pair is lost and ``PairSums.overflow`` is
+0 — where the JAX kernels' fixed window budgets (``w``, ``VCAP_SUB``) can
+lose and count pairs.  The environment knobs of the JAX package are read at
+call time, as JAX reads them at trace time (ops/pmajor.py:1138-1147, 1183):
+``SAND_CRATE_PMSUB=1`` selects K10 and ``SAND_CRATE_PMAJOR_GATE=1`` keeps
+K1/K2 (the gate branch of the JAX kernel skips tiles past the window span;
+the per-thread exact walk already visits only those candidates); both turn
+the two-sided ``pmajor_symm`` noise off, so the jitter is one-sided at the
+full amplitude.  ``SAND_CRATE_PMSUB_G`` (the TPU kernel's candidate rows per
+vreg group) changes no result and has no counterpart.  Nor do the other TPU
+tactics: 128-lane window anchoring, VMEM residency, ``split`` tiles, the
+searchsorted-by-sorting merge and the j-side staging merge.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -41,12 +58,18 @@ A_PX, A_PY, A_NPX, A_NPY, A_VX, A_VY, A_ROW = 0, 1, 2, 3, 4, 5, 6
 B_PX, B_PY, B_NPX, B_NPY, B_CP, B_SX, B_SY, B_ROW = 0, 1, 2, 3, 4, 5, 6, 7
 SLAB_F = 8
 
-# Kernel launches per mode since the last reset, counted by pm_pass where it
-# launches the CUDA kernel (never for the plain version).
-LAUNCHES = {"a": 0, "b": 0}
+# Kernel launches per pass since the last reset, counted by pm_pass (K1/K2:
+# "a", "b") and pms_pass (K10: "sub_a", "sub_b") where they launch a CUDA
+# kernel (never for the plain versions).
+LAUNCHES = {"a": 0, "b": 0, "sub_a": 0, "sub_b": 0}
 
-# Selves per chunk of the plain version (bounds its (chunk, span, 8) gather).
+# Selves per chunk of the plain versions (bounds their (selves, span, 8)
+# candidate gathers).
 PLAIN_CHUNK = 1 << 16
+
+# Selves per K10 chunk: 32 (one warp) or 128 (the JAX kernel's chunk).
+PMS_CHUNK = 32
+PMS_CHUNKS = (32, 128)
 
 _I32_MASK = 0xFFFFFFFF
 
@@ -112,30 +135,98 @@ def candidate_ranges(sorted_cid: torch.Tensor, alive: torch.Tensor, nx: int, ny:
     return torch.cat([ws, we]).contiguous()
 
 
+def chunk_windows(sorted_cid: torch.Tensor, alive: torch.Tensor, nx: int, ny: int,
+                  chunk: int) -> torch.Tensor:
+    """(7, nchunks) int32 candidate windows of chunks of ``chunk`` selves.
+
+    The torch counterpart of the JAX ``_windows_sub`` (ops/pmajor.py:922)
+    without its TPU tactics (merge-sort search, ``VCAP_SUB`` residency clip,
+    ``SUB_G`` quantisation): per chunk of consecutive sorted selves, rows 0-2
+    are the first and rows 3-5 the end slab position of one window per row
+    offset d = -1, 0, +1, from the first self's range start to the last
+    alive self's range end (:func:`candidate_ranges`; targets are monotone
+    in the cell id, so the window covers every self's range exactly);
+    row 6 is one past the chunk's last alive self.  Alive particles are the
+    sorted prefix (dead ones sort to the cell id NC), and dead chunks get
+    empty windows."""
+    P = sorted_cid.shape[0]
+    dev = sorted_cid.device
+    NC = nx * ny
+    nchunks = -(-P // chunk)
+    off = torch.arange(nchunks, dtype=torch.int32, device=dev) * chunk
+    n_alive = alive.sum(dtype=torch.int32)
+    end = torch.maximum(torch.minimum(off + chunk, n_alive), off)
+    live = end > off
+    cidf = sorted_cid[torch.clamp(off, max=P - 1).long()]
+    cidl = sorted_cid[torch.clamp(end - 1, min=0).long()]
+    d = torch.tensor([-nx, 0, nx], dtype=torch.int32, device=dev)[:, None]
+    ws = torch.searchsorted(sorted_cid, torch.clamp(cidf + d - 1, 0, NC), out_int32=True)
+    we = torch.searchsorted(sorted_cid, torch.clamp(cidl + d + 2, 0, NC), out_int32=True)
+    we = torch.where(live, we, ws)
+    return torch.cat([ws, we, end[None]]).contiguous()
+
+
 def _n_out(mode: str, fold: bool, spring: bool) -> int:
     if mode == "a":
         return 6  # w_sum, s_x, s_y, cnt, vsum_x, vsum_y
     return 2 if fold else (6 if spring else 4)
 
 
-def pm_pass_plain(slab, ranges, coef, mode, *, fold=False, spring=False, symm=False):
-    """Plain torch version of the CUDA pair pass: same inputs, same outputs.
-
-    Pads each self's candidate range to the chunk's longest and masks, one
-    range (row offset) at a time, over chunks of ``PLAIN_CHUNK`` selves.
-    The pair terms are computed with the kernel's operations in the
-    kernel's order (1/sqrt, no fused multiply-add) and summed one candidate
-    column at a time in ascending slab order, as the kernel sums them, so
-    the two agree bit for bit."""
-    P = slab.shape[0]
-    n_out = _n_out(mode, fold, spring)
-    out = torch.zeros((n_out, P), dtype=torch.float32, device=slab.device)
+def _masked_terms(s, c, mb, coef, mode, fold, spring, symm):
+    """The pair terms of selves ``s`` and candidates ``c`` (broadcastable
+    (..., 8) slab rows), zero where ``mb`` is False, with the kernels'
+    operations in the kernels' order (1/sqrt, no fused multiply-add)."""
     diam = coef[0]
-    diam2 = diam * diam
     inv_diam = 1.0 / torch.clamp(diam, min=EPS)
     tp2 = 2.0 * coef[1]
     bal = coef[2]
+    if symm:
+        nrx = s[..., A_NPX] - c[..., A_NPX]
+        nry = s[..., A_NPY] - c[..., A_NPY]
+    else:
+        nrx = s[..., A_PX] - c[..., A_NPX]
+        nry = s[..., A_PY] - c[..., A_NPY]
+    nd2 = torch.clamp(nrx * nrx + nry * nry, min=EPS * EPS)
+    inv = 1.0 / torch.sqrt(nd2)
+    if mode == "a" or spring:
+        wgt = 1.0 - torch.clamp(nd2 * inv * inv_diam, max=1.0)
+    if mode == "a":
+        ci = (1.0 - wgt) * wgt * inv
+        terms = [wgt, ci * nrx, ci * nry, torch.ones_like(wgt), c[..., A_VX], c[..., A_VY]]
+    else:
+        nhx = nrx * inv
+        nhy = nry * inv
+        align = (s[..., B_SX] - c[..., B_SX]) * nhx + (s[..., B_SY] - c[..., B_SY]) * nhy
+        t_coef = align + (c[..., B_CP] + (s[..., B_CP] - tp2))
+        terms = [t_coef * nhx, t_coef * nhy]
+        if not fold:
+            p_coef = s[..., B_CP] + c[..., B_CP]
+            terms += [p_coef * nhx, p_coef * nhy]
+            if spring:
+                terms += [(bal - wgt) * nhx, (bal - wgt) * nhy]
+    return [torch.where(mb, t, 0.0) for t in terms]
+
+
+def _near_and_row(s, c, coef, mode, q):
+    """The distance and row parts of the pair mask."""
+    rx = s[..., A_PX] - c[..., A_PX]
+    ry = s[..., A_PY] - c[..., A_PY]
     row_col = A_ROW if mode == "a" else B_ROW
+    return (rx * rx + ry * ry <= coef[0] * coef[0]) & (
+        c[..., row_col] == s[..., row_col] + float(q - 1)
+    )
+
+
+def pm_pass_plain(slab, ranges, coef, mode, *, fold=False, spring=False, symm=False):
+    """Plain torch version of the K1/K2 pair pass: same inputs, same outputs.
+
+    Pads each self's candidate range to the chunk's longest and masks, one
+    range (row offset) at a time, over chunks of ``PLAIN_CHUNK`` selves.
+    The pair terms are summed one candidate column at a time in ascending
+    slab order, as the kernel sums them, so the two agree bit for bit."""
+    P = slab.shape[0]
+    n_out = _n_out(mode, fold, spring)
+    out = torch.zeros((n_out, P), dtype=torch.float32, device=slab.device)
     for start in range(0, P, PLAIN_CHUNK):
         stop = min(start + PLAIN_CHUNK, P)
         s = slab[start:stop, None, :]  # (C, 1, 8)
@@ -150,42 +241,8 @@ def pm_pass_plain(slab, ranges, coef, mode, *, fold=False, spring=False, symm=Fa
             valid = j < we[:, None]
             j = torch.where(valid, j, gid)
             c = slab[j]  # (C, span, 8)
-            rx = s[..., A_PX] - c[..., A_PX]
-            ry = s[..., A_PY] - c[..., A_PY]
-            mb = (
-                valid
-                & (rx * rx + ry * ry <= diam2)
-                & (c[..., row_col] == s[..., row_col] + float(q - 1))
-                & (j != gid)
-            )
-            if symm:
-                nrx = s[..., A_NPX] - c[..., A_NPX]
-                nry = s[..., A_NPY] - c[..., A_NPY]
-            else:
-                nrx = s[..., A_PX] - c[..., A_NPX]
-                nry = s[..., A_PY] - c[..., A_NPY]
-            nd2 = torch.clamp(nrx * nrx + nry * nry, min=EPS * EPS)
-            inv = 1.0 / torch.sqrt(nd2)
-            if mode == "a" or spring:
-                wgt = 1.0 - torch.clamp(nd2 * inv * inv_diam, max=1.0)
-            if mode == "a":
-                ci = (1.0 - wgt) * wgt * inv
-                terms = [wgt, ci * nrx, ci * nry, torch.ones_like(wgt),
-                         c[..., A_VX], c[..., A_VY]]
-            else:
-                nhx = nrx * inv
-                nhy = nry * inv
-                align = (s[..., B_SX] - c[..., B_SX]) * nhx + (
-                    s[..., B_SY] - c[..., B_SY]
-                ) * nhy
-                t_coef = align + (c[..., B_CP] + (s[..., B_CP] - tp2))
-                terms = [t_coef * nhx, t_coef * nhy]
-                if not fold:
-                    p_coef = s[..., B_CP] + c[..., B_CP]
-                    terms += [p_coef * nhx, p_coef * nhy]
-                    if spring:
-                        terms += [(bal - wgt) * nhx, (bal - wgt) * nhy]
-            terms = [torch.where(mb, t, 0.0) for t in terms]
+            mb = valid & _near_and_row(s, c, coef, mode, q) & (j != gid)
+            terms = _masked_terms(s, c, mb, coef, mode, fold, spring, symm)
             for col in range(span):
                 acc = [a + t[:, col] for a, t in zip(acc, terms)]
         for k in range(n_out):
@@ -193,41 +250,98 @@ def pm_pass_plain(slab, ranges, coef, mode, *, fold=False, spring=False, symm=Fa
     return out
 
 
-def _check(name, t, dtype, shape):
+def pms_pass_plain(slab, cid, windows, coef, mode, *, nx, chunk, fold=False, spring=False):
+    """Plain torch version of the K10 chunk-window pass: same inputs, same
+    outputs.
+
+    Every self of a chunk tests every candidate of the chunk's window at
+    each row offset, under the pair mask plus the cell test (the candidate's
+    cell is one of the self's three cells of that row offset), and adds the
+    terms that pass in ascending slab order, over groups of chunks of about
+    ``PLAIN_CHUNK`` selves.  One-sided collider noise."""
+    P = slab.shape[0]
+    dev = slab.device
+    n_out = _n_out(mode, fold, spring)
+    nchunks = windows.shape[1]
+    out = torch.zeros((n_out, nchunks * chunk), dtype=torch.float32, device=dev)
+    pad = nchunks * chunk - P
+    slab_p = torch.cat([slab, slab.new_zeros((pad, SLAB_F))])
+    cid_p = torch.cat([cid, cid.new_zeros((pad,))])
+    per = max(1, PLAIN_CHUNK // chunk)
+    for g0 in range(0, nchunks, per):
+        g1 = min(g0 + per, nchunks)
+        gid = torch.arange(g0 * chunk, g1 * chunk, device=dev).view(g1 - g0, chunk)
+        active = gid < windows[6, g0:g1, None]  # alive selves
+        s = slab_p[gid][:, :, None, :]  # (G, chunk, 1, 8)
+        s_cid = cid_p[gid][:, :, None]
+        acc = [0.0] * n_out
+        for q in range(3):
+            ws, we = windows[q, g0:g1], windows[3 + q, g0:g1]
+            span = int((we - ws).max())
+            if span <= 0:
+                continue
+            j = ws[:, None].long() + torch.arange(span, device=dev)  # (G, span)
+            valid = j < we[:, None]
+            j = torch.where(valid, j, 0)
+            c = slab[j][:, None]  # (G, 1, span, 8)
+            cell = cid[j][:, None, :] - (s_cid + (q - 1) * nx - 1)
+            mb = (
+                (valid[:, None, :] & active[:, :, None])
+                & _near_and_row(s, c, coef, mode, q)
+                & (cell >= 0) & (cell < 3)
+                & (j[:, None, :] != gid[:, :, None])
+            )
+            terms = _masked_terms(s, c, mb, coef, mode, fold, spring, False)
+            for col in range(span):
+                acc = [a + t[..., col] for a, t in zip(acc, terms)]
+        for k in range(n_out):
+            if isinstance(acc[k], torch.Tensor):
+                out[k, g0 * chunk:g1 * chunk] = acc[k].reshape(-1)
+    return out[:, :P]
+
+
+def _check(fn, name, t, dtype, shape):
     if t.device.type != "cuda":
-        raise ValueError(f"pm_pass: {name} is on {t.device}, expected the CUDA device")
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected the CUDA device")
     if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(
-            f"pm_pass: {name} must be a contiguous {dtype} tensor of shape "
+            f"{fn}: {name} must be a contiguous {dtype} tensor of shape "
             f"{shape}, got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
         )
 
 
 def _lib():
     lib = cuda_build.load("pmajor")
-    fn = lib.sc_pm_pass
-    if fn.argtypes is None:  # pointers as c_void_p: ctypes would cut them to int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.sc_pm_pass.argtypes is None:  # pointers as c_void_p: ctypes would cut them to int
+        lib.sc_pm_pass.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.sc_pm_pass.restype = ctypes.c_int
+        lib.sc_pms_pass.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
+        lib.sc_pms_pass.restype = ctypes.c_int
     return lib
 
 
+def _check_mode(fn, mode):
+    if mode not in ("a", "b"):
+        raise ValueError(f"{fn}: mode must be 'a' or 'b', got {mode!r}")
+
+
 def pm_pass(slab, ranges, coef, mode, *, fold=False, spring=False, symm=False):
-    """One pair pass over the sorted slab -> (n_out, P) f32 sums.
+    """One K1/K2 pair pass over the sorted slab -> (n_out, P) f32 sums.
 
     ``mode`` "a" sums (w_sum, s_x, s_y, count, vsum_x, vsum_y); "b" sums
     the folded force (2 rows) or tension and pressure (4) plus the spring
     (6).  CPU tensors run :func:`pm_pass_plain`; CUDA tensors launch the
     kernel of ``csrc/pmajor.cu`` on the current stream (and count it in
     ``LAUNCHES``); tensors elsewhere raise."""
-    if mode not in ("a", "b"):
-        raise ValueError(f"pm_pass: mode must be 'a' or 'b', got {mode!r}")
+    _check_mode("pm_pass", mode)
     if slab.device.type == "cpu":
         return pm_pass_plain(slab, ranges, coef, mode, fold=fold, spring=spring, symm=symm)
     P = slab.shape[0]
-    _check("slab", slab, torch.float32, (P, SLAB_F))
-    _check("ranges", ranges, torch.int32, (6, P))
-    _check("coef", coef, torch.float32, (3,))
+    _check("pm_pass", "slab", slab, torch.float32, (P, SLAB_F))
+    _check("pm_pass", "ranges", ranges, torch.int32, (6, P))
+    _check("pm_pass", "coef", coef, torch.float32, (3,))
     if not (slab.device == ranges.device == coef.device):
         raise ValueError("pm_pass: slab, ranges and coef must share one device")
     n_out = _n_out(mode, fold, spring)
@@ -244,20 +358,54 @@ def pm_pass(slab, ranges, coef, mode, *, fold=False, spring=False, symm=False):
     return out
 
 
-def pass_a_inputs(pos, vel, alive, sorted_cid, noise_amp, tick, scene: Scene):
-    """(slab_a, ranges): the pass-A slab and the candidate ranges.
+def pms_pass(slab, cid, windows, coef, mode, *, nx, chunk, fold=False, spring=False):
+    """One K10 chunk-window pair pass -> (n_out, P) f32 sums, one-sided
+    collider noise; outputs as :func:`pm_pass`.
 
-    Under ``scene.pmajor_symm`` both positions of a pair are jittered, so
-    the single-particle amplitude is scaled by 1/sqrt(2) to keep the
-    pair-delta jitter variance at the reference's one-sided level."""
-    nx, ny = scene.grid_nx, scene.grid_ny
-    if scene.pmajor_symm:
+    ``cid`` is the sorted cell ids (P,) int32, ``windows`` the
+    :func:`chunk_windows` of ``chunk`` (32 or 128) selves, ``nx`` the grid
+    width.  CPU tensors run :func:`pms_pass_plain`; CUDA tensors launch the
+    kernel of ``csrc/pmajor.cu`` on the current stream (and count it in
+    ``LAUNCHES["sub_a"]`` / ``["sub_b"]``); tensors elsewhere raise."""
+    _check_mode("pms_pass", mode)
+    if chunk not in PMS_CHUNKS:
+        raise ValueError(f"pms_pass: chunk must be one of {PMS_CHUNKS}, got {chunk}")
+    if slab.device.type == "cpu":
+        return pms_pass_plain(slab, cid, windows, coef, mode, nx=nx, chunk=chunk,
+                              fold=fold, spring=spring)
+    P = slab.shape[0]
+    nchunks = -(-P // chunk)
+    _check("pms_pass", "slab", slab, torch.float32, (P, SLAB_F))
+    _check("pms_pass", "cid", cid, torch.int32, (P,))
+    _check("pms_pass", "windows", windows, torch.int32, (7, nchunks))
+    _check("pms_pass", "coef", coef, torch.float32, (3,))
+    if not (slab.device == cid.device == windows.device == coef.device):
+        raise ValueError("pms_pass: slab, cid, windows and coef must share one device")
+    n_out = _n_out(mode, fold, spring)
+    out = torch.empty((n_out, P), dtype=torch.float32, device=slab.device)
+    with torch.cuda.device(slab.device):
+        err = _lib().sc_pms_pass(
+            slab.data_ptr(), cid.data_ptr(), windows.data_ptr(), coef.data_ptr(),
+            out.data_ptr(), P, nchunks, chunk, nx, 0 if mode == "a" else 1, n_out,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pms_pass kernel (mode {mode}) failed: cudaError {err}")
+    LAUNCHES["sub_" + mode] += 1
+    return out
+
+
+def pass_a_slab(pos, vel, alive, sorted_cid, noise_amp, tick, scene: Scene, *, symm: bool):
+    """The (P, 8) pass-A slab of sorted particles.
+
+    With ``symm`` both positions of a pair are jittered, so the
+    single-particle amplitude is scaled by 1/sqrt(2) to keep the pair-delta
+    jitter variance at the reference's one-sided level."""
+    if symm:
         noise_amp = noise_amp * 0.7071067811865476
     pxo, pyo, npx, npy, vx, vy = feature_rows(pos, vel, alive, noise_amp, tick)
-    row = torch.where(alive, sorted_cid // nx, ny).to(torch.float32)
-    zero = torch.zeros_like(row)
-    slab_a = torch.stack([pxo, pyo, npx, npy, vx, vy, row, zero], dim=1)
-    return slab_a, candidate_ranges(sorted_cid, alive, nx, ny)
+    row = torch.where(alive, sorted_cid // scene.grid_nx, scene.grid_ny).to(torch.float32)
+    return torch.stack([pxo, pyo, npx, npy, vx, vy, row, torch.zeros_like(row)], dim=1)
 
 
 def pass_b_slab(slab_a, out_a, cp_slab, surface_smoothing):
@@ -266,6 +414,17 @@ def pass_b_slab(slab_a, out_a, cp_slab, surface_smoothing):
     sm = surface_smoothing.to(torch.float32)
     cols = [slab_a[:, :4], cp_slab[:, None], (sm * out_a[1:3]).T, slab_a[:, A_ROW:A_ROW + 1]]
     return torch.cat(cols, dim=1).contiguous()
+
+
+def schedule() -> str:
+    """The pair schedule the environment selects, read at call time as the
+    JAX package reads it at trace time: "pmsub" (K10), "gate" (K1/K2
+    one-sided) or "default" (K1/K2, two-sided where the scene says so)."""
+    if os.environ.get("SAND_CRATE_PMSUB") == "1":
+        return "pmsub"
+    if os.environ.get("SAND_CRATE_PMAJOR_GATE") == "1":
+        return "gate"
+    return "default"
 
 
 def neighbor_forces_pmajor_sorted(
@@ -290,28 +449,42 @@ def neighbor_forces_pmajor_sorted(
     supplies ``pressure_amplifier``, pass B emits one folded force sum
     (tension + pa * pressure): the PairSums carry it in ``dv_tension`` and
     zeros in ``pressure_real``.  Callers that omit ``pressure_amplifier``
-    (tests) always get the split sums."""
+    (tests) always get the split sums.  :func:`schedule` picks the kernels
+    (K10 under ``SAND_CRATE_PMSUB=1``) and, off the default, one-sided
+    noise."""
     fold = (
         scene.fold_pairs
         and pressure_amplifier is not None
         and not scene.enable_spring
     )
-    symm = scene.pmajor_symm
+    sched = schedule()
+    symm = scene.pmajor_symm and sched == "default"
     P = pos.shape[0]
     dtype = pos.dtype
+    nx, ny = scene.grid_nx, scene.grid_ny
 
-    slab_a, ranges = pass_a_inputs(pos, vel, alive, sorted_cid, noise_amp, tick, scene)
+    slab_a = pass_a_slab(pos, vel, alive, sorted_cid, noise_amp, tick, scene, symm=symm)
     coef = coef_stack(diameter, target_pressure, spring_overlap_balance)
-    out_a = pm_pass(slab_a, ranges, coef, "a", symm=symm)
+    if sched == "pmsub":
+        windows = chunk_windows(sorted_cid, alive, nx, ny, PMS_CHUNK)
+
+        def pair_pass(slab, mode, **kw):
+            return pms_pass(slab, sorted_cid, windows, coef, mode, nx=nx, chunk=PMS_CHUNK, **kw)
+    else:
+        ranges = candidate_ranges(sorted_cid, alive, nx, ny)
+
+        def pair_pass(slab, mode, **kw):
+            return pm_pass(slab, ranges, coef, mode, symm=symm, **kw)
+
+    out_a = pair_pass(slab_a, "a")
     w_sum, cnt = out_a[0], out_a[3]
     cp = finalize_cp(w_sum, cnt, ignored_pressure)
     cp_slab = cp * (1.0 + pressure_amplifier) if fold else cp
     slab_b = pass_b_slab(slab_a, out_a, cp_slab, surface_smoothing)
-    out_b = pm_pass(
-        slab_b, ranges, coef, "b", fold=fold, spring=scene.enable_spring, symm=symm
-    )
+    out_b = pair_pass(slab_b, "b", fold=fold, spring=scene.enable_spring)
 
-    # Dead selves have empty candidate ranges, so every dead row is zero.
+    # Dead selves have empty candidate ranges (or sit past their chunk's
+    # last alive self), so every dead row is zero.
     zeros2 = torch.zeros((P, 2), dtype=dtype, device=pos.device)
     return PairSums(
         p_i=cp.to(dtype),

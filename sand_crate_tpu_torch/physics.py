@@ -537,3 +537,28 @@ def rollout(
     for _ in range(num_ticks):
         state, diag = step(state, params, scene, generator)
     return state, diag
+
+
+def trajectory(
+    state: CrateState,
+    params: Params,
+    scene: Scene,
+    num_frames: int,
+    generator: torch.Generator,
+    ticks_per_frame: int = 1,
+) -> tuple[CrateState, dict]:
+    """Run ``num_frames * ticks_per_frame`` steps, sampling one frame after
+    every ``ticks_per_frame`` ticks (the JAX ``trajectory``).
+
+    Returns (final_state, frames): frames is a dict of stacked device
+    tensors pos (F, P, 2), alive (F, P), pressure (F, P), segments
+    (F, S, 2, 2) and force_dv (F, NUM_FORCES), the last tick's of each
+    frame."""
+    keys = ("pos", "alive", "pressure", "segments", "force_dv")
+    frames = {k: [] for k in keys}
+    for _ in range(num_frames):
+        state, diag = rollout(state, params, scene, ticks_per_frame, generator)
+        for k in keys[:-1]:
+            frames[k].append(getattr(state, k))
+        frames["force_dv"].append(diag.force_dv)
+    return state, {k: torch.stack(v) for k, v in frames.items()}

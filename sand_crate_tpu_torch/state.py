@@ -53,6 +53,15 @@ class Params(NamedTuple):
     def diameter(self) -> torch.Tensor:
         return self.particle_radius * 2.0
 
+    def to_coefficients(self) -> dict:
+        """Back to the reference coefficient dict (host floats and lists)."""
+        out = {}
+        for name in self._fields:
+            v = getattr(self, name).cpu().numpy()
+            out[name] = v.tolist() if v.ndim else float(v)
+        out["max_particles"] = int(self.max_particles)
+        return out
+
     @staticmethod
     def from_coefficients(
         coefficients: dict, device="cpu", dtype=torch.float32

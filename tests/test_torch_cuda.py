@@ -64,12 +64,13 @@ def test_kernels_bit_identical_to_plain(cuda):
     cid, order = torch.sort(cell_ids_grid(pos, alive, crate.scene), stable=True)
     coef = torch.tensor([0.0044, -2.0, 0.5], device=cuda)  # diameter, target, balance
     for symm in (True, False):
-        scene = dataclasses.replace(crate.scene, pmajor_symm=symm)
-        slab_a, ranges = pmajor.pass_a_inputs(
+        slab_a = pmajor.pass_a_slab(
             pos[order], vel[order], alive[order], cid,
             torch.tensor(4e-4, device=cuda), torch.tensor(5, dtype=torch.int32, device=cuda),
-            scene,
+            crate.scene, symm=symm,
         )
+        ranges = pmajor.candidate_ranges(cid, alive[order], crate.scene.grid_nx,
+                                         crate.scene.grid_ny)
         out_a = pmajor.pm_pass(slab_a, ranges, coef, "a", symm=symm)
         assert torch.equal(out_a, pmajor.pm_pass_plain(slab_a, ranges, coef, "a", symm=symm))
         assert float(out_a[3].max()) > 3  # real neighborhoods
@@ -89,9 +90,68 @@ def test_crate_runs_through_the_kernels(cuda):
     for mode in pmajor.LAUNCHES:
         pmajor.LAUNCHES[mode] = 0
     diag = crate.run(10)
-    assert pmajor.LAUNCHES == {"a": 10, "b": 10}
+    assert pmajor.LAUNCHES == {"a": 10, "b": 10, "sub_a": 0, "sub_b": 0}
     assert int(diag.particle_count) == n0
     assert int(diag.non_finite) == 0 and int(diag.neighbor_overflow) == 0
+
+
+@pytest.mark.cuda
+def test_k10_bit_identical_to_plain_and_k1k2(cuda):
+    """K10 at both chunk sizes, pass A and every pass-B variant, on random
+    sorted particles with dead ones: bit for bit its plain version and
+    K1/K2 one-sided on the same slab."""
+    rng = np.random.default_rng(4)
+    n = 20000
+    pos = torch.as_tensor(rng.random((n, 2)) * 0.4 + 0.3, dtype=torch.float32, device=cuda)
+    vel = torch.as_tensor(rng.random((n, 2)) - 0.5, dtype=torch.float32, device=cuda)
+    alive = torch.as_tensor(rng.random(n) < 0.95, device=cuda)
+    scene = Crate(_world(), device=cuda).scene
+    nx, ny = scene.grid_nx, scene.grid_ny
+    cid, order = torch.sort(cell_ids_grid(pos, alive, scene), stable=True)
+    slab_a = pmajor.pass_a_slab(
+        pos[order], vel[order], alive[order], cid, torch.tensor(4e-4, device=cuda),
+        torch.tensor(5, dtype=torch.int32, device=cuda), scene, symm=False)
+    ranges = pmajor.candidate_ranges(cid, alive[order], nx, ny)
+    coef = torch.tensor([0.0044, -2.0, 0.5], device=cuda)
+    out_a = pmajor.pm_pass(slab_a, ranges, coef, "a")
+    cp = pmajor.finalize_cp(out_a[0], out_a[3], torch.tensor(0.3, device=cuda))
+    slab_b = pmajor.pass_b_slab(slab_a, out_a, cp, torch.tensor(100.0, device=cuda))
+    cases = [(slab_a, "a", {})] + [
+        (slab_b, "b", dict(fold=f, spring=s)) for f, s in ((True, False), (False, False),
+                                                           (False, True))]
+    for chunk in pmajor.PMS_CHUNKS:
+        win = pmajor.chunk_windows(cid, alive[order], nx, ny, chunk)
+        for slab, mode, kw in cases:
+            got = pmajor.pms_pass(slab, cid, win, coef, mode, nx=nx, chunk=chunk, **kw)
+            assert torch.equal(got, pmajor.pms_pass_plain(slab, cid, win, coef, mode, nx=nx,
+                                                          chunk=chunk, **kw))
+            assert torch.equal(got, pmajor.pm_pass(slab, ranges, coef, mode, **kw))
+
+
+@pytest.mark.cuda
+def test_pmsub_crate_runs_through_k10(cuda, monkeypatch):
+    """Under SAND_CRATE_PMSUB=1, Crate.run launches K10 once per pass per
+    tick and K1/K2 never, and keeps the invariants."""
+    monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
+    crate = Crate(_world(), device=cuda)
+    n0 = crate.particle_count
+    for mode in pmajor.LAUNCHES:
+        pmajor.LAUNCHES[mode] = 0
+    diag = crate.run(10)
+    assert pmajor.LAUNCHES == {"a": 0, "b": 0, "sub_a": 10, "sub_b": 10}
+    assert int(diag.particle_count) == n0 and int(diag.non_finite) == 0
+
+
+@pytest.mark.cuda
+def test_pms_pass_rejects_bad_inputs(cuda):
+    slab = torch.zeros((64, 8), device=cuda)
+    cid = torch.zeros(64, dtype=torch.int32, device=cuda)
+    win = torch.zeros((7, 2), dtype=torch.int32, device=cuda)
+    coef = torch.zeros(3, device=cuda)
+    with pytest.raises(ValueError):  # windows of chunk 32 given as chunk 128
+        pmajor.pms_pass(slab, cid, win, coef, "a", nx=8, chunk=128)
+    with pytest.raises(ValueError):  # cid on the CPU
+        pmajor.pms_pass(slab, cid.cpu(), win, coef, "a", nx=8, chunk=32)
 
 
 @pytest.mark.cuda

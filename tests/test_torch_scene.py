@@ -124,17 +124,22 @@ def test_forces_modes():
 
 
 def test_chip_smoke_dam_break_equals_yaml():
+    """The one copy of the dam-break world that chip_smoke.py and the bench
+    entry use (sand_crate_tpu_torch.bench.DAM_BREAK) equals the YAML."""
+    from sand_crate_tpu_torch import bench
+
+    raw = yaml.safe_load((REPO / "configs" / "dam_break.yaml").read_text())
+    assert bench.DAM_BREAK == raw
+    # The dict parses to the same world as the file.
+    a = load_config_dict(bench.DAM_BREAK).world_config
+    b = load_config(REPO / "configs" / "dam_break.yaml").world_config
+    assert a == b
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    raw = yaml.safe_load((REPO / "configs" / "dam_break.yaml").read_text())
-    assert chip_smoke.DAM_BREAK == raw
-    # The dict parses to the same world as the file.
-    a = load_config_dict(chip_smoke.DAM_BREAK).world_config
-    b = load_config(REPO / "configs" / "dam_break.yaml").world_config
-    assert a == b
+    assert not hasattr(chip_smoke, "DAM_BREAK")  # no second copy
 
 
 def test_port_imports_no_jax_nor_yaml():
@@ -146,6 +151,7 @@ def test_port_imports_no_jax_nor_yaml():
         "import sand_crate_tpu_torch, sand_crate_tpu_torch.ops.pmajor\n"
         "import sand_crate_tpu_torch.ops.pallas_forces, sand_crate_tpu_torch.ops.placement\n"
         "import sand_crate_tpu_torch.ops.cuda_build, sand_crate_tpu_torch.engine\n"
+        "import sand_crate_tpu_torch.bench, sand_crate_tpu_torch.instrument\n"
         "import chip_smoke\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sand_crate_tpu', 'yaml')]\n"

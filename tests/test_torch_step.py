@@ -251,8 +251,9 @@ def test_emitter_scene_invariants():
 
 
 def test_crate_surface():
-    """Coefficient get/set on device tensors, the views, and the parts that
-    are not ported yet raising NotImplementedError."""
+    """Coefficient get/set on device tensors, the views, a radius edit past
+    the cell size rebuilding the grid, and checkpoints (not ported yet)
+    raising NotImplementedError."""
     world = load_config(REPO / "configs" / "hourglass.yaml").world_config
     crate = Crate(world, device="cpu")
     n = crate.particle_count
@@ -263,16 +264,19 @@ def test_crate_surface():
     assert crate.viscosity == 4.5 and crate.params.viscosity.dtype == torch.float32
     crate.gravity = [0.0, 5.0]
     assert crate.gravity.tolist() == [0.0, 5.0]
-    crate.particle_radius = crate.scene.cell_size / 2  # fits the grid: no rebuild
-    with pytest.raises(NotImplementedError):
-        crate.particle_radius = crate.scene.cell_size
+    scene = crate.scene
+    crate.particle_radius = scene.cell_size / 2  # fits the grid: no rebuild
+    assert crate.scene is scene
+    crate.particle_radius = scene.cell_size  # past it: the grid is rebuilt
+    assert crate.scene.cell_size == 2 * scene.cell_size
+    assert crate.diameter == pytest.approx(crate.scene.cell_size)  # f32 radius
     with pytest.raises(AttributeError):
         crate.not_a_coefficient = 1
     crate.physics_tick()
     assert crate.tick == 1 and "Tick: 1" in crate.debug_prints
-    for call in (lambda: crate.stream_frames(1), lambda: crate.save_checkpoint("x"),
-                 lambda: Crate(world, instrument=True, device="cpu")):
-        with pytest.raises(NotImplementedError):
+    assert crate.current_coefficients()["viscosity"] == 4.5
+    for call in (lambda: crate.save_checkpoint("x"), lambda: crate.restore_checkpoint("x")):
+        with pytest.raises(NotImplementedError, match="item 11"):
             call()
 
 
