@@ -60,6 +60,19 @@ prints its wall time as "[phase] name: s"):
 (f) instrument: Crate(instrument=True) on the 10k world equals a fused run
    with fold off over INSTRUMENT_TICKS ticks, bit for bit; the PhaseTimer.
 (g) stream_frames on the 10k world equals a synchronous trajectory.
+(h) probes (csrc/probes.cu, the ported kernels of tools/): P1 at phase 4's
+   settled state and P2 at phase 7's settled grid, each variant against its
+   plain version bit for bit; P4 and P3 at the tools' sizes likewise; then
+   each probe's main (the tools' entry points) on the card with the launch
+   counters reset: G(mul+add)/s, us per visit, window widths, ms per
+   variant beside the shipped pair_pass_a.  P3 is timed on two inputs (the
+   tool's, whose mask almost never holds, and equal rw columns) that must
+   agree within PROBE_P3_SPREAD.
+(i) recording and checkpoints on the stirring-cup world (an emitter and a
+   motored cup): stream_frames -> TrajectoryWriter -> load_trajectory gives
+   the frames back; a checkpoint saved at tick T and restored into a fresh
+   Crate runs on as the uninterrupted crate does, held against two
+   uninterrupted runs from one seed (bit for bit where those agree).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -120,6 +133,20 @@ SOURCE = "sand_crate_tpu_torch/csrc/pmajor.cu"
 REPLACES = "sand_crate_tpu/ops/pmajor.py:183"
 REPLACES_K10 = "sand_crate_tpu/ops/pmajor.py:685"
 GRID_SOURCE = "sand_crate_tpu_torch/csrc/grid_pair.cu"
+PROBE_SOURCE = "sand_crate_tpu_torch/csrc/probes.cu"
+PROBE_REPLACES = {
+    "bf16_chain": "tools/bf16_probe.py:39",
+    "bf16_mixed": "tools/bf16_probe.py:52",
+    "hybrid": "tools/hybrid_probe.py:107",
+    "pmajor_probe": "tools/pmajor_probe.py:56",
+    "passa": "tools/passa_probe.py:32",
+    "passa_prefetch": "tools/passa_probe.py:166",
+}
+PROBE_ITERS = 64  # the tools' default iterations (P4, P3)
+PROBE_W = 256  # pmajor_probe's default W: modes a and b at W + 128 and W + 256
+PROBE_P3_SPREAD = 0.10  # P3's two inputs must time within 10% of each other
+CKPT_FRAMES = 20  # stream_frames frames of 2 ticks before the checkpoint
+CKPT_TICKS = 30  # ticks after it
 
 
 def check(ok: bool, what: str) -> None:
@@ -858,6 +885,244 @@ def print_ptxas(names) -> None:
                 print(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}")
 
 
+def probe_row(name, replaces, got, ref, ms, plain_ms, n_bytes, f32_ops, bf16_ops=0.0):
+    """A kernels-line row of a probe: bit-identical to its plain version
+    (checked), its bound from the probes' peak rates (f32 at half the FMA
+    peak, bf16x2 at twice that)."""
+    import torch
+
+    from sand_crate_tpu_torch.probes import bound as probe_bound
+
+    err = float((got.float() - ref.float()).abs().max()) if got.numel() else 0.0
+    check(torch.equal(got, ref), f"{name}: kernel differs from its plain version (max abs err {err})")
+    bound_ms, bound_by = probe_bound(n_bytes, f32_ops, bf16_ops)
+    print(f"  {name}: == plain bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) (median, CUDA events)")
+    return dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def p1_vs_plain(crate):
+    """Phase (h), P1: tools/pmajor_probe.py's kernel at the crate's settled
+    state, modes a and b at W + 128 and W + 256, against its plain version;
+    returns the rows at W + 256."""
+    from sand_crate_tpu_torch.probes import pmajor_probe as p1
+
+    st, sc, pr = crate.state, crate.scene, crate.params
+    slab, sorted_cid = p1.sorted_slab(st, pr, sc)
+    slab_p, dma_lo, ws, need = p1.prepare(slab, sorted_cid, sc.grid_nx, sc.grid_ny)
+    need_f = need.float()
+    print(f"  window width needed: p50 {float(need_f.quantile(0.5)):.0f} p95 "
+          f"{float(need_f.quantile(0.95)):.0f} p99 {float(need_f.quantile(0.99)):.0f} max "
+          f"{int(need.max())}; blocks {dma_lo.shape[0]}, chunks {ws.shape[0] // 3}")
+    coef = p1.coefficients(pr.diameter, slab.device)
+    nblocks, nchunks = dma_lo.shape[0], ws.shape[0] // 3
+    rows = []
+    for mode in ("a", "b"):
+        for w in (PROBE_W + 128, PROBE_W + 256):
+            def run(mode=mode, w=w):
+                return p1.probe(slab_p, dma_lo, ws, coef, w, mode)
+
+            def plain(mode=mode, w=w):
+                return p1.probe_plain(slab_p, dma_lo, ws, coef, w, mode)
+
+            got = run()
+            count = float(got[:, 3 if mode == "a" else 6].sum())
+            check(count > 0, f"P1 mode {mode} W {w}: no pair within the cutoff")
+            print(f"  P1 mode {mode} W {w}: {count:.0f} (self, candidate) pairs within the "
+                  f"cutoff, {count / (nchunks * 128):.2f} per self")
+            row = probe_row(f"pmajor_probe_{mode}_w{w}", PROBE_REPLACES["pmajor_probe"], got,
+                            plain(), cuda_ms(run, 10), cuda_ms(plain, 1),
+                            p1.io_bytes(nblocks, w), p1.operations(mode, nchunks, w))
+            if w == PROBE_W + 256:
+                rows.append(row)
+    return rows
+
+
+def p2_vs_plain(crate):
+    """Phase (h), P2: tools/passa_probe.py's variants at the crate's settled
+    slot grid (16 slots) and its 8-slot copy, against their plain versions,
+    and the shipped pair_pass_a; returns the 16-slot rows."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import pair_kernel as pk
+    from sand_crate_tpu_torch.ops.pallas_forces import grid_width
+    from sand_crate_tpu_torch.ops.placement import place_grid
+    from sand_crate_tpu_torch.probes import passa_probe as p2
+    from sand_crate_tpu_torch.probes import pmajor_probe as p1
+
+    st, sc, pr = crate.state, crate.scene, crate.params
+    slab, _ = p1.sorted_slab(st, pr, sc)
+    grid = place_grid(slab, None, sc.cell_capacity, sc.grid_nx, sc.grid_ny, grid_width(sc.grid_nx))
+    tr = p2.row_block(grid.shape[3])
+    coef, ticks = p2.coefficients(pr.diameter, grid.device)
+    zero = torch.zeros((), device=grid.device)
+    print(f"  pair_pass_a (shipped, all 16 slots): "
+          f"{cuda_ms(lambda: pk.pair_pass_a(grid, pr.diameter, zero, 0), 10):.4f} ms")
+    rows = []
+    for tag, g in (("m16", grid), ("m8", grid[:, :, :p2.M_LO].contiguous())):
+        occ = p2.block_flags(g, tr)
+        print(f"  [{tag}] grid {tuple(g.shape)}, tr {tr}: {int(occ.sum())} of {occ.shape[0]} "
+              "row blocks occupied")
+        for mode in p2.VARIANTS:
+            def run(g=g, occ=occ, mode=mode):
+                return p2.variant(g, occ, coef, ticks, tr, mode)
+
+            def plain(g=g, occ=occ, mode=mode):
+                return p2.variant_plain(g, occ, coef, ticks, tr, mode)
+
+            got = run()
+            if mode in ("full", "bf16"):
+                occupied = g[0, :, :p2.M_LO] > p2.ALIVE_THRESHOLD
+                counted = float((got[3, :, :p2.M_LO][occupied] > 0).float().mean())
+                check(counted > 0.9, f"P2 {tag} {mode}: {counted:.3f} of the occupied slots count pairs")
+            f32_ops, bf16_ops = p2.operations(mode, occ, g.shape, tr)
+            row = probe_row(f"passa_{mode}_{tag}",
+                            PROBE_REPLACES["passa_prefetch" if mode == "prefetch" else "passa"],
+                            got, plain(), cuda_ms(run, 10), cuda_ms(plain, 1),
+                            p2.io_bytes(mode, occ, g.shape, tr), f32_ops, bf16_ops)
+            if tag == "m16":
+                rows.append(row)
+    return rows
+
+
+def p4_p3_vs_plain():
+    """Phase (h), P4 and P3 at the tools' sizes: every kernel against its
+    plain version; P3 on the tool's inputs and on equal rw columns."""
+    from sand_crate_tpu_torch.probes import bf16_probe as p4
+    from sand_crate_tpu_torch.probes import hybrid_probe as p3
+
+    rows = []
+    n = p4.BLOCKS * p4.ROWS * p4.COLS
+    for kind in p4.KINDS:
+        x = p4.make_input(kind, device="cuda")
+        got = p4.chain(x, kind, PROBE_ITERS)
+        if kind == "mixed":
+            check(float((got != 0).float().mean()) > 0.4, "P4 mixed: the mask passes no element")
+        f32_ops, bf16_ops = p4.operations(kind, PROBE_ITERS, n)
+        rows.append(probe_row(
+            f"bf16_{'mixed' if kind == 'mixed' else 'chain_' + kind}",
+            PROBE_REPLACES["bf16_mixed" if kind == "mixed" else "bf16_chain"], got,
+            p4.chain_plain(x, kind, PROBE_ITERS), cuda_ms(lambda: p4.chain(x, kind, PROBE_ITERS), 30),
+            cuda_ms(lambda: p4.chain_plain(x, kind, PROBE_ITERS), 2), p4.io_bytes(kind, n),
+            f32_ops, bf16_ops))
+    for equal_rw in (True, False):
+        sfeat, cand = p3.make_inputs(device="cuda", equal_rw=equal_rw)
+        frac = p3.mask_fraction(sfeat, cand)
+        print(f"  P3 inputs {'equal rw' if equal_rw else 'of the tool'}: mask holds for "
+              f"{frac:.4f} of the elements")
+        if equal_rw:
+            check(frac > 0.3, "P3 equal-rw inputs: the mask holds too rarely")
+        for hybrid in (False, True):
+            got = p3.chain(sfeat, cand, PROBE_ITERS, hybrid)
+            ref = p3.chain_plain(sfeat, cand, PROBE_ITERS, hybrid)
+            if equal_rw:  # the tool's inputs are all but zero; these are the row's
+                f32_ops, bf16_ops = p3.operations(hybrid, PROBE_ITERS, got.numel())
+                rows.append(probe_row(
+                    f"hybrid_{'bf16' if hybrid else 'f32'}", PROBE_REPLACES["hybrid"], got, ref,
+                    cuda_ms(lambda: p3.chain(sfeat, cand, PROBE_ITERS, hybrid), 20),
+                    cuda_ms(lambda: p3.chain_plain(sfeat, cand, PROBE_ITERS, hybrid), 2),
+                    p3.io_bytes(sfeat.shape[0], cand.shape[1]), f32_ops, bf16_ops))
+            else:
+                check(bool((got == ref).all()), "P3 on the tool's inputs differs from its plain version")
+    return rows
+
+
+def probe_mains():
+    """Phase (h): each probe's main, the tools' entry points, on the card
+    with the launch counters reset just before; every probe kernel must
+    launch.  Returns the counts."""
+    import torch
+
+    from sand_crate_tpu_torch import probes
+    from sand_crate_tpu_torch.probes import bf16_probe, hybrid_probe, passa_probe, pmajor_probe
+
+    reset(probes.LAUNCHES)
+    print("-- python -m sand_crate_tpu_torch.probes.bf16_probe", PROBE_ITERS)
+    bf16_probe.main(PROBE_ITERS)
+    print("-- python -m sand_crate_tpu_torch.probes.hybrid_probe", PROBE_ITERS)
+    p3 = hybrid_probe.main(PROBE_ITERS)
+    print(f"-- python -m sand_crate_tpu_torch.probes.pmajor_probe {N_TARGET} {SETTLE_TICKS} "
+          f"{PROBE_W} all")
+    pmajor_probe.main(N_TARGET, SETTLE_TICKS, PROBE_W, "all")
+    print(f"-- python -m sand_crate_tpu_torch.probes.passa_probe {N_TARGET} {GRID_SETTLE_TICKS} "
+          "(every variant on both grids)")
+    passa_probe.main(N_TARGET, GRID_SETTLE_TICKS,
+                     modes={"m16": passa_probe.VARIANTS, "m8": passa_probe.VARIANTS})
+    torch.cuda.synchronize()
+    launches = dict(probes.LAUNCHES)
+    print(f"probe launches: {launches}")
+    check(all(n > 0 for n in launches.values()), "a probe kernel was not launched")
+    for form in ("f32 chain", "hybrid bf16"):
+        a, b = p3[form, "random rw"], p3[form, "equal rw"]
+        spread = abs(a - b) / max(a, b)
+        print(f"P3 {form}: tool's inputs {a:.4f} ms, equal rw {b:.4f} ms, spread {spread:.3f}")
+        check(spread <= PROBE_P3_SPREAD, f"P3 {form}: the two inputs time {spread:.3f} apart")
+    return launches
+
+
+def recording_and_checkpoints():
+    """Phase (i) on the stirring-cup world (emitters: the generator state
+    matters): recorded frames read back; a restored checkpoint runs on as
+    the uninterrupted crate, held against two uninterrupted runs."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from sand_crate_tpu_torch import Crate, load_config_dict
+    from sand_crate_tpu_torch.bench import STIRRING_CUP
+    from sand_crate_tpu_torch.recording import TrajectoryWriter, load_trajectory, trajectory_info
+
+    world = load_config_dict(copy.deepcopy(STIRRING_CUP)).world_config
+    crate, twin = Crate(world, device="cuda"), Crate(world, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        writer = TrajectoryWriter(tmp / "traj", shard_frames=8)
+        frames = list(crate.stream_frames(CKPT_FRAMES, ticks_per_frame=2, chunk_frames=8))
+        for f in frames:
+            writer.append(f)
+        writer.close(meta={"world": "stirring_cup"})
+        back = list(load_trajectory(tmp / "traj"))
+        check(len(back) == CKPT_FRAMES == trajectory_info(tmp / "traj")["frames"],
+              "recorded frame count")
+        for f, g in zip(frames, back):
+            for key in ("pos", "alive", "pressure", "segments"):
+                check(np.array_equal(f[key], g[key]), f"recorded frames differ in {key}")
+        print(f"recording: {CKPT_FRAMES} frames of 2 ticks, stream_frames -> TrajectoryWriter "
+              f"({len(trajectory_info(tmp / 'traj')['shards'])} shards) -> load_trajectory: equal; "
+              f"{crate.particle_count} particles at tick {crate.tick}")
+        path = crate.save_checkpoint(tmp / "ckpt.npz")
+        t0 = crate.tick
+        crate.run(CKPT_TICKS)
+        twin.run(2 * CKPT_FRAMES + CKPT_TICKS)
+        resumed = Crate(world, device="cuda", seed=1)
+        resumed.restore_checkpoint(path)
+        check(resumed.tick == t0, "restored tick")
+        resumed.run(CKPT_TICKS)
+
+    def differences(a, b):
+        return {k: float((x.double() - y.double()).abs().max()) if x.is_floating_point()
+                else int((x != y).sum()) for k, x, y in zip(a._fields, a, b)}
+
+    twins = differences(crate.state, twin.state)
+    resume = differences(crate.state, resumed.state)
+    print(f"checkpoint at tick {t0}, {CKPT_TICKS} ticks on ({crate.particle_count} particles):")
+    print(f"  two uninterrupted runs, one seed: max |difference| per field {twins}")
+    print(f"  uninterrupted vs resumed:          max |difference| per field {resume}")
+    check(crate.particle_count > 0, "stirring_cup emitted no particle")
+    for k, d in twins.items():
+        if d == 0:
+            check(resume[k] == 0, f"resume differs in {k} where two uninterrupted runs agree")
+        else:
+            check(resume[k] <= d, f"resume differs in {k} by more than two uninterrupted runs")
+    check(all(torch.equal(a, b) for a, b in zip(crate.params, resumed.params)),
+          "restored coefficients differ")
+
+
 def main() -> int:
     import torch
 
@@ -880,9 +1145,10 @@ def main() -> int:
 
     # -- 2. build (a) ------------------------------------------------------------
     with phase("build"):
-        cuda_build.build("pmajor", "grid_pair")
-        print("build: pmajor.cu (K1/K2, K10) and grid_pair.cu, one nvcc each, in parallel")
-        print_ptxas(("pmajor", "grid_pair"))
+        cuda_build.build("pmajor", "grid_pair", "probes")
+        print("build: pmajor.cu (K1/K2, K10), grid_pair.cu and probes.cu (P1-P4), one nvcc "
+              "each, in parallel")
+        print_ptxas(("pmajor", "grid_pair", "probes"))
 
     # -- 3. world --------------------------------------------------------------
     with phase("world"):
@@ -905,6 +1171,11 @@ def main() -> int:
         print(f"K10 vs plain version and K1/K2 one-sided (same device inputs), main-path "
               f"chunk {pmajor.PMS_CHUNK}:")
         k10_rows = k10_vs_plain(crate)
+
+    # -- (h) P1 against its plain version at the settled state --------------------
+    with phase("P1 probe vs plain"):
+        print("P1 (tools/pmajor_probe.py) vs its plain version at the settled 1M state:")
+        probe_rows = p1_vs_plain(crate)
 
     # -- 5. pmajor main path ------------------------------------------------------
     with phase("pmajor main path"):
@@ -964,6 +1235,11 @@ def main() -> int:
         provider = grid_provider_path(grid_crate, sorted_ops)
         del sorted_ops
 
+    # -- (h) P2 against its plain version at the settled grid ---------------------
+    with phase("P2 probe vs plain"):
+        print("P2 (tools/passa_probe.py) variants vs their plain versions at the settled 1M grid:")
+        probe_rows += p2_vs_plain(grid_crate)
+
     # -- 8. grid main path -------------------------------------------------------
     with phase("grid main path"):
         launches, rate, p50, wall = drive(
@@ -996,7 +1272,26 @@ def main() -> int:
     with phase("stream_frames 10k"):
         stream_10k()
 
-    print(json.dumps({"kernels": rows + k10_rows + grid_rows}))
+    # -- (h) P4 and P3, then every probe's main with the counters reset ----------
+    with phase("P4 and P3 probes vs plain"):
+        print(f"P4 (tools/bf16_probe.py) and P3 (tools/hybrid_probe.py) vs their plain "
+              f"versions, iters {PROBE_ITERS}:")
+        probe_rows = p4_p3_vs_plain() + probe_rows
+    with phase("probe mains"):
+        launches = probe_mains()
+        for r in probe_rows:
+            key = r["name"]
+            if key.startswith("pmajor_probe_"):
+                key = key.rsplit("_w", 1)[0]
+            elif key.startswith("passa_"):
+                key = key.rsplit("_m", 1)[0]
+            r["launches"] = launches[key]
+
+    # -- (i) recording and checkpoints -------------------------------------------
+    with phase("recording + checkpoints"):
+        recording_and_checkpoints()
+
+    print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -92,6 +92,71 @@ DAM_BREAK = {
 }
 
 
+# configs/stirring_cup.yaml as a dict: an emitter and a motored cup, so the
+# emitters' generator state matters (chip_smoke's checkpoint phase).
+STIRRING_CUP = {
+    "playback": {
+        "save_recording": True,
+        "ticks_to_record": 1200,
+        "recording_output_dir_path": "data/recordings",
+        "screen_x": 1000,
+        "screen_y": 1000,
+    },
+    "world": {
+        "coefficients": {
+            "dt": 0.002,
+            "particle_radius": 0.005,
+            "wall_collision_decay": 0.2,
+            "spring_overlap_balance": 0.5,
+            "spring_amplifier": 100,
+            "pressure_amplifier": 30,
+            "ignored_pressure": 0.3,
+            "collider_noise_level": 0.1,
+            "viscosity": 8,
+            "max_particles": 600,
+            "surface_smoothing": 100,
+            "target_pressure": -2,
+            "gravity": [0, 9.8],
+        },
+        "particle_sources": [
+            {
+                "radius": 0.05,
+                "position": [0.9, 0.1],
+                "velocity": [-5.5, 5.0],
+                "flow": 2000,
+                "noise": 0.5,
+                "active_ticks": 200,
+            }
+        ],
+        "rigid_bodies": [
+            {
+                "fixed": {
+                    "name": "edge",
+                    "segments": [
+                        [[0.0, 0.0], [0.0, 1.0]],
+                        [[0.0, 0.0], [1.0, 0.0]],
+                        [[1.0, 0.0], [1.0, 1.0]],
+                    ],
+                }
+            },
+            {
+                "motored": {
+                    "name": "moving_cup",
+                    "segments": [
+                        [[-0.5, -0.5], [-0.5, 0.5]],
+                        [[0.5, -0.5], [0.5, 0.5]],
+                        [[-0.5, 0.5], [0.5, 0.5]],
+                    ],
+                    "angular_velocity": {"amplitude": 1.4, "frequency": 5.0},
+                    "scale": [0.5, 0.2],
+                    "position": [0.5, 0.6],
+                }
+            },
+        ],
+    },
+}
+
+
 def dam_break_world(n_target: int):
     """bench.py's dam_break_world (bench.py:34-47), on the port's parser:
     the block's spacing set for ``n_target`` particles, radius 0.55 x

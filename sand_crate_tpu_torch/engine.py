@@ -19,13 +19,15 @@ Two execution modes, as in the JAX package:
   read inside; ``stream_frames`` copies each chunk's frames to the host
   while the next chunk runs.
 
-Checkpoints wait for the recording port (ROADMAP queue 1 item 11) and
-raise NotImplementedError.
+``save_checkpoint`` / ``restore_checkpoint`` write and read one npz
+(``recording.py``): state, coefficients and the generator state, so a
+resumed crate continues exactly as an uninterrupted one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Iterator, Optional
 
 import numpy as np
@@ -35,8 +37,9 @@ from .config import COEFFICIENT_NAMES, Config, WorldConfig
 from .diagnostics import ForceMonitor, PhaseTimer, yaml_block
 from .instrument import instrumented_tick
 from .physics import rollout, step, trajectory
+from .recording import load_checkpoint, save_checkpoint
 from .scene import build_scene, init_state
-from .state import FORCE_LABELS, Diagnostics, Params
+from .state import FORCE_LABELS, Diagnostics, Params, resolve_device
 
 
 class Crate:
@@ -70,12 +73,7 @@ class Crate:
         instrument: bool = False,
         device="cuda",
     ) -> None:
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Crate runs on the CUDA device by default and none is available; "
-                "pass device='cpu' to run on the CPU"
-            )
+        device = resolve_device(device, "Crate")
         scene = build_scene(
             world_config,
             capacity=capacity,
@@ -284,15 +282,30 @@ class Crate:
                     yield {k: v[i].numpy() for k, v in host.items()}
             pending = ready
 
-    def save_checkpoint(self, path):
-        raise NotImplementedError(
-            "checkpoints wait for the recording port (ROADMAP queue 1 item 11)"
-        )
+    def save_checkpoint(self, path) -> Path:
+        """Snapshot the state, the coefficients and the emitters' generator
+        to one npz file (recording.save_checkpoint)."""
+        return save_checkpoint(path, self.state, self.params, self.generator)
 
-    def restore_checkpoint(self, path):
-        raise NotImplementedError(
-            "checkpoints wait for the recording port (ROADMAP queue 1 item 11)"
-        )
+    def restore_checkpoint(self, path) -> None:
+        """Resume exactly from a :meth:`save_checkpoint` snapshot (or a JAX
+        package checkpoint, whose emitter key is ignored) on this crate's
+        device.
+
+        The checkpoint's capacity must match this crate's scene: the scene
+        comes from the config; only dynamic state, coefficients and the
+        generator are stored."""
+        device = self.state.pos.device
+        state, params, gen_state = load_checkpoint(path, device)
+        if state.pos.shape[0] != self.scene.capacity:
+            raise ValueError(
+                f"checkpoint capacity {state.pos.shape[0]} != scene capacity "
+                f"{self.scene.capacity}; rebuild the crate with matching capacity"
+            )
+        if gen_state is not None:
+            self.generator.set_state(gen_state)
+        object.__setattr__(self, "state", state)
+        object.__setattr__(self, "params", params)
 
     # -- observability ---------------------------------------------------------
 

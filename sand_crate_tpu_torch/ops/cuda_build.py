@@ -27,7 +27,9 @@ NVCC_FLAGS = (
 )
 # -fmad=false keeps every multiply and add separately rounded, so the kernels
 # reproduce their plain torch versions bit for bit (see each source's note).
-SOURCE_FLAGS = {"pmajor": ("-fmad=false",), "grid_pair": ("-fmad=false",)}
+SOURCE_FLAGS = {
+    "pmajor": ("-fmad=false",), "grid_pair": ("-fmad=false",), "probes": ("-fmad=false",),
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}  # name -> nvcc/ptxas output of this process's build

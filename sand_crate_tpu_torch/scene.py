@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .config import BODY_FIXED, BODY_MOTORED, InitialParticlesConfig, WorldConfig
-from .state import CrateState, Scene, scene_from_numpy
+from .state import CrateState, Scene, resolve_device, scene_from_numpy
 
 # The JAX package's other backends, by the ROADMAP item that ports them.
 _NOT_PORTED = {
@@ -62,7 +62,7 @@ def build_scene(
     cell_capacity: int | None = None,
     fold_pairs: bool | None = None,
     pmajor_symm: bool | None = None,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ) -> Scene:
     """Build the immutable Scene from a parsed world config.
@@ -73,8 +73,10 @@ def build_scene(
     tuned on a TPU; the JAX "auto" never picks "pallas" either).  Every
     other JAX mode raises NotImplementedError naming the ROADMAP item that
     ports it.  ``cell_capacity``: the pallas grid's slots per cell (default
-    16, as in the JAX package).
+    16, as in the JAX package).  ``device`` defaults to the card; without
+    one it raises, and the caller asks for the CPU with ``device="cpu"``.
     """
+    device = resolve_device(device, "build_scene")
     if forces_mode == "auto":
         forces_mode = "pmajor"
     if forces_mode in _NOT_PORTED:

@@ -64,9 +64,11 @@ class Params(NamedTuple):
 
     @staticmethod
     def from_coefficients(
-        coefficients: dict, device="cpu", dtype=torch.float32
+        coefficients: dict, device="cuda", dtype=torch.float32
     ) -> "Params":
+        """Params on ``device`` (the card unless the caller asks for the CPU)."""
         c = coefficients
+        device = resolve_device(device, "Params.from_coefficients")
         return params_from_numpy(
             {
                 name: np.asarray(
@@ -203,6 +205,19 @@ FORCE_LABELS = (
     "continuous_collision",
 )
 NUM_FORCES = len(FORCE_LABELS)
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as a torch.device.  An entry point runs on the card unless
+    the caller asks for the CPU: asked for CUDA without a card, it raises
+    rather than falling back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} runs on the CUDA device by default and none is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
 
 
 def _tensor(value, device, dtype):

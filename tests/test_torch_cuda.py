@@ -247,3 +247,74 @@ def test_grid_wrappers_reject_mixed_inputs(cuda):
         pair_kernel.pair_pass_b(grid, grid.cpu(), z, z, z, z, z, z, z)
     with pytest.raises(ValueError):  # f64 grid
         pair_kernel.pair_pass_a(grid.double(), z, z, z)
+
+
+# ---- the probe kernels of csrc/probes.cu (P1-P4) --------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "mixed"])
+def test_probe_chain_kernels_bit_identical_to_plain(cuda, kind):
+    """P4's three kernels (f32 chains, packed bf16x2 chains, the mixed
+    f32-mask / bf16 shape) against their plain versions."""
+    from sand_crate_tpu_torch import probes
+    from sand_crate_tpu_torch.probes import bf16_probe
+
+    x = bf16_probe.make_input(kind, blocks=2, device=cuda)
+    before = probes.LAUNCHES[bf16_probe._LABEL[kind]]
+    got = bf16_probe.chain(x, kind, 16)
+    assert probes.LAUNCHES[bf16_probe._LABEL[kind]] == before + 1
+    assert torch.equal(got, bf16_probe.chain_plain(x, kind, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_probe_hybrid_kernel_bit_identical_to_plain(cuda, hybrid):
+    """P3 in both forms, on the tool's inputs and on equal rw columns."""
+    from sand_crate_tpu_torch.probes import hybrid_probe
+
+    for equal_rw in (False, True):
+        sfeat, cand = hybrid_probe.make_inputs(blocks=4, device=cuda, equal_rw=equal_rw)
+        got = hybrid_probe.chain(sfeat, cand, 8, hybrid)
+        assert torch.equal(got, hybrid_probe.chain_plain(sfeat, cand, 8, hybrid))
+        assert (got != 0).float().mean() > (0.3 if equal_rw else -1)
+
+
+@pytest.mark.cuda
+def test_probe_pmajor_and_passa_bit_identical_to_plain(cuda):
+    """P1 (modes a and b) and every P2 variant on both grids, at a settled
+    ~22k-particle block: kernel == plain version, with pairs counted."""
+    from sand_crate_tpu_torch.ops.pallas_forces import grid_width
+    from sand_crate_tpu_torch.probes import passa_probe, pmajor_probe
+
+    crate = Crate(_world(), device=cuda)
+    crate.run(10)
+    st, sc, pr = crate.state, crate.scene, crate.params
+    slab, cid = pmajor_probe.sorted_slab(st, pr, sc)
+    slab_p, dma_lo, ws, _ = pmajor_probe.prepare(slab, cid, sc.grid_nx, sc.grid_ny)
+    coef = pmajor_probe.coefficients(pr.diameter, cuda)
+    for mode in ("a", "b"):
+        got = pmajor_probe.probe(slab_p, dma_lo, ws, coef, 384, mode)
+        assert torch.equal(got, pmajor_probe.probe_plain(slab_p, dma_lo, ws, coef, 384, mode))
+        assert float(got[:, 3 if mode == "a" else 6].sum()) > 0
+    grid = placement.place_grid(slab, None, sc.cell_capacity, sc.grid_nx, sc.grid_ny,
+                                grid_width(sc.grid_nx))
+    tr = passa_probe.row_block(grid.shape[3])
+    pcoef, ticks = passa_probe.coefficients(pr.diameter, cuda)
+    pcoef[1] = 0.1 * pcoef[0]  # the jitter hash on
+    ticks[0] = 5
+    for g in (grid, grid[:, :, :8].contiguous()):
+        occ = passa_probe.block_flags(g, tr)
+        assert 0 < int(occ.sum()) < occ.shape[0]
+        for mode in passa_probe.VARIANTS:
+            got = passa_probe.variant(g, occ, pcoef, ticks, tr, mode)
+            assert torch.equal(got, passa_probe.variant_plain(g, occ, pcoef, ticks, tr, mode)), mode
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_reject_mixed_devices(cuda):
+    from sand_crate_tpu_torch.probes import hybrid_probe
+
+    sfeat, cand = hybrid_probe.make_inputs(blocks=1)
+    with pytest.raises(ValueError, match="one device"):
+        hybrid_probe.chain(sfeat.to(cuda), cand, 2, False)

@@ -163,7 +163,7 @@ def _sorted_case(seed, n=3000, p_alive=0.9):
 
     world = load_config(Path(__file__).resolve().parent.parent / "configs" /
                         "stirring_cup.yaml").world_config
-    scene = build_scene(world, capacity=4096)
+    scene = build_scene(world, capacity=4096, device="cpu")
     diam = 2 * float(world.coefficients["particle_radius"])
     pos, vel, alive = _random(seed, n, 0.5, 0.2, p_alive)
     pos[:200] = _blob(seed, diam, 200)[0]

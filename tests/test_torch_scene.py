@@ -59,7 +59,7 @@ def test_scene_and_initial_state_match_jax(name):
     jworld = jax_load_config(REPO / "configs" / name).world_config
     tworld = load_config(REPO / "configs" / name).world_config
     jscene = jax_build_scene(jworld, forces_mode="pmajor")
-    tscene = build_scene(tworld, forces_mode="pmajor")
+    tscene = build_scene(tworld, forces_mode="pmajor", device="cpu")
     jf, tf = _jax_fields(jscene), to_numpy(tscene)
     assert set(jf) - set(tf) == TPU_ONLY
     assert set(tf) <= set(jf)
@@ -79,7 +79,7 @@ def test_scene_and_initial_state_match_jax(name):
         assert v.dtype == jstate[k].dtype, k
 
     jparams = _jax_fields(JaxParams.from_coefficients(jworld.coefficients))
-    tparams = to_numpy(Params.from_coefficients(tworld.coefficients))
+    tparams = to_numpy(Params.from_coefficients(tworld.coefficients, "cpu"))
     for k, v in tparams.items():
         np.testing.assert_array_equal(v, jparams[k], err_msg=k)
         assert v.dtype == jparams[k].dtype, k
@@ -108,16 +108,16 @@ def test_from_numpy_round_trip(name):
 
 def test_forces_modes():
     world = load_config(REPO / "configs" / "stirring_cup.yaml").world_config
-    assert build_scene(world).forces_mode == "pmajor"  # "auto" at every size
-    scene = build_scene(world, enable_spring=True)
+    assert build_scene(world, device="cpu").forces_mode == "pmajor"  # "auto" at every size
+    scene = build_scene(world, enable_spring=True, device="cpu")
     assert (scene.fold_pairs, scene.pmajor_symm) == (False, True)
     for mode in ("dense", "chunked", "gather", "cellwise"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_scene(world, forces_mode=mode)
+            build_scene(world, forces_mode=mode, device="cpu")
     # The slot-grid backend resolves its options as the JAX build_scene does.
     jworld = jax_load_config(REPO / "configs" / "stirring_cup.yaml").world_config
     for kw in ({}, {"cell_capacity": 8}, {"enable_spring": True}):
-        got = build_scene(world, forces_mode="pallas", **kw)
+        got = build_scene(world, forces_mode="pallas", device="cpu", **kw)
         ref = jax_build_scene(jworld, forces_mode="pallas", **kw)
         for name in ("forces_mode", "cell_capacity", "fold_pairs", "pmajor_symm", "enable_spring"):
             assert getattr(got, name) == getattr(ref, name), (kw, name)
@@ -142,6 +142,34 @@ def test_chip_smoke_dam_break_equals_yaml():
     assert not hasattr(chip_smoke, "DAM_BREAK")  # no second copy
 
 
+def test_stirring_cup_dict_equals_yaml():
+    """The stirring-cup world of the card (bench.STIRRING_CUP, for machines
+    without PyYAML) equals configs/stirring_cup.yaml."""
+    from sand_crate_tpu_torch import bench
+
+    raw = yaml.safe_load((REPO / "configs" / "stirring_cup.yaml").read_text())
+    assert bench.STIRRING_CUP == raw
+    a = load_config_dict(bench.STIRRING_CUP).world_config
+    b = load_config(REPO / "configs" / "stirring_cup.yaml").world_config
+    assert a == b
+
+
+def test_functional_entry_defaults_to_the_card():
+    """build_scene and Params.from_coefficients, the functional entry beside
+    Crate, run on the card unless the caller asks for the CPU: with no device
+    they land on CUDA, and without a card they raise instead of falling back."""
+    world = load_config(REPO / "configs" / "stirring_cup.yaml").world_config
+    if torch.cuda.is_available():
+        assert build_scene(world).segments0.device.type == "cuda"
+        assert Params.from_coefficients(world.coefficients).dt.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="build_scene runs on the CUDA device.*device='cpu'"):
+            build_scene(world)
+        with pytest.raises(RuntimeError, match="from_coefficients runs on the CUDA.*device='cpu'"):
+            Params.from_coefficients(world.coefficients)
+    assert build_scene(world, device="cpu").segments0.device.type == "cpu"
+    assert Params.from_coefficients(world.coefficients, "cpu").dt.device.type == "cpu"
+
 def test_port_imports_no_jax_nor_yaml():
     # Only modules that the imports below add count (an interpreter start-up
     # hook may have loaded others before).
@@ -152,9 +180,12 @@ def test_port_imports_no_jax_nor_yaml():
         "import sand_crate_tpu_torch.ops.pallas_forces, sand_crate_tpu_torch.ops.placement\n"
         "import sand_crate_tpu_torch.ops.cuda_build, sand_crate_tpu_torch.engine\n"
         "import sand_crate_tpu_torch.bench, sand_crate_tpu_torch.instrument\n"
+        "import sand_crate_tpu_torch.recording, sand_crate_tpu_torch.probes\n"
+        "import sand_crate_tpu_torch.probes.bf16_probe, sand_crate_tpu_torch.probes.hybrid_probe\n"
+        "import sand_crate_tpu_torch.probes.pmajor_probe, sand_crate_tpu_torch.probes.passa_probe\n"
         "import chip_smoke\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sand_crate_tpu', 'yaml')]\n"
+        "('jax', 'jaxlib', 'sand_crate_tpu', 'tools', 'yaml')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -68,10 +68,10 @@ def _pair(world_dict):
     jw = jax_load_config_dict(copy.deepcopy(world_dict)).world_config
     tw = load_config_dict(copy.deepcopy(world_dict)).world_config
     js = jax_build_scene(jw, forces_mode="pmajor")
-    ts = build_scene(tw, forces_mode="pmajor")
+    ts = build_scene(tw, forces_mode="pmajor", device="cpu")
     return (
         (js, jax_init_state(jw, js), JaxParams.from_coefficients(jw.coefficients)),
-        (ts, init_state(tw, ts), Params.from_coefficients(tw.coefficients)),
+        (ts, init_state(tw, ts), Params.from_coefficients(tw.coefficients, "cpu")),
     )
 
 
@@ -250,10 +250,10 @@ def test_emitter_scene_invariants():
     assert torch.equal(again.state.pos, crate.state.pos)
 
 
-def test_crate_surface():
+def test_crate_surface(tmp_path):
     """Coefficient get/set on device tensors, the views, a radius edit past
-    the cell size rebuilding the grid, and checkpoints (not ported yet)
-    raising NotImplementedError."""
+    the cell size rebuilding the grid, and a checkpoint round trip (the
+    edited coefficients and the state come back)."""
     world = load_config(REPO / "configs" / "hourglass.yaml").world_config
     crate = Crate(world, device="cpu")
     n = crate.particle_count
@@ -275,9 +275,14 @@ def test_crate_surface():
     crate.physics_tick()
     assert crate.tick == 1 and "Tick: 1" in crate.debug_prints
     assert crate.current_coefficients()["viscosity"] == 4.5
-    for call in (lambda: crate.save_checkpoint("x"), lambda: crate.restore_checkpoint("x")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    path = crate.save_checkpoint(tmp_path / "ckpt.npz")
+    saved = crate.state
+    crate.physics_tick()
+    crate.viscosity = 1.0
+    crate.restore_checkpoint(path)
+    assert crate.tick == 1 and crate.viscosity == 4.5
+    for name, a, b in zip(saved._fields, saved, crate.state):
+        assert torch.equal(a, b), name
 
 
 def test_crate_defaults_to_the_card():
