@@ -62,12 +62,13 @@ prints its wall time as "[phase] name: s"):
 (g) stream_frames on the 10k world equals a synchronous trajectory.
 (h) probes (csrc/probes.cu, the ported kernels of tools/): P1 at phase 4's
    settled state and P2 at phase 7's settled grid, each variant against its
-   plain version bit for bit; P4 and P3 at the tools' sizes likewise; then
-   each probe's main (the tools' entry points) on the card with the launch
-   counters reset: G(mul+add)/s, us per visit, window widths, ms per
-   variant beside the shipped pair_pass_a.  P3 is timed on two inputs (the
-   tool's, whose mask almost never holds, and equal rw columns) that must
-   agree within PROBE_P3_SPREAD.
+   plain version bit for bit; P4 and P3 at the tools' sizes likewise.  Then
+   each probe's main (the tools' entry points; P1 and P2 on those same
+   crates) with the launch counters reset just before and read just after:
+   it prints G(mul+add)/s, us per visit, window widths, ms per variant
+   beside the shipped pair_pass_a, and its times are the rows' ms.  P3 is
+   timed on two inputs (the tool's, whose mask almost never holds, and
+   equal rw columns) that must agree within PROBE_P3_SPREAD.
 (i) recording and checkpoints on the stirring-cup world (an emitter and a
    motored cup): stream_frames -> TrajectoryWriter -> load_trajectory gives
    the frames back; a checkpoint saved at tick T and restored into a fresh
@@ -89,6 +90,8 @@ import subprocess
 import sys
 import time
 
+from sand_crate_tpu_torch.ops.measure import bound, cuda_ms
+
 N_TARGET = 1_000_000  # bench.py's default size: 1,001,700 alive, capacity 1,050,112
 SETTLE_TICKS = 50
 MAIN_TICKS = 200
@@ -103,13 +106,10 @@ BENCH_TICKS = 100
 INSTRUMENT_TICKS = 5
 TURN_TICKS = 10
 STREAM_FRAMES = 6
-# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and f32 flop/s
-# outside the tensor cores; a kernel's bound is the larger of its bytes
-# over the first and its operations over the second.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 # f32 operations per pair that passes the mask, an upper estimate from the
 # kernels' sources (geometry with jitter ~26, pass-A sums ~8, pass-B ~21).
+# A kernel's bound (sand_crate_tpu_torch.ops.measure.bound) is the larger of
+# its bytes over the H100's memory rate and these over its f32 rate.
 PAIR_FLOPS = 50
 # Kernel vs plain version, same inputs: both perform the same IEEE f32
 # operations in the same order (csrc/pmajor.cu), so they are expected to
@@ -158,33 +158,6 @@ def dam_break_world(n_target: int):
     from sand_crate_tpu_torch.bench import dam_break_world as world
 
     return world(n_target)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` runs (CUDA events),
-    after one warm-up run."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the least time the card could take for the
-    bytes moved (each input read once, each output written once) and the
-    f32 operations, at the published peaks."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops, library_ms=None):
@@ -885,111 +858,126 @@ def print_ptxas(names) -> None:
                 print(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}")
 
 
-def probe_row(name, replaces, got, ref, ms, plain_ms, n_bytes, f32_ops, bf16_ops=0.0):
-    """A kernels-line row of a probe: bit-identical to its plain version
-    (checked), its bound from the probes' peak rates (f32 at half the FMA
-    peak, bf16x2 at twice that)."""
+def probe_row(name, replaces, got, ref, plain_ms, n_bytes, f32_ops, bf16_ops=0.0):
+    """A kernels-line row of a probe, checked bit-identical to its plain
+    version on the same device inputs; its ms and launches come from the
+    probe's main (:func:`finish_row`)."""
     import torch
-
-    from sand_crate_tpu_torch.probes import bound as probe_bound
 
     err = float((got.float() - ref.float()).abs().max()) if got.numel() else 0.0
     check(torch.equal(got, ref), f"{name}: kernel differs from its plain version (max abs err {err})")
-    bound_ms, bound_by = probe_bound(n_bytes, f32_ops, bf16_ops)
-    print(f"  {name}: == plain bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}) (median, CUDA events)")
+    bound_ms, bound_by = bound(n_bytes, f32_ops, bf16_ops)
     return dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=replaces,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                launches=None, max_abs_err=err, ms=None, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
-def p1_vs_plain(crate):
+def probe_main(labels, run):
+    """One probe's main (the tool's entry point) on the card, with
+    probes.LAUNCHES reset just before and read just after: every kernel of
+    ``labels`` must launch.  Returns (main's times, the launches)."""
+    import torch
+
+    from sand_crate_tpu_torch import probes
+
+    reset(probes.LAUNCHES)
+    times = run()
+    torch.cuda.synchronize()
+    launches = {k: probes.LAUNCHES[k] for k in labels}
+    print(f"  launches: {launches}")
+    check(all(n > 0 for n in launches.values()), f"a probe kernel of {labels} was not launched")
+    return times, launches
+
+
+def finish_row(row, ms, launches):
+    row.update(ms=ms, launches=launches)
+    print(f"  {row['name']}: == plain bit for bit; kernel {ms:.4f} ms (the probe's main), plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{launches} launches (median, CUDA events)")
+
+
+def p1_probe(crate):
     """Phase (h), P1: tools/pmajor_probe.py's kernel at the crate's settled
     state, modes a and b at W + 128 and W + 256, against its plain version;
-    returns the rows at W + 256."""
+    then the probe's main on the same crate.  Returns the rows at W + 256."""
     from sand_crate_tpu_torch.probes import pmajor_probe as p1
 
     st, sc, pr = crate.state, crate.scene, crate.params
     slab, sorted_cid = p1.sorted_slab(st, pr, sc)
-    slab_p, dma_lo, ws, need = p1.prepare(slab, sorted_cid, sc.grid_nx, sc.grid_ny)
-    need_f = need.float()
-    print(f"  window width needed: p50 {float(need_f.quantile(0.5)):.0f} p95 "
-          f"{float(need_f.quantile(0.95)):.0f} p99 {float(need_f.quantile(0.99)):.0f} max "
-          f"{int(need.max())}; blocks {dma_lo.shape[0]}, chunks {ws.shape[0] // 3}")
+    slab_p, dma_lo, ws, _ = p1.prepare(slab, sorted_cid, sc.grid_nx, sc.grid_ny)
     coef = p1.coefficients(pr.diameter, slab.device)
     nblocks, nchunks = dma_lo.shape[0], ws.shape[0] // 3
-    rows = []
+    rows = {}
     for mode in ("a", "b"):
         for w in (PROBE_W + 128, PROBE_W + 256):
-            def run(mode=mode, w=w):
-                return p1.probe(slab_p, dma_lo, ws, coef, w, mode)
-
             def plain(mode=mode, w=w):
                 return p1.probe_plain(slab_p, dma_lo, ws, coef, w, mode)
 
-            got = run()
+            got = p1.probe(slab_p, dma_lo, ws, coef, w, mode)
             count = float(got[:, 3 if mode == "a" else 6].sum())
             check(count > 0, f"P1 mode {mode} W {w}: no pair within the cutoff")
             print(f"  P1 mode {mode} W {w}: {count:.0f} (self, candidate) pairs within the "
                   f"cutoff, {count / (nchunks * 128):.2f} per self")
-            row = probe_row(f"pmajor_probe_{mode}_w{w}", PROBE_REPLACES["pmajor_probe"], got,
-                            plain(), cuda_ms(run, 10), cuda_ms(plain, 1),
-                            p1.io_bytes(nblocks, w), p1.operations(mode, nchunks, w))
-            if w == PROBE_W + 256:
-                rows.append(row)
-    return rows
+            rows[mode, w] = probe_row(f"pmajor_probe_{mode}_w{w}", PROBE_REPLACES["pmajor_probe"],
+                                      got, plain(), cuda_ms(plain, 1), p1.io_bytes(nblocks, w),
+                                      p1.operations(mode, nchunks, w))
+    print(f"-- python -m sand_crate_tpu_torch.probes.pmajor_probe (this crate) W {PROBE_W} all")
+    times, launches = probe_main(("pmajor_probe_a", "pmajor_probe_b"),
+                                 lambda: p1.main(w=PROBE_W, mode="all", crate=crate))
+    for (mode, w), row in rows.items():
+        finish_row(row, times[mode, w], launches[f"pmajor_probe_{mode}"])
+    return [rows[mode, PROBE_W + 256] for mode in ("a", "b")]
 
 
-def p2_vs_plain(crate):
+def p2_probe(crate):
     """Phase (h), P2: tools/passa_probe.py's variants at the crate's settled
-    slot grid (16 slots) and its 8-slot copy, against their plain versions,
-    and the shipped pair_pass_a; returns the 16-slot rows."""
+    slot grid (16 slots) and its 8-slot copy, against their plain versions;
+    then the probe's main on the same crate, every variant on both grids,
+    with the shipped pair_pass_a.  Returns the 16-slot rows."""
     import torch
 
-    from sand_crate_tpu_torch.ops import pair_kernel as pk
-    from sand_crate_tpu_torch.ops.pallas_forces import grid_width
-    from sand_crate_tpu_torch.ops.placement import place_grid
     from sand_crate_tpu_torch.probes import passa_probe as p2
-    from sand_crate_tpu_torch.probes import pmajor_probe as p1
 
-    st, sc, pr = crate.state, crate.scene, crate.params
-    slab, _ = p1.sorted_slab(st, pr, sc)
-    grid = place_grid(slab, None, sc.cell_capacity, sc.grid_nx, sc.grid_ny, grid_width(sc.grid_nx))
+    grid = p2.crate_grid(crate)
     tr = p2.row_block(grid.shape[3])
-    coef, ticks = p2.coefficients(pr.diameter, grid.device)
-    zero = torch.zeros((), device=grid.device)
-    print(f"  pair_pass_a (shipped, all 16 slots): "
-          f"{cuda_ms(lambda: pk.pair_pass_a(grid, pr.diameter, zero, 0), 10):.4f} ms")
-    rows = []
+    coef, ticks = p2.coefficients(crate.params.diameter, grid.device)
+    rows = {}
     for tag, g in (("m16", grid), ("m8", grid[:, :, :p2.M_LO].contiguous())):
         occ = p2.block_flags(g, tr)
         print(f"  [{tag}] grid {tuple(g.shape)}, tr {tr}: {int(occ.sum())} of {occ.shape[0]} "
               "row blocks occupied")
         for mode in p2.VARIANTS:
-            def run(g=g, occ=occ, mode=mode):
-                return p2.variant(g, occ, coef, ticks, tr, mode)
-
             def plain(g=g, occ=occ, mode=mode):
                 return p2.variant_plain(g, occ, coef, ticks, tr, mode)
 
-            got = run()
+            got = p2.variant(g, occ, coef, ticks, tr, mode)
             if mode in ("full", "bf16"):
                 occupied = g[0, :, :p2.M_LO] > p2.ALIVE_THRESHOLD
                 counted = float((got[3, :, :p2.M_LO][occupied] > 0).float().mean())
                 check(counted > 0.9, f"P2 {tag} {mode}: {counted:.3f} of the occupied slots count pairs")
             f32_ops, bf16_ops = p2.operations(mode, occ, g.shape, tr)
-            row = probe_row(f"passa_{mode}_{tag}",
-                            PROBE_REPLACES["passa_prefetch" if mode == "prefetch" else "passa"],
-                            got, plain(), cuda_ms(run, 10), cuda_ms(plain, 1),
-                            p2.io_bytes(mode, occ, g.shape, tr), f32_ops, bf16_ops)
-            if tag == "m16":
-                rows.append(row)
-    return rows
+            rows[tag, mode] = probe_row(
+                f"passa_{mode}_{tag}",
+                PROBE_REPLACES["passa_prefetch" if mode == "prefetch" else "passa"], got, plain(),
+                cuda_ms(plain, 1), p2.io_bytes(mode, occ, g.shape, tr), f32_ops, bf16_ops)
+            del got
+    del grid, g
+    torch.cuda.empty_cache()
+    print("-- python -m sand_crate_tpu_torch.probes.passa_probe (this crate), every variant on "
+          "both grids")
+    times, launches = probe_main(
+        [f"passa_{mode}" for mode in p2.VARIANTS],
+        lambda: p2.main(modes={"m16": p2.VARIANTS, "m8": p2.VARIANTS}, crate=crate))
+    for (tag, mode), row in rows.items():
+        finish_row(row, times[tag, mode], launches[f"passa_{mode}"])
+    print(f"  pair_pass_a (shipped, all 16 slots, the same main): {times['m16', 'shipped']:.4f} ms")
+    return [rows["m16", mode] for mode in p2.VARIANTS]
 
 
-def p4_p3_vs_plain():
+def p4_p3_probes():
     """Phase (h), P4 and P3 at the tools' sizes: every kernel against its
-    plain version; P3 on the tool's inputs and on equal rw columns."""
+    plain version (P3 on the tool's inputs and on equal rw columns), then
+    each probe's main; P3's two inputs must time within PROBE_P3_SPREAD."""
     from sand_crate_tpu_torch.probes import bf16_probe as p4
     from sand_crate_tpu_torch.probes import hybrid_probe as p3
 
@@ -1004,9 +992,14 @@ def p4_p3_vs_plain():
         rows.append(probe_row(
             f"bf16_{'mixed' if kind == 'mixed' else 'chain_' + kind}",
             PROBE_REPLACES["bf16_mixed" if kind == "mixed" else "bf16_chain"], got,
-            p4.chain_plain(x, kind, PROBE_ITERS), cuda_ms(lambda: p4.chain(x, kind, PROBE_ITERS), 30),
+            p4.chain_plain(x, kind, PROBE_ITERS),
             cuda_ms(lambda: p4.chain_plain(x, kind, PROBE_ITERS), 2), p4.io_bytes(kind, n),
             f32_ops, bf16_ops))
+    print(f"-- python -m sand_crate_tpu_torch.probes.bf16_probe {PROBE_ITERS}")
+    times, launches = probe_main([r["name"] for r in rows], lambda: p4.main(PROBE_ITERS))
+    for kind, row in zip(p4.KINDS, rows):
+        finish_row(row, times[kind], launches[row["name"]])
+    p3_rows = {}
     for equal_rw in (True, False):
         sfeat, cand = p3.make_inputs(device="cuda", equal_rw=equal_rw)
         frac = p3.mask_fraction(sfeat, cand)
@@ -1019,47 +1012,21 @@ def p4_p3_vs_plain():
             ref = p3.chain_plain(sfeat, cand, PROBE_ITERS, hybrid)
             if equal_rw:  # the tool's inputs are all but zero; these are the row's
                 f32_ops, bf16_ops = p3.operations(hybrid, PROBE_ITERS, got.numel())
-                rows.append(probe_row(
+                p3_rows["hybrid bf16" if hybrid else "f32 chain"] = probe_row(
                     f"hybrid_{'bf16' if hybrid else 'f32'}", PROBE_REPLACES["hybrid"], got, ref,
-                    cuda_ms(lambda: p3.chain(sfeat, cand, PROBE_ITERS, hybrid), 20),
                     cuda_ms(lambda: p3.chain_plain(sfeat, cand, PROBE_ITERS, hybrid), 2),
-                    p3.io_bytes(sfeat.shape[0], cand.shape[1]), f32_ops, bf16_ops))
+                    p3.io_bytes(sfeat.shape[0], cand.shape[1]), f32_ops, bf16_ops)
             else:
                 check(bool((got == ref).all()), "P3 on the tool's inputs differs from its plain version")
-    return rows
-
-
-def probe_mains():
-    """Phase (h): each probe's main, the tools' entry points, on the card
-    with the launch counters reset just before; every probe kernel must
-    launch.  Returns the counts."""
-    import torch
-
-    from sand_crate_tpu_torch import probes
-    from sand_crate_tpu_torch.probes import bf16_probe, hybrid_probe, passa_probe, pmajor_probe
-
-    reset(probes.LAUNCHES)
-    print("-- python -m sand_crate_tpu_torch.probes.bf16_probe", PROBE_ITERS)
-    bf16_probe.main(PROBE_ITERS)
-    print("-- python -m sand_crate_tpu_torch.probes.hybrid_probe", PROBE_ITERS)
-    p3 = hybrid_probe.main(PROBE_ITERS)
-    print(f"-- python -m sand_crate_tpu_torch.probes.pmajor_probe {N_TARGET} {SETTLE_TICKS} "
-          f"{PROBE_W} all")
-    pmajor_probe.main(N_TARGET, SETTLE_TICKS, PROBE_W, "all")
-    print(f"-- python -m sand_crate_tpu_torch.probes.passa_probe {N_TARGET} {GRID_SETTLE_TICKS} "
-          "(every variant on both grids)")
-    passa_probe.main(N_TARGET, GRID_SETTLE_TICKS,
-                     modes={"m16": passa_probe.VARIANTS, "m8": passa_probe.VARIANTS})
-    torch.cuda.synchronize()
-    launches = dict(probes.LAUNCHES)
-    print(f"probe launches: {launches}")
-    check(all(n > 0 for n in launches.values()), "a probe kernel was not launched")
-    for form in ("f32 chain", "hybrid bf16"):
-        a, b = p3[form, "random rw"], p3[form, "equal rw"]
+    print(f"-- python -m sand_crate_tpu_torch.probes.hybrid_probe {PROBE_ITERS}")
+    times, launches = probe_main(("hybrid_f32", "hybrid_bf16"), lambda: p3.main(PROBE_ITERS))
+    for form, row in p3_rows.items():
+        finish_row(row, times[form, "equal rw"], launches[row["name"]])
+        a, b = times[form, "random rw"], times[form, "equal rw"]
         spread = abs(a - b) / max(a, b)
-        print(f"P3 {form}: tool's inputs {a:.4f} ms, equal rw {b:.4f} ms, spread {spread:.3f}")
+        print(f"  P3 {form}: tool's inputs {a:.4f} ms, equal rw {b:.4f} ms, spread {spread:.3f}")
         check(spread <= PROBE_P3_SPREAD, f"P3 {form}: the two inputs time {spread:.3f} apart")
-    return launches
+    return rows + list(p3_rows.values())
 
 
 def recording_and_checkpoints():
@@ -1172,10 +1139,10 @@ def main() -> int:
               f"chunk {pmajor.PMS_CHUNK}:")
         k10_rows = k10_vs_plain(crate)
 
-    # -- (h) P1 against its plain version at the settled state --------------------
-    with phase("P1 probe vs plain"):
+    # -- (h) P1 at the settled state: vs its plain version, then its main ---------
+    with phase("P1 probe"):
         print("P1 (tools/pmajor_probe.py) vs its plain version at the settled 1M state:")
-        probe_rows = p1_vs_plain(crate)
+        probe_rows = p1_probe(crate)
 
     # -- 5. pmajor main path ------------------------------------------------------
     with phase("pmajor main path"):
@@ -1235,10 +1202,10 @@ def main() -> int:
         provider = grid_provider_path(grid_crate, sorted_ops)
         del sorted_ops
 
-    # -- (h) P2 against its plain version at the settled grid ---------------------
-    with phase("P2 probe vs plain"):
+    # -- (h) P2 at the settled grid: vs its plain version, then its main ----------
+    with phase("P2 probe"):
         print("P2 (tools/passa_probe.py) variants vs their plain versions at the settled 1M grid:")
-        probe_rows += p2_vs_plain(grid_crate)
+        probe_rows += p2_probe(grid_crate)
 
     # -- 8. grid main path -------------------------------------------------------
     with phase("grid main path"):
@@ -1272,20 +1239,11 @@ def main() -> int:
     with phase("stream_frames 10k"):
         stream_10k()
 
-    # -- (h) P4 and P3, then every probe's main with the counters reset ----------
-    with phase("P4 and P3 probes vs plain"):
+    # -- (h) P4 and P3: vs their plain versions, then their mains ----------------
+    with phase("P4 and P3 probes"):
         print(f"P4 (tools/bf16_probe.py) and P3 (tools/hybrid_probe.py) vs their plain "
               f"versions, iters {PROBE_ITERS}:")
-        probe_rows = p4_p3_vs_plain() + probe_rows
-    with phase("probe mains"):
-        launches = probe_mains()
-        for r in probe_rows:
-            key = r["name"]
-            if key.startswith("pmajor_probe_"):
-                key = key.rsplit("_w", 1)[0]
-            elif key.startswith("passa_"):
-                key = key.rsplit("_m", 1)[0]
-            r["launches"] = launches[key]
+        probe_rows = p4_p3_probes() + probe_rows
 
     # -- (i) recording and checkpoints -------------------------------------------
     with phase("recording + checkpoints"):

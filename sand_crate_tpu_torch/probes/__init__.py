@@ -27,7 +27,6 @@ plain version, so the two agree bit for bit on the same inputs.
 from __future__ import annotations
 
 import ctypes
-import statistics
 
 import torch
 
@@ -42,22 +41,6 @@ LAUNCHES = {
     "passa_full": 0, "passa_nostencil": 0, "passa_bf16": 0, "passa_nooutdma": 0,
     "passa_plane0": 0, "passa_tiny": 0, "passa_novel": 0, "passa_prefetch": 0,
 }
-
-# H100 SXM peaks (NVIDIA's data sheet and Hopper white paper, 700 W).  The
-# kernels are built with -fmad=false, so a multiply and an add issue as two
-# instructions: f32 operations at half the 67 TFLOP/s FMA peak, and bf16
-# operations packed two to an instruction (bf16x2) at twice that.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12 / 2
-BF16_OPS_PER_S = 2 * F32_OPS_PER_S
-
-
-def bound(n_bytes: float, f32_ops: float, bf16_ops: float = 0.0):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over their peak rates."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (f32_ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def load_lib() -> ctypes.CDLL:
@@ -98,28 +81,17 @@ def run_kernel(label: str, fn, *args, device) -> None:
     LAUNCHES[label] += 1
 
 
-def require_card(who: str) -> torch.device:
-    """The CUDA device for a probe's ``main``: a probe measures the card and
-    has no CPU fallback."""
+def require_card(who: str, crate=None) -> torch.device:
+    """The CUDA device for a probe's ``main`` (``crate``'s, when it is given
+    a settled crate): a probe measures the card and has no CPU fallback."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"{who} measures the CUDA device and none is available")
-    return torch.device("cuda")
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` runs (CUDA events),
-    after one warm-up run."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    if crate is None:
+        return torch.device("cuda")
+    device = crate.state.pos.device
+    if device.type != "cuda":
+        raise RuntimeError(f"{who} measures the CUDA device; the crate is on {device}")
+    return device
 
 
 def to_bf16(x: torch.Tensor) -> torch.Tensor:

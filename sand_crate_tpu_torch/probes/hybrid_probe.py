@@ -24,8 +24,9 @@ import sys
 import numpy as np
 import torch
 
+from ..ops.measure import cuda_ms
 from ..ops.pair_kernel import check_cuda
-from . import cuda_ms, dispatch, load_lib, require_card, run_kernel, to_bf16
+from . import dispatch, load_lib, require_card, run_kernel, to_bf16
 
 CS, W = 128, 256  # the pass plane: cs x (split * 128)
 BLOCKS = 64

@@ -37,9 +37,10 @@ import sys
 
 import torch
 
+from ..ops.measure import cuda_ms
 from ..ops.pair_kernel import check_cuda
 from ..ops.pmajor import _u01
-from . import cuda_ms, dispatch, load_lib, require_card, run_kernel, to_bf16
+from . import dispatch, load_lib, require_card, run_kernel, to_bf16
 
 POSX, POSY = 0, 1
 NUM_A = 4
@@ -204,23 +205,17 @@ def variant(grid, occ, coef, ticks, tr: int, mode: str) -> torch.Tensor:
     return out
 
 
-def settled_grid(n: int, settle: int, device, cell_capacity: int = 16):
-    """bench.py's dam break on the slot grid at ``n`` target particles after
-    ``settle`` ticks: (grid (4, NYP, M, NXP), params, scene)."""
-    from ..bench import dam_break_world
-    from ..engine import Crate
+def crate_grid(crate) -> torch.Tensor:
+    """The tool's slot grid (4, NYP, M, NXP) of ``crate``'s state: its
+    sorted slab placed by ``place_grid`` at the crate's cell capacity."""
     from ..ops.pallas_forces import grid_width
     from ..ops.placement import place_grid
     from .pmajor_probe import sorted_slab
 
-    crate = Crate(dam_break_world(n), device=device, forces_mode="pallas",
-                  cell_capacity=cell_capacity)
-    crate.run(settle)
     scene = crate.scene
     slab, _ = sorted_slab(crate.state, crate.params, scene)
     nx, ny = scene.grid_nx, scene.grid_ny
-    grid = place_grid(slab, None, scene.cell_capacity, nx, ny, grid_width(nx))
-    return grid, crate.params, scene
+    return place_grid(slab, None, scene.cell_capacity, nx, ny, grid_width(nx))
 
 
 def coefficients(diameter, device):
@@ -260,13 +255,19 @@ def io_bytes(mode: str, occ: torch.Tensor, grid_shape, tr: int) -> int:
 
 
 def main(n: int = 1_000_000, settle: int = 100, tr: int | None = None,
-         modes: dict | None = None) -> dict:
+         modes: dict | None = None, crate=None) -> dict:
     """Time the variants (the tool's by default) on the settled grid and its
-    8-slot copy, then the shipped pair_pass_a; returns {(grid, mode): ms}."""
+    8-slot copy, then the shipped pair_pass_a; ``crate``, already settled on
+    the slot grid, takes the place of ``n`` and ``settle``.  Returns
+    {(grid, mode): ms}."""
     from ..ops.pair_kernel import pair_pass_a
+    from .pmajor_probe import settled_crate
 
-    device = require_card("passa_probe")
-    grid, params, scene = settled_grid(n, settle, device)
+    device = require_card("passa_probe", crate)
+    if crate is None:
+        crate = settled_crate(n, settle, device, forces_mode="pallas", cell_capacity=16)
+    params = crate.params
+    grid = crate_grid(crate)
     tr = tr or row_block(grid.shape[3])
     occ = block_flags(grid, tr)
     print(f"occupied blocks: {int(occ.sum())}/{occ.shape[0]} tr={tr}")

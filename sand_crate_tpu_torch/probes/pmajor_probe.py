@@ -27,8 +27,9 @@ import sys
 import numpy as np
 import torch
 
+from ..ops.measure import cuda_ms
 from ..ops.pair_kernel import check_cuda
-from . import cuda_ms, dispatch, load_lib, require_card, run_kernel
+from . import dispatch, load_lib, require_card, run_kernel
 
 CPB = 64  # chunks per block
 OWN = CPB * 128  # own columns per block
@@ -51,15 +52,15 @@ def hash2(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 13)
 
 
-def settled_world(n: int, settle: int, device):
+def settled_crate(n: int, settle: int, device, **options):
     """bench.py's dam break at ``n`` target particles on ``device``, after
-    ``settle`` ticks: (state, params, scene)."""
+    ``settle`` ticks (``options`` go to the Crate)."""
     from ..bench import dam_break_world
     from ..engine import Crate
 
-    crate = Crate(dam_break_world(n), device=device)
+    crate = Crate(dam_break_world(n), device=device, **options)
     crate.run(settle)
-    return crate.state, crate.params, crate.scene
+    return crate
 
 
 def sorted_slab(state, params, scene):
@@ -224,12 +225,16 @@ def io_bytes(nblocks: int, w: int) -> int:
     return 4 * (8 * (nblocks * OWN + VCAP) + nblocks + 3 * nchunks + nchunks * 8 * 128)
 
 
-def main(n: int = 1_000_000, settle: int = 100, w: int = 256, mode: str = "all") -> dict:
-    """Time modes a/b at W + 128 and W + 256 on the settled world; returns
+def main(n: int = 1_000_000, settle: int = 100, w: int = 256, mode: str = "all",
+         crate=None) -> dict:
+    """Time modes a/b at W + 128 and W + 256 on the settled world (or on
+    ``crate``, already settled, in place of ``n`` and ``settle``); returns
     {(mode, W): ms}."""
-    device = require_card("pmajor_probe")
-    state, params, scene = settled_world(n, settle, device)
-    slab, sorted_cid = sorted_slab(state, params, scene)
+    device = require_card("pmajor_probe", crate)
+    if crate is None:
+        crate = settled_crate(n, settle, device)
+    params, scene = crate.params, crate.scene
+    slab, sorted_cid = sorted_slab(crate.state, params, scene)
     slab_p, dma_lo, ws, need = prepare(slab, sorted_cid, scene.grid_nx, scene.grid_ny)
     nd = need.cpu().numpy()
     print(f"window width needed: p50={np.percentile(nd, 50):.0f} "

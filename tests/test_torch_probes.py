@@ -9,12 +9,19 @@ JAX package's slab (``slab_from_sorted``) and grid (``place_grid``) of a
 ~2k-particle dam break, whose pairs pass the cutoff (on a random grid every
 slot is empty and pass A writes zeros).
 
-Tolerances: f32 outputs at rtol/atol 3e-3 (the JAX suite's pair-sum
-tolerance, ROADMAP.md); XLA's rsqrt against the port's 1 / sqrt is the only
-difference.  bf16 outputs at BF16_TOL of each output's largest magnitude:
-XLA on the CPU may keep bf16 intermediates in f32 where the port rounds
-after every operation, and sums of a few dozen bf16 terms differ by a few
-bf16 ulps (2^-8 relative) of the largest term.
+Tolerances, element by element: f32 outputs at rtol/atol 3e-3 (the JAX
+suite's pair-sum tolerance, ROADMAP.md); XLA's rsqrt against the port's
+1 / sqrt is the only difference.  bf16 outputs within BF16_ULPS bf16 gaps
+(2^-7 relative) of |want| plus the largest magnitude one term of the sum
+can have, which holds a sum whose terms cancel to the terms' precision:
+XLA on the CPU drops some of the bf16 roundings that the port writes out
+after every operation, and the port's outputs differ from it by at most
+2.0 such gaps (P2), 0.5 (P3, P4 mixed) and 0 (P4 bf16).  P2's count plane
+is compared exactly.  Dropping one stencil pair, or one pair's w or s_x
+term, from the port's bf16 P2 moves some element by 4 to 18 gaps, which
+fails; leaving out one of its roundings moves none by more than 2.7, which
+this check cannot tell from XLA's own difference: the rounding points are
+held on the card, where each kernel equals its plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -51,19 +58,26 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = 3e-3
-BF16_TOL = 2.0**-5  # of each output's largest magnitude
+BF16_EPS = 2.0**-7  # the gap between bf16 values in [1, 2)
+BF16_ULPS = 3
 ITERS = 3
 P4_BLOCKS = 1
 P3_BLOCKS = 2
 
 
-def _close(got, want, bf16=False):
+def _close(got, want, err_msg=""):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape
-    if bf16:
-        np.testing.assert_allclose(got, want, rtol=0, atol=BF16_TOL * np.abs(want).max())
-    else:
-        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL, err_msg=err_msg)
+
+
+def _close_bf16(got, want, term, err_msg=""):
+    """Each element within BF16_ULPS bf16 gaps of |want| + ``term``, the
+    largest magnitude one term of its sum can have."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    tol = BF16_ULPS * BF16_EPS
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * term, err_msg=err_msg)
 
 
 # ---- P4: tools/bf16_probe.py -------------------------------------------------
@@ -92,7 +106,10 @@ def test_bf16_probe_matches_tool(kind):
     got = bf16_probe.chain(x, kind, ITERS)
     assert got.dtype == x.dtype and tuple(got.shape) == shape
     assert (want != 0).mean() > 0.4  # the mixed mask passes about half
-    _close(got.float().numpy(), want, bf16=kind != "f32")
+    if kind == "f32":
+        _close(got.float().numpy(), want)
+    else:  # a term is one chain: x < 1 times at most 1.07
+        _close_bf16(got.float().numpy(), want, term=1.0 + 0.01 * (bf16_probe.LANES - 1))
 
 
 # ---- P3: tools/hybrid_probe.py -----------------------------------------------
@@ -119,7 +136,10 @@ def test_hybrid_probe_matches_tool(hybrid, equal_rw):
     if equal_rw:
         frac = hybrid_probe.mask_fraction(sfeat, cand)
         assert 0.35 < frac < 0.65 and (want != 0).mean() > 0.3
-    _close(got, want, bf16=hybrid)
+    if hybrid:  # a term is t_coef * nh: |align| < 0.02 * sqrt(2), |tpf| < 0.032
+        _close_bf16(got, want, term=0.06)
+    else:
+        _close(got, want)
 
 
 # ---- P1 / P2: a small real state -----------------------------------------------
@@ -307,7 +327,12 @@ def test_passa_probe_matches_tool(p2_grids, dam_break_2k, tag, mode):
     if mode in ("full", "bf16", "novel", "prefetch"):
         occupied = grid[0, 1:1 + tr, :m] > 1.5
         assert occupied.sum() > 50 and (want[3, 1:1 + tr, :m][occupied] > 0).mean() > 0.9
-    _close(got, want, bf16=mode == "bf16")
+    np.testing.assert_array_equal(got[3], want[3], err_msg="count plane")
+    for p, name in enumerate(("w_sum", "s_x", "s_y")):
+        if mode == "bf16":  # a term is w <= 1 or (1 - w) w nh, |.| <= 0.25
+            _close_bf16(got[p], want[p], term=1.0, err_msg=name)
+        else:
+            _close(got[p], want[p], err_msg=name)
 
 
 def test_probe_wrappers_raise_off_cpu_and_cuda():

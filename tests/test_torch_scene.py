@@ -178,7 +178,8 @@ def test_port_imports_no_jax_nor_yaml():
         "before = set(sys.modules)\n"
         "import sand_crate_tpu_torch, sand_crate_tpu_torch.ops.pmajor\n"
         "import sand_crate_tpu_torch.ops.pallas_forces, sand_crate_tpu_torch.ops.placement\n"
-        "import sand_crate_tpu_torch.ops.cuda_build, sand_crate_tpu_torch.engine\n"
+        "import sand_crate_tpu_torch.ops.cuda_build, sand_crate_tpu_torch.ops.measure\n"
+        "import sand_crate_tpu_torch.engine\n"
         "import sand_crate_tpu_torch.bench, sand_crate_tpu_torch.instrument\n"
         "import sand_crate_tpu_torch.recording, sand_crate_tpu_torch.probes\n"
         "import sand_crate_tpu_torch.probes.bf16_probe, sand_crate_tpu_torch.probes.hybrid_probe\n"
