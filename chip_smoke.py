@@ -14,11 +14,17 @@ prints its wall time as "[phase] name: s"):
    target particles (1,001,700 alive).
 4. pmajor kernels: after SETTLE_TICKS ticks, K1/K2 (pass A, and pass B
    folded and split) against their plain torch versions on the same device
-   inputs: max abs/rel error per output row, neighbor counts exact, and the
-   median times of both from CUDA events.  Then an independent check of
-   both passes at that state: for a random sample of selves, the sums over
-   every particle of the world within one diameter (brute force, no cell
-   grid or candidate ranges), in float64.
+   inputs, with two-sided and with one-sided noise: bit for bit (max abs
+   error 0, neighbor counts exact); the candidates each tile of 32 selves
+   stages; the median device times of the main path's variants (two-sided,
+   pass A and pass B folded) and of the one-sided ones, from CUDA events.
+   Then an independent check of both passes at that state: for a random
+   sample of selves, the sums over every particle of the world within one
+   diameter (brute force, no cell grid or candidate ranges), in float64.
+   Then the hard inputs of sand_crate_tpu_torch/ops/pmajor_cases.py (a
+   range longer than a staged piece, tiles across grid rows, P not a
+   multiple of the tile, P under one tile, a tail of dead selves), every
+   pass and variant, both noise forms: bit for bit.
    (b) K10 at that state, chunks of 32 and 128 selves, passes A, B folded
    and B split with the spring: bit-identical to its plain version and to
    K1/K2 one-sided; window sizes, candidate tests per self, median times of
@@ -182,9 +188,22 @@ def compare(label, got, ref, exact_rows=()):
     return worst
 
 
+def exact(label, got, ref):
+    """The kernel's output must equal its plain version's bit for bit
+    (the neighbor counts included); returns the max abs error, 0."""
+    import torch
+
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    check(torch.equal(got, ref), f"{label}: kernel differs from its plain version "
+                                 f"(max abs err {err})")
+    return err
+
+
 def kernels_vs_plain(crate):
     """Phase 4: both passes' kernels against their plain versions at the
-    crate's current (settled) state, in the step's sorted order."""
+    crate's current (settled) state, in the step's sorted order, with the
+    main path's two-sided noise and one-sided: bit for bit.  The main path's
+    variants (two-sided; pass A, pass B folded) are timed and reported."""
     import torch
 
     from sand_crate_tpu_torch.cellwise import cell_ids_grid
@@ -192,52 +211,88 @@ def kernels_vs_plain(crate):
 
     st, sc, pr = crate.state, crate.scene, crate.params
     sorted_cid, order = torch.sort(cell_ids_grid(st.pos, st.alive, sc), stable=True)
-    symm = sc.pmajor_symm
-    slab_a = pmajor.pass_a_slab(
-        st.pos[order], st.vel[order], st.alive[order], sorted_cid,
-        pr.diameter * pr.collider_noise_level, st.tick, sc, symm=symm,
-    )
-    ranges = pmajor.candidate_ranges(sorted_cid, st.alive[order], sc.grid_nx, sc.grid_ny)
+    alive = st.alive[order]
+    ranges = pmajor.candidate_ranges(sorted_cid, alive, sc.grid_nx, sc.grid_ny)
     coef = pmajor.coef_stack(pr.diameter, pr.target_pressure, pr.spring_overlap_balance)
-    spans = (ranges[3:] - ranges[:3]).sum(dim=0)[st.alive[order]].float()
+    n_alive = int(alive.sum())
+    P = sorted_cid.shape[0]
+    spans = (ranges[3:] - ranges[:3]).sum(dim=0)[alive].float()
+    win = pmajor.tile_windows(ranges)
+    lens = torch.nn.functional.pad(ranges[3:] - ranges[:3], (0, -P % pmajor.PM_TILE))
+    steps = lens.view(3, -1, pmajor.PM_TILE).amax(dim=2).sum(dim=0)  # a warp's, per tile
     print(f"  candidates per alive particle: mean {float(spans.mean()):.2f} "
-          f"max {int(spans.max())}")
+          f"max {int(spans.max())}; staged per alive particle (windows of "
+          f"{pmajor.PM_TILE} selves) {float((win[3:] - win[:3]).sum()) / n_alive:.3f}; "
+          f"candidates a warp walks (its longest range per row offset) "
+          f"{float(steps[steps > 0].float().mean()):.2f}")
+    rows = []
+    for symm in (sc.pmajor_symm, not sc.pmajor_symm):
+        noise = "two-sided" if symm else "one-sided"
+        main = symm == sc.pmajor_symm
+        slab_a = pmajor.pass_a_slab(
+            st.pos[order], st.vel[order], alive, sorted_cid,
+            pr.diameter * pr.collider_noise_level, st.tick, sc, symm=symm,
+        )
 
-    def pass_a():
-        return pmajor.pm_pass(slab_a, ranges, coef, "a", symm=symm)
+        def pass_a(slab_a=slab_a, symm=symm):
+            return pmajor.pm_pass(slab_a, ranges, coef, "a", symm=symm)
 
-    def pass_a_plain():
-        return pmajor.pm_pass_plain(slab_a, ranges, coef, "a", symm=symm)
+        def pass_a_plain(slab_a=slab_a, symm=symm):
+            return pmajor.pm_pass_plain(slab_a, ranges, coef, "a", symm=symm)
 
-    out_a = pass_a()
-    err_a = compare("pass A", out_a, pass_a_plain(), exact_rows=(3,))
-    P = slab_a.shape[0]
-    pairs = float(out_a[3].sum())  # directed pairs within the cutoff
-    rows = [kernel_row("pm_pass_a", SOURCE, REPLACES, err_a, cuda_ms(pass_a, 20),
-                       cuda_ms(pass_a_plain, 3), (8 + 6 + 6) * 4 * P, pairs * PAIR_FLOPS)]
+        out_a = pass_a()
+        err_a = exact(f"pass A {noise}", out_a, pass_a_plain())
+        pairs = float(out_a[3].sum())  # directed pairs within the cutoff
+        timed = [("pm_pass_a", err_a, pass_a, pass_a_plain, (8 + 6 + 6) * 4 * P)]
+        cp = pmajor.finalize_cp(out_a[0], out_a[3], pr.ignored_pressure)
+        for variant, fold in (("fold", True), ("split", False)):
+            cp_slab = cp * (1.0 + pr.pressure_amplifier) if fold else cp
+            slab_b = pmajor.pass_b_slab(slab_a, out_a, cp_slab, pr.surface_smoothing)
 
-    cp = pmajor.finalize_cp(out_a[0], out_a[3], pr.ignored_pressure)
-    err_b = {}
-    for variant, fold in (("fold", True), ("split", False)):
-        cp_slab = cp * (1.0 + pr.pressure_amplifier) if fold else cp
-        slab_b = pmajor.pass_b_slab(slab_a, out_a, cp_slab, pr.surface_smoothing)
+            def pass_b(slab_b=slab_b, fold=fold, symm=symm):
+                return pmajor.pm_pass(slab_b, ranges, coef, "b", fold=fold, symm=symm)
 
-        def pass_b(slab_b=slab_b, fold=fold):
-            return pmajor.pm_pass(slab_b, ranges, coef, "b", fold=fold, symm=symm)
+            def pass_b_plain(slab_b=slab_b, fold=fold, symm=symm):
+                return pmajor.pm_pass_plain(slab_b, ranges, coef, "b", fold=fold, symm=symm)
 
-        def pass_b_plain(slab_b=slab_b, fold=fold):
-            return pmajor.pm_pass_plain(slab_b, ranges, coef, "b", fold=fold, symm=symm)
-
-        out_b = pass_b()
-        err_b[variant] = compare(f"pass B {variant}", out_b, pass_b_plain())
-        brute_force(slab_a, slab_b, out_a, out_b, st.alive[order], coef, fold, symm)
-        if fold:  # the main path's variant is the one timed and reported
-            rows.append(kernel_row("pm_pass_b", SOURCE, REPLACES, err_b[variant],
-                                   cuda_ms(pass_b, 20), cuda_ms(pass_b_plain, 3),
-                                   (8 + 6 + 2) * 4 * P, pairs * PAIR_FLOPS))
+            out_b = pass_b()
+            err_b = exact(f"pass B {variant} {noise}", out_b, pass_b_plain())
+            if main:
+                brute_force(slab_a, slab_b, out_a, out_b, alive, coef, fold, symm)
+            if fold:
+                timed.append(("pm_pass_b", err_b, pass_b, pass_b_plain, (8 + 6 + 2) * 4 * P))
+        print(f"  {noise}: passes A, B folded and B split == plain bit for bit, "
+              f"{pairs:.0f} directed pairs")
+        for name, err, run, plain, n_bytes in timed:
+            if main:  # the main path's variants are the kernels' rows
+                rows.append(kernel_row(name, SOURCE, REPLACES, err, cuda_ms(run, 20),
+                                       cuda_ms(plain, 3), n_bytes, pairs * PAIR_FLOPS))
+            else:
+                print(f"  {name} {noise}: kernel {cuda_ms(run, 20):.4f} ms (median, CUDA events)")
     for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (median, CUDA events)")
+        print(f"  {r['name']} {'two-sided' if sc.pmajor_symm else 'one-sided'}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) (median, CUDA events)")
     return rows
+
+
+def hard_cases(scene):
+    """Phase 4, hard inputs: K1/K2 against their plain versions on every case
+    of sand_crate_tpu_torch.ops.pmajor_cases (a range longer than a staged
+    piece, tiles across grid rows, P not a multiple of the tile, P under one
+    tile, a tail of dead selves), pass A and B folded, split and split with
+    the spring, two-sided and one-sided noise: bit for bit."""
+    from sand_crate_tpu_torch.ops import pmajor_cases
+
+    for case, c in pmajor_cases.CASES.items():
+        f = pmajor_cases.facts(case, scene, "cuda")
+        check(f["holds"], f"hard case {case}: the inputs miss what it exercises ({c.claim}): {f}")
+        variants = pmajor_cases.variants(case, scene, "cuda")
+        for label, run, plain in variants:
+            exact(f"hard case {case}, {label}", run(), plain())
+        print(f"  {case} ({c.claim}): P {f['P']}, {f['alive']} alive, longest range "
+              f"{f['longest_range']}, a tile across {f['rows_spanned']} grid rows at most, "
+              f"{f['dead_tiles']} dead tiles: {len(variants)} variants == plain bit for bit")
 
 
 def brute_force(slab_a, slab_b, out_a, out_b, alive, coef, fold, symm):
@@ -1132,6 +1187,8 @@ def main() -> int:
         print(f"settle: {SETTLE_TICKS} ticks")
         print("pmajor kernels vs plain versions (same device inputs):")
         rows = kernels_vs_plain(crate)
+        print("K1/K2 vs plain versions on the hard inputs (ops/pmajor_cases.py):")
+        hard_cases(crate.scene)
 
     # -- (b) K10 against its plain version and K1/K2 one-sided ------------------
     with phase("K10 vs plain"):

@@ -9,15 +9,17 @@ time per tick over WALL_TICKS ticks (host clock closed by a synchronize,
 no profiler), then PROFILED_TICKS ticks under torch.profiler: the device
 time per tick of the largest kernels (self CUDA time), the sum over all
 kernels, the kernel launches per tick, and the busy share = kernel time /
-wall time.  Then the two p-major schedules in turns (K1/K2, K10, K10,
-K1/K2, twice), WALL_TICKS ticks each from their settled states: the wall
-time per tick and the median per-tick CUDA-event time of each turn.
+wall time; the port's own kernels are listed wherever they rank.  Then the
+two p-major schedules in turns (K1/K2, K10, K10, K1/K2, twice), WALL_TICKS
+ticks each from their settled states: the wall time per tick and the
+median per-tick CUDA-event time of each turn.
 Prints the card's name and power limit first; needs CUDA.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -27,6 +29,8 @@ SETTLE_TICKS = 50
 WALL_TICKS = 50
 PROFILED_TICKS = 10
 TOP = 15
+# The kernels of the port's csrc/ (K1/K2, K10, K3-K9), printed wherever they rank.
+OWN = re.compile(r"::(pm|pms|place|pass_a|pass_b)_kernel\b")
 
 
 PMSUB = "SAND_CRATE_PMSUB"
@@ -91,7 +95,9 @@ def profile(forces_mode: str, n_target: int, knob=None):
     print(f"{label}: {crate.particle_count} particles, wall {wall_ms:.3f} ms/tick "
           f"({WALL_TICKS} ticks, host clock), kernels {kernel_ms:.3f} ms/tick, "
           f"busy share {kernel_ms / wall_ms:.3f}, {launches / PROFILED_TICKS:.0f} launches/tick")
-    for e in kernels[:TOP]:
+    # The largest kernels, and every kernel of the port's csrc/ wherever it ranks.
+    shown = kernels[:TOP] + [e for e in kernels[TOP:] if OWN.search(e.key)]
+    for e in shown:
         print(f"  {device_us(e) / PROFILED_TICKS / 1e3:8.4f} ms/tick  "
               f"{e.count / PROFILED_TICKS:5.1f}/tick  {e.key[:110]}")
     return crate

@@ -20,6 +20,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12 / 2
 BF16_OPS_PER_S = 2 * F32_OPS_PER_S
+# Device clock cycles the card waits before each timed run (~1 ms at the
+# H100's clocks: longer than any wrapper takes to enqueue its launches).
+HOLD_CYCLES = 2_000_000
 
 
 def bound(n_bytes: float, f32_ops: float, bf16_ops: float = 0.0):
@@ -33,12 +36,20 @@ def bound(n_bytes: float, f32_ops: float, bf16_ops: float = 0.0):
 
 def cuda_ms(fn, reps: int) -> float:
     """Median device time of ``fn`` in ms over ``reps`` runs (CUDA events),
-    after one warm-up run."""
+    after one warm-up run.
+
+    Before each run the device sleeps for HOLD_CYCLES while the host
+    enqueues the start event, ``fn``'s launches and the stop event, so the
+    events bracket device work only: timed right after the previous run, a
+    ~0.05 ms kernel would also count the ~0.03 ms its Python wrapper takes to
+    launch it.  A function that waits on the device inside (a plain version
+    that reads a size back) still counts its host time."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         stop.record()

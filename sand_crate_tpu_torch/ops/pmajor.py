@@ -15,7 +15,9 @@ vectorised torch versions, which CPU tensors run:
 
 * :func:`pm_pass` (K1/K2, the default): one thread per self walks its own
   exact candidate ranges (:func:`candidate_ranges`, ``torch.searchsorted``
-  on the sorted cell ids); plain version :func:`pm_pass_plain`.
+  on the sorted cell ids) out of shared memory, where each warp of
+  ``PM_TILE`` selves stages its windows (:func:`tile_windows`); plain
+  version :func:`pm_pass_plain`.
 * :func:`pms_pass` (K10, ``SAND_CRATE_PMSUB=1``): chunks of ``PMS_CHUNK``
   consecutive selves share one candidate window per row offset
   (:func:`chunk_windows`), staged through shared memory; plain version
@@ -66,6 +68,11 @@ LAUNCHES = {"a": 0, "b": 0, "sub_a": 0, "sub_b": 0}
 # Selves per chunk of the plain versions (bounds their (selves, span, 8)
 # candidate gathers).
 PLAIN_CHUNK = 1 << 16
+
+# K1/K2's tile of sorted selves (one warp) and the candidates it stages per
+# piece (kPiece of csrc/pmajor.cu).
+PM_TILE = 32
+PM_PIECE = 128
 
 # Selves per K10 chunk: 32 (one warp) or 128 (the JAX kernel's chunk).
 PMS_CHUNK = 32
@@ -133,6 +140,29 @@ def candidate_ranges(sorted_cid: torch.Tensor, alive: torch.Tensor, nx: int, ny:
     we = torch.searchsorted(sorted_cid, hi, out_int32=True)
     we = torch.where(alive[None, :], we, ws)
     return torch.cat([ws, we]).contiguous()
+
+
+def tile_windows(ranges: torch.Tensor, tile: int = PM_TILE) -> torch.Tensor:
+    """(6, ntiles) int32: the candidate windows K1/K2 stage per tile of
+    ``tile`` consecutive selves, as the kernel computes them from the
+    :func:`candidate_ranges` it is given.
+
+    Rows 0-2 are the least start and rows 3-5 the largest end of the tile's
+    non-empty ranges at row offset d = -1, 0, +1; a row offset with no
+    non-empty range gets the empty window (0, 0).  The window covers every
+    self's range whatever the ranges are; it is tight because the starts
+    never decrease along the sorted order."""
+    P = ranges.shape[1]
+    ntiles = -(-P // tile)
+    pad = ntiles * tile - P
+    ws = torch.nn.functional.pad(ranges[:3], (0, pad)).view(3, ntiles, tile)
+    we = torch.nn.functional.pad(ranges[3:], (0, pad)).view(3, ntiles, tile)
+    live = ws < we
+    big = torch.iinfo(torch.int32).max
+    lo = torch.where(live, ws, big).amin(dim=2)
+    hi = torch.where(live, we, 0).amax(dim=2)
+    empty = ~live.any(dim=2)
+    return torch.cat([torch.where(empty, 0, lo), torch.where(empty, 0, hi)]).to(torch.int32)
 
 
 def chunk_windows(sorted_cid: torch.Tensor, alive: torch.Tensor, nx: int, ny: int,

@@ -1,0 +1,109 @@
+"""Hard inputs for holding the K1/K2 kernel against its plain version.
+
+``pm_pass`` (``csrc/pmajor.cu``) stages each tile of ``PM_TILE`` sorted
+selves' candidate windows through shared memory in pieces of ``PM_PIECE``
+candidates; ``pm_pass_plain`` walks each self's ranges directly.  Each case
+below puts particles where that design has an edge: a range longer than a
+piece, tiles across many grid rows, a ragged last tile, fewer selves than
+one tile, whole tiles of dead selves.  Positions are made from a numpy seed
+in units of the scene's cell size (the diameter), so a case fits any scene;
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run every case, pass A
+and every pass-B variant, with two-sided and one-sided noise, and require
+the kernel's bits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..cellwise import cell_ids_grid
+from . import pmajor
+
+
+class Case(NamedTuple):
+    n: int  # particles
+    side: float  # the square they fill, in diameters
+    corner: float  # its lower-left corner, in diameters
+    alive: float  # share of alive particles
+    seed: int
+    claim: str  # what the case exercises, checked by :func:`facts`
+
+
+T = pmajor.PM_TILE
+CASES = {
+    "random": Case(20000, 90.0, 68.0, 0.95, 2, "several selves per cell, 5% dead"),
+    "dense_blob": Case(3000, 2.0, 20.0, 1.0, 7, "a range longer than one piece"),
+    "row_spanning": Case(4096, 200.0, 10.0, 0.9, 11, "tiles across many grid rows"),
+    "ragged_tile": Case(685, 10.0, 30.0, 1.0, 5, "P not a multiple of the tile"),
+    "under_one_tile": Case(23, 3.0, 40.0, 1.0, 9, "P smaller than one tile"),
+    "dead_tail": Case(2000, 20.0, 50.0, 0.6, 13, "whole tiles of dead selves"),
+}
+
+
+def sorted_particles(case: str, scene, device):
+    """(pos, vel, alive, sorted cell ids) of the case, cell-sorted."""
+    c = CASES[case]
+    rng = np.random.default_rng(c.seed)
+    d = scene.cell_size
+    pos = (rng.random((c.n, 2)) * c.side + c.corner) * d
+    vel = rng.random((c.n, 2)) - 0.5
+    alive = rng.random(c.n) < c.alive
+    f32 = dict(dtype=torch.float32, device=device)
+    pos, vel = torch.as_tensor(pos, **f32), torch.as_tensor(vel, **f32)
+    alive = torch.as_tensor(alive, device=device)
+    cid, order = torch.sort(cell_ids_grid(pos, alive, scene), stable=True)
+    return pos[order], vel[order], alive[order], cid
+
+
+def facts(case: str, scene, device) -> dict:
+    """What the case's inputs hold at the kernel's tile and piece edges, and
+    whether that is what the case claims (``"holds"``)."""
+    _, _, alive, cid = sorted_particles(case, scene, device)
+    P = cid.shape[0]
+    ranges = pmajor.candidate_ranges(cid, alive, scene.grid_nx, scene.grid_ny)
+    longest = int((ranges[3:] - ranges[:3]).max())
+    n_alive = int(alive.sum())
+    ntiles, live_tiles = -(-P // T), -(-n_alive // T)
+    rows = torch.where(alive, cid // scene.grid_nx, -1)
+    rows = torch.nn.functional.pad(rows, (0, ntiles * T - P), value=-1).view(ntiles, T)
+    first = rows[:, 0]
+    last = rows.max(dim=1).values
+    rows_spanned = int((last - first)[first >= 0].max()) + 1 if n_alive else 0
+    holds = {
+        "random": n_alive < P and longest > 3,
+        "dense_blob": longest > pmajor.PM_PIECE,
+        "row_spanning": rows_spanned > 2,
+        "ragged_tile": P > T and P % T != 0,
+        "under_one_tile": P < T,
+        "dead_tail": live_tiles < ntiles,
+    }[case]
+    return dict(P=P, alive=n_alive, longest_range=longest, rows_spanned=rows_spanned,
+                tiles=ntiles, dead_tiles=ntiles - live_tiles, holds=holds)
+
+
+def variants(case: str, scene, device):
+    """(label, kernel call, plain call) for pass A and pass B folded, split
+    and split with the spring, each with two-sided and one-sided noise, on
+    the case's particles.  Pass B's slab is made from the plain pass A."""
+    pos, vel, alive, cid = sorted_particles(case, scene, device)
+    ranges = pmajor.candidate_ranges(cid, alive, scene.grid_nx, scene.grid_ny)
+    d = scene.cell_size
+    coef = torch.tensor([d, -2.0, 0.5], dtype=torch.float32, device=device)
+    amp = torch.tensor(0.1 * d, dtype=torch.float32, device=device)
+    tick = torch.tensor(5, dtype=torch.int32, device=device)
+    out = []
+    for symm in (True, False):
+        slab_a = pmajor.pass_a_slab(pos, vel, alive, cid, amp, tick, scene, symm=symm)
+        out.append((f"symm={symm} pass A", slab_a, "a", dict(symm=symm)))
+        out_a = pmajor.pm_pass_plain(slab_a, ranges, coef, "a", symm=symm)
+        cp = pmajor.finalize_cp(out_a[0], out_a[3], torch.tensor(0.3, device=device))
+        slab_b = pmajor.pass_b_slab(slab_a, out_a, cp, torch.tensor(100.0, device=device))
+        for name, kw in (("fold", dict(fold=True)), ("split", {}), ("split+spring", dict(spring=True))):
+            out.append((f"symm={symm} pass B {name}", slab_b, "b", dict(symm=symm, **kw)))
+    return [(label,
+             lambda s=slab, m=mode, kw=kw: pmajor.pm_pass(s, ranges, coef, m, **kw),
+             lambda s=slab, m=mode, kw=kw: pmajor.pm_pass_plain(s, ranges, coef, m, **kw))
+            for label, slab, mode, kw in out]

@@ -15,7 +15,7 @@ import torch
 from sand_crate_tpu_torch.cellwise import cell_ids_grid
 from sand_crate_tpu_torch.config import load_config_dict
 from sand_crate_tpu_torch.engine import Crate
-from sand_crate_tpu_torch.ops import pair_kernel, placement, pmajor
+from sand_crate_tpu_torch.ops import pair_kernel, placement, pmajor, pmajor_cases
 from sand_crate_tpu_torch.ops.pallas_forces import (
     gather_pair_sums,
     grid_width,
@@ -52,34 +52,21 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_kernels_bit_identical_to_plain(cuda):
-    """Pass A and every pass-B variant, symm and one-sided noise, on random
-    sorted particles: the kernel and its plain version agree bit for bit."""
-    rng = np.random.default_rng(2)
-    n = 20000
-    pos = torch.as_tensor(rng.random((n, 2)) * 0.4 + 0.3, dtype=torch.float32, device=cuda)
-    vel = torch.as_tensor(rng.random((n, 2)) - 0.5, dtype=torch.float32, device=cuda)
-    alive = torch.as_tensor(rng.random(n) < 0.95, device=cuda)
-    crate = Crate(_world(), device=cuda)
-    cid, order = torch.sort(cell_ids_grid(pos, alive, crate.scene), stable=True)
-    coef = torch.tensor([0.0044, -2.0, 0.5], device=cuda)  # diameter, target, balance
-    for symm in (True, False):
-        slab_a = pmajor.pass_a_slab(
-            pos[order], vel[order], alive[order], cid,
-            torch.tensor(4e-4, device=cuda), torch.tensor(5, dtype=torch.int32, device=cuda),
-            crate.scene, symm=symm,
-        )
-        ranges = pmajor.candidate_ranges(cid, alive[order], crate.scene.grid_nx,
-                                         crate.scene.grid_ny)
-        out_a = pmajor.pm_pass(slab_a, ranges, coef, "a", symm=symm)
-        assert torch.equal(out_a, pmajor.pm_pass_plain(slab_a, ranges, coef, "a", symm=symm))
-        assert float(out_a[3].max()) > 3  # real neighborhoods
-        cp = pmajor.finalize_cp(out_a[0], out_a[3], torch.tensor(0.3, device=cuda))
-        slab_b = pmajor.pass_b_slab(slab_a, out_a, cp, torch.tensor(100.0, device=cuda))
-        for fold, spring in ((True, False), (False, False), (False, True)):
-            kw = dict(fold=fold, spring=spring, symm=symm)
-            got = pmajor.pm_pass(slab_b, ranges, coef, "b", **kw)
-            assert torch.equal(got, pmajor.pm_pass_plain(slab_b, ranges, coef, "b", **kw))
+@pytest.mark.parametrize("case", sorted(pmajor_cases.CASES))
+def test_kernels_bit_identical_to_plain(cuda, case):
+    """Pass A and every pass-B variant, symm and one-sided noise, on the
+    hard inputs of ops/pmajor_cases.py (several selves per cell, a range
+    longer than a staged piece, tiles across grid rows, P not a multiple of
+    the tile, P under one tile, a tail of dead selves): the kernel and its
+    plain version agree bit for bit, neighbor counts included."""
+    scene = Crate(_world(), device=cuda).scene
+    facts = pmajor_cases.facts(case, scene, cuda)
+    assert facts["holds"], facts
+    for label, run, plain in pmajor_cases.variants(case, scene, cuda):
+        got = run()
+        assert torch.equal(got, plain()), label
+        if label.endswith("pass A"):
+            assert float(got[3].max()) > (3 if case in ("random", "dense_blob") else 0)
 
 
 @pytest.mark.cuda

@@ -11,6 +11,8 @@ chip_smoke.py.
 
 import copy
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,9 @@ import torch
 from sand_crate_tpu.ops import pmajor as jpm
 from sand_crate_tpu.scene import build_scene as jax_build_scene
 from sand_crate_tpu.state import Params as JaxParams
+from sand_crate_tpu_torch.bench import dam_break_world
+from sand_crate_tpu_torch.cellwise import cell_ids_grid
+from sand_crate_tpu_torch.engine import Crate
 from sand_crate_tpu_torch.ops import pmajor as tpm
 from sand_crate_tpu_torch.state import params_from_numpy, scene_from_numpy
 
@@ -186,6 +191,71 @@ def test_pair_sums_match_jax(stirring_cup_config, regime):
         for name in ("dv_tension", "pressure_real"):
             total = np.abs(got[name].sum(axis=0)).max()
             assert total <= 2e-4 * max(np.abs(got[name]).max(), 1.0), name
+
+
+def _regime_sorted(stirring_cup_config, regime):
+    """(sorted cell ids, alive, scene) of a REGIMES input, cell-sorted."""
+    cfg = REGIMES[regime]
+    cap = cfg.get("capacity", 128)
+    scene, params = _setup(stirring_cup_config, capacity=cap, max_particles=cap,
+                           **cfg["scene_kw"])
+    tscene = scene_from_numpy(_jax_scene_fields(scene))
+    pos, _, alive = cfg["data"](float(np.asarray(params.diameter)))
+    pos, alive = torch.as_tensor(pos), torch.as_tensor(alive)
+    cid, order = torch.sort(cell_ids_grid(pos, alive, tscene), stable=True)
+    return cid, alive[order], tscene
+
+
+def _settled_dam_break():
+    """(sorted cell ids, alive, scene) of a ~10k-particle dam break after 30
+    ticks on the CPU (the bench world, sorted as the tick sorts it)."""
+    crate = Crate(dam_break_world(10_000), device="cpu")
+    crate.run(30)
+    st = crate.state
+    cid, order = torch.sort(cell_ids_grid(st.pos, st.alive, crate.scene), stable=True)
+    return cid, st.alive[order], crate.scene
+
+
+@pytest.mark.parametrize("regime", sorted(REGIMES) + ["dam_break_10k"])
+def test_tile_windows_cover_the_ranges(stirring_cup_config, regime):
+    """What the K1/K2 kernel relies on to stage a tile's candidates: the
+    starts of candidate_ranges never decrease over the sorted selves, dead
+    selves' ranges are empty, and for tiles of T consecutive selves the
+    window [ranges[q][first self], max ranges[3 + q]) covers every alive
+    self's range; the window the kernel computes (tile_windows: the least
+    start and largest end of the non-empty ranges) covers every range too
+    and lies inside that one."""
+    if regime == "dam_break_10k":
+        cid, alive, scene = _settled_dam_break()
+    else:
+        cid, alive, scene = _regime_sorted(stirring_cup_config, regime)
+    ranges = tpm.candidate_ranges(cid, alive, scene.grid_nx, scene.grid_ny)
+    ws, we = ranges[:3].long(), ranges[3:].long()
+    assert bool((ws[:, 1:] >= ws[:, :-1]).all()), "a range start decreases"
+    assert torch.equal(we[:, ~alive], ws[:, ~alive]), "a dead self has candidates"
+    assert bool((we[1, alive] > ws[1, alive]).all())  # an alive self's own cell
+    P = cid.shape[0]
+    for T in (32, 128, 256):
+        tile = torch.arange(P) // T
+        first = ws[:, tile * T]
+        pad = (0, -(-P // T) * T - P)
+        most = torch.nn.functional.pad(we, pad).view(3, -1, T).amax(dim=2)[:, tile]
+        live = alive[None, :] & (we > ws)
+        assert bool((ws >= first)[live].all()) and bool((we <= most)[live].all()), T
+        win = tpm.tile_windows(ranges, T).long()
+        lo, hi = win[:3][:, tile], win[3:][:, tile]
+        nonempty = we > ws
+        assert bool((ws >= lo)[nonempty].all()) and bool((we <= hi)[nonempty].all()), T
+        assert bool((lo >= first)[nonempty].all()) and bool((hi <= most)[nonempty].all()), T
+        assert bool((hi - lo <= most - first)[nonempty].all()), T
+
+
+def test_tile_constants_mirror_the_kernel():
+    """PM_TILE is the kernel's warp and PM_PIECE its kPiece (csrc/pmajor.cu)."""
+    src = (Path(tpm.__file__).parent.parent / "csrc" / "pmajor.cu").read_text()
+    piece = int(re.search(r"constexpr int kPiece = (\d+);", src).group(1))
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+    assert (tpm.PM_TILE, tpm.PM_PIECE) == (32, piece) and threads % tpm.PM_TILE == 0
 
 
 def test_plain_chunking_is_invisible(stirring_cup_config, monkeypatch):
