@@ -7,8 +7,8 @@ prints its wall time as "[phase] name: s"):
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi).
 2. build: compile the hand-written CUDA kernels (csrc/pmajor.cu with K1/K2
-   and K10, csrc/grid_pair.cu; one nvcc each, started together) and print
-   every kernel's ptxas registers and spills.
+   and K10, csrc/grid_pair.cu with K3-K9, csrc/probes.cu; one nvcc each,
+   started together) and print every kernel's ptxas registers and spills.
 3. world: the dam break (sand_crate_tpu_torch.bench.DAM_BREAK, equal to
    configs/dam_break.yaml) rescaled as bench.py rescales it, to 1,000,000
    target particles (1,001,700 alive).
@@ -46,20 +46,31 @@ prints its wall time as "[phase] name: s"):
    tolerance; on K1/K2 and on K10 (SAND_CRATE_PMSUB=1).
 7. grid kernels: the same 1M world on the slot-grid backend
    (forces_mode="pallas", cell_capacity 16), settled GRID_SETTLE_TICKS
-   ticks; at that state place_grid, pair_pass_a, pair_pass_b (grid mode)
-   and pair_pass_b_emit against their plain versions (max abs/rel error
-   per plane, the grid and the counts exact), emit mode equal bit for bit
-   to grid mode plus gather_pair_sums, median times, and for place_grid the
+   ticks; at that state the tick's slab-order kernels, pair_pass_a (K4+K5)
+   and pair_pass_b_emit (K8+K9, spring off and on), bit for bit against
+   their plain versions, pass A also equal to the dense plain pass A on the
+   placed grid; the candidates a warp tile stages and a self walks; then
+   the particle-order provider's kernels, place_grid (K3) and grid-mode
+   pair_pass_b (K6+K7) on the placed G and PS, bit for bit, emit mode equal
+   to grid mode plus gather_pair_sums; median times, and for place_grid the
    time of the one PyTorch call that does the same scatter (index_put_).
-   Then the particle-order provider (neighbor_forces_pallas, the path that
-   runs grid-mode pass B) is driven once with the counters reset.
+   Then the hard inputs of sand_crate_tpu_torch/ops/grid_cases.py (cells
+   deeper than the capacity, a window longer than a staged piece, tiles
+   across grid rows, the grid's edge rows and columns, P < 32, P not a
+   multiple of 32, a dead tail), pass A at row offsets 0 and 5 and emit
+   with the spring off and on: bit for bit.  Then the particle-order
+   provider (neighbor_forces_pallas) is driven once with the counters
+   reset: place_grid twice (G and PS), pass A and grid-mode pass B once,
+   equal to the sorted provider.
 8. grid main path: Crate.run for GRID_TICKS ticks at 1M on the slot grid;
-   the counters rise by one per kernel per tick, non_finite 0, the last
-   tick's overflow equal to an independent count (bincount) of alive
-   particles past 16 in a cell, alive count and uids kept, the same
-   blow-up bounds; steps/s and step p50.
-9. grid trajectory: as phase 6 on the slot-grid backend, the three grid
-   wrappers swapped for their plain versions.
+   the counters rise by one per pass per tick and place_grid never runs,
+   non_finite 0, the last tick's overflow equal to an independent count
+   (bincount) of alive particles past 16 in a cell, alive count and uids
+   kept, the same blow-up bounds; steps/s and step p50; one tick's peak
+   allocation, below the dense grids G and PS that the tick no longer
+   builds.
+9. grid trajectory: as phase 6 on the slot-grid backend, the two
+   slab-order passes swapped for their plain versions.
 (e) bench entry: python -m sand_crate_tpu_torch.bench --particles 1000000
    --ticks BENCH_TICKS as a subprocess; its JSON line parses and its stderr
    line shows overflow 0.
@@ -72,7 +83,8 @@ prints its wall time as "[phase] name: s"):
    each probe's main (the tools' entry points; P1 and P2 on those same
    crates) with the launch counters reset just before and read just after:
    it prints G(mul+add)/s, us per visit, window widths, ms per variant
-   beside the shipped pair_pass_a, and its times are the rows' ms.  P3 is
+   beside the shipped (slab-order) pair_pass_a, and its times are the rows'
+   ms.  P3 is
    timed on two inputs (the tool's, whose mask almost never holds, and
    equal rw columns) that must agree within PROBE_P3_SPREAD.
 (i) recording and checkpoints on the stirring-cup world (an emitter and a
@@ -596,9 +608,14 @@ def stream_10k():
 
 
 def grid_kernels_vs_plain(crate):
-    """Phase 7: the three grid kernels, every mode, against their plain
-    versions at the crate's current state, cell-sorted as the tick sorts it.
-    Returns (rows, sorted operands) for the provider phase."""
+    """Phase 7: the grid kernels against their plain versions at the
+    crate's current state, cell-sorted as the tick sorts it: the slab-order
+    pass A (K4+K5) and emit pass B (K8+K9, spring off and on), bit for bit
+    (and, through the dense plain versions on the placed grid, equal to the
+    grid's sums); then the particle-order provider's kernels, place_grid
+    (K3) and grid-mode pass B (K6+K7) on the placed G and PS, and emit mode
+    equal to grid mode plus gather_pair_sums.  Returns (rows, sorted
+    operands) for the provider phase."""
     import torch
 
     from sand_crate_tpu_torch.cellwise import cell_ids_grid
@@ -616,16 +633,60 @@ def grid_kernels_vs_plain(crate):
     slab, row_start, gather_slot, overflow = pl.slab_from_sorted(
         pos, alive, vel, sorted_cid, M, nx, ny)
     P, p_pad = pos.shape[0], slab.shape[1]
+    n_alive = int(row_start[-1])
     amp = pr.diameter * pr.collider_noise_level
     coefs = (pr.diameter, pr.surface_smoothing, pr.target_pressure,
              pr.spring_overlap_balance, pr.ignored_pressure, amp, st.tick)
     spring = sc.enable_spring
+    head = (slab, row_start, M, nx)
+
+    # The windows the slab-order kernels stage (a warp tile of 32 columns)
+    # and the candidates each self walks (its three cells per row offset).
+    win = pk.tile_windows(slab, row_start, nx)
+    rng = pk.cell_ranges(slab, row_start, nx)
+    staged = float((win[3:] - win[:3]).clamp(min=0).sum()) / n_alive
+    lens = (rng[3:] - rng[:3])[:, :n_alive]
+    lens = torch.nn.functional.pad(lens, (0, -n_alive % pk.SLAB_TILE))
+    steps = lens.view(3, -1, pk.SLAB_TILE).amax(dim=2).sum(dim=0)
+    print(f"  slab-order tiles of {pk.SLAB_TILE} columns: {staged:.3f} candidates staged per "
+          f"alive self (3 windows, the largest {int((win[3:] - win[:3]).sum(0).max())}); "
+          f"walked per self {float(lens.sum()) / n_alive:.3f} (its 3 x 3 cells, over-cap "
+          f"candidates included); a warp walks {float(steps.float().mean()):.2f} (its longest "
+          f"range per row offset)")
+
+    def pass_a():
+        return pk.pair_pass_a(*head, pr.diameter, amp, st.tick)
+
+    def pass_a_plain():
+        return pk.pair_pass_a_slab_plain(*head, pr.diameter, amp, st.tick)
+
+    ps = pass_a()
+    err_a = exact("pair_pass_a", ps, pass_a_plain())
+    check(torch.equal(ps, pk.pass_a_via_grid(*head, pr.diameter, amp, st.tick)),
+          "pair_pass_a differs from the dense plain pass A on the placed grid")
+    pairs = float(ps[pk.CNT].sum())
+
+    def emit(spring=spring):
+        return pk.pair_pass_b_emit(slab, ps, row_start, M, nx, *coefs, enable_spring=spring)
+
+    def emit_plain(spring=spring):
+        return pk.pair_pass_b_emit_plain(slab, ps, row_start, M, nx, *coefs,
+                                         enable_spring=spring)
+
+    out_e = emit()
+    err_e = exact("pair_pass_b_emit", out_e, emit_plain())
+    exact("pair_pass_b_emit, the other spring setting", emit(not spring), emit_plain(not spring))
+    nb = out_e.shape[0]
+    check(not out_e[:, n_alive:].any(), "emit: dead and padding columns are not zero")
+    print(f"  pair_pass_a and pair_pass_b_emit (spring on and off) == plain bit for bit; "
+          f"pass A == the dense plain pass A on the placed grid; {pairs:.0f} directed pairs, "
+          f"{pairs / n_alive:.2f} per alive self")
 
     def place():
-        return pl.place_grid(slab, row_start, M, nx, ny, nxp)
+        return pl.place_grid(*head[:3], nx, ny, nxp)
 
     def place_plain():
-        return pl.place_grid_plain(slab, row_start, M, nx, ny, nxp)
+        return pl.place_grid_plain(*head[:3], nx, ny, nxp)
 
     valid = slab[7] > 0
     cx, rank, row = (slab[r][valid].long() for r in (4, 5, 6))
@@ -641,68 +702,52 @@ def grid_kernels_vs_plain(crate):
     check(torch.equal(grid, place_library()), "place_grid differs from the index_put_ scatter")
     plane = grid[0].numel()
     occupied = int((grid[0] > pk.ALIVE_THRESHOLD).sum())
-    print(f"  grid (4, {ny + 2}, {M}, {nxp}): {occupied} of {plane} slots occupied "
-          f"({occupied / plane:.4f}); overflow {int(overflow)}; place_grid exact")
-
-    def pass_a():
-        return pk.pair_pass_a(grid, pr.diameter, amp, st.tick)
-
-    def pass_a_plain():
-        return pk.pair_pass_a_plain(grid, pr.diameter, amp, st.tick)
-
-    ps = pass_a()
-    err_a = compare("pair_pass_a", ps.reshape(4, -1), pass_a_plain().reshape(4, -1), exact_rows=(3,))
-    pairs = float(ps[3].sum())
+    print(f"  grid (4, {ny + 2}, {M}, {nxp}) of the particle-order provider: {occupied} of "
+          f"{plane} slots occupied ({occupied / plane:.4f}); overflow {int(overflow)}; "
+          f"place_grid exact")
+    ps_grid = pl.place_grid(pl.with_features(slab, ps), row_start, M, nx, ny, nxp)
 
     def pass_b():
-        return pk.pair_pass_b(grid, ps, *coefs, enable_spring=spring)
+        return pk.pair_pass_b(grid, ps_grid, *coefs, enable_spring=spring)
 
     def pass_b_plain():
-        return pk.pair_pass_b_plain(grid, ps, *coefs, enable_spring=spring)
-
-    def emit():
-        return pk.pair_pass_b_emit(grid, ps, slab, row_start, sorted_cid, nx, *coefs,
-                                   enable_spring=spring)
-
-    def emit_plain():
-        return pk.pair_pass_b_plain(grid, ps, *coefs, enable_spring=spring, mode="emit",
-                                    slab=slab, n_particles=P)
+        return pk.pair_pass_b_plain(grid, ps_grid, *coefs, enable_spring=spring)
 
     out_g = pass_b()
-    nb = out_g.shape[0]
-    err_g = compare("pair_pass_b grid", out_g.reshape(nb, -1), pass_b_plain().reshape(nb, -1),
-                    exact_rows=(nb - 1,))
-    out_e = emit()
-    err_e = compare("pair_pass_b emit", out_e, emit_plain(), exact_rows=(nb - 1,))
-    check(not out_e[:, P:].any(), "emit: padding columns are not zero")
+    err_g = exact("pair_pass_b grid", out_g, pass_b_plain())
     gathered = gather_pair_sums(out_g, gather_slot, M, nx, ny, nxp, spring, overflow,
                                 torch.float32)
     emitted = pair_sums_from_planes(out_e[:, :P], spring, overflow, torch.float32)
     for name, a, b in zip(gathered._fields, gathered, emitted):
         check(torch.equal(a, b), f"emit mode differs from grid mode + gather_pair_sums in {name}")
-    print("  emit mode == grid mode + gather_pair_sums, bit for bit")
+    print("  pair_pass_b grid mode == plain bit for bit; emit mode == grid mode + "
+          "gather_pair_sums, bit for bit")
 
-    # Bytes each function must move at this state's occupancy: a dense
-    # output is written whole; of a dense input, the posx plane is read
-    # whole where the function must find the occupied slots itself, and the
-    # other planes only at the occupied slots; emit mode finds its slots in
-    # the slab (cx, rank, row) and reads only those.
+    # Bytes each function must move: the slab-order passes read their slab
+    # rows (pass A: posx, posy, cx, rank, row, in_cap; emit: all eight and
+    # the four pass-A rows) and row_start once and write their rows; a dense
+    # output is written whole; of a dense input, the posx plane is read whole
+    # where the function must find the occupied slots itself, and the other
+    # planes only at the occupied slots.
     f32 = 4
     occ_bytes = f32 * occupied  # one plane at the occupied slots
-    emit_pairs = float(out_e[nb - 1].sum())
+    rs_bytes = 4 * (ny + 1)
+    print(f"  window re-reads served by L2: pass A {staged * 24:.1f} B and emit {staged * 48:.1f} "
+          f"B per alive self ({staged:.3f} staged candidates of 6 and 12 f32), against "
+          f"{f32 * (6 + 4)} and {f32 * (12 + nb)} B per column that must move")
     rows = [
         kernel_row("place_grid", GRID_SOURCE, "sand_crate_tpu/ops/placement.py:145", 0.0,
                    cuda_ms(place, 20), cuda_ms(place_plain, 3),
                    f32 * 8 * p_pad + f32 * 4 * plane, 0.0, library_ms=cuda_ms(place_library, 20)),
         kernel_row("pair_pass_a", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:193", err_a,
                    cuda_ms(pass_a, 20), cuda_ms(pass_a_plain, 2),
-                   f32 * plane + occ_bytes + f32 * 4 * plane, pairs * PAIR_FLOPS),
+                   f32 * (6 + 4) * p_pad + rs_bytes, pairs * PAIR_FLOPS),
         kernel_row("pair_pass_b_grid", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:666",
                    err_g, cuda_ms(pass_b, 20), cuda_ms(pass_b_plain, 2),
                    f32 * plane + 7 * occ_bytes + f32 * nb * ny * M * nxp, pairs * PAIR_FLOPS),
         kernel_row("pair_pass_b_emit", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:707",
                    err_e, cuda_ms(emit, 20), cuda_ms(emit_plain, 2),
-                   f32 * 3 * P + 8 * occ_bytes + f32 * nb * p_pad, emit_pairs * PAIR_FLOPS),
+                   f32 * (8 + 4 + nb) * p_pad + rs_bytes, pairs * PAIR_FLOPS),
     ]
     for r in rows:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -711,10 +756,33 @@ def grid_kernels_vs_plain(crate):
     return rows, (pos, vel, alive, sorted_cid, amp)
 
 
+def grid_hard_cases(scene, device="cuda"):
+    """Phase 7, hard inputs: the slab-order pass A (row offsets 0 and 5) and
+    emit pass B (spring off and on) against their plain versions on every
+    case of sand_crate_tpu_torch.ops.grid_cases (cells deeper than the
+    capacity, a window longer than a staged piece, tiles across grid rows,
+    the grid's edge rows and columns, P < 32, P not a multiple of 32, a 40%
+    dead tail), collider noise on: bit for bit."""
+    from sand_crate_tpu_torch.ops import grid_cases
+
+    for case, c in grid_cases.CASES.items():
+        sc = grid_cases.case_scene(case, scene)
+        f = grid_cases.facts(case, sc, device)
+        check(f["holds"], f"grid hard case {case}: the inputs miss what it exercises "
+                          f"({c.claim}): {f}")
+        variants = grid_cases.variants(case, sc, device)
+        for label, run, plain, _ in variants:
+            exact(f"grid hard case {case}, {label}", run(), plain())
+        print(f"  {case} ({c.claim}): P {f['P']}, {f['alive']} alive, M {c.m_slots}, deepest "
+              f"cell {f['deepest_cell']}, longest tile window {f['longest_window']}, a tile "
+              f"across {f['rows_spanned']} grid rows at most, {f['dead_tiles']} dead tiles: "
+              f"{len(variants)} variants == plain bit for bit")
+
+
 def grid_provider_path(crate, sorted_ops):
     """Phase 7, second part: the particle-order provider, the path that runs
-    grid-mode pass B, driven once with the counters reset; on cell-sorted
-    operands it equals the sorted provider bit for bit."""
+    place_grid and grid-mode pass B, driven once with the counters reset;
+    on cell-sorted operands it equals the sorted provider bit for bit."""
     import torch
 
     from sand_crate_tpu_torch.ops import pair_kernel as pk
@@ -732,10 +800,11 @@ def grid_provider_path(crate, sorted_ops):
     torch.cuda.synchronize()
     launches = dict(pk.LAUNCHES)
     print(f"grid provider path: neighbor_forces_pallas once, launches {launches}")
-    check(launches == {"place_grid": 1, "pair_pass_a": 1, "pair_pass_b_grid": 1,
+    check(launches == {"place_grid": 2, "pair_pass_a": 1, "pair_pass_b_grid": 1,
                        "pair_pass_b_emit": 0}, "provider path launches")
     for name, a, b in zip(sums._fields, sums, sorted_sums):
         check(torch.equal(a, b), f"particle-order and sorted providers differ in {name}")
+    print("  == the sorted provider bit for bit")
     return launches
 
 
@@ -817,6 +886,30 @@ def drive(crate, ticks: int, label: str, counts: dict, expected: dict, overflow_
     torch.cuda.synchronize()
     p50 = statistics.median(events[k].elapsed_time(events[k + 1]) for k in range(P50_TICKS))
     return launches, ticks / wall, p50, wall
+
+
+def tick_memory(crate):
+    """Phase 8: the device memory that one slot-grid tick allocates beyond
+    what is held before it, against the dense slot grid (4, NYP, M, NXP) f32
+    that the tick does not build: it must stay below G and PS together,
+    which the tick placed and zeroed when its passes read the grid."""
+    import torch
+
+    from sand_crate_tpu_torch.ops.pallas_forces import grid_width
+    from sand_crate_tpu_torch.physics import step
+
+    sc = crate.scene
+    grid_bytes = 4 * 4 * (sc.grid_ny + 2) * sc.cell_capacity * grid_width(sc.grid_nx)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(crate.state, crate.params, crate.scene, crate.generator)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - held
+    print(f"  one tick's peak allocation beyond what it holds: {extra / 1e6:.1f} MB; one dense "
+          f"slot grid (4, {sc.grid_ny + 2}, {sc.cell_capacity}, {grid_width(sc.grid_nx)}) f32 "
+          f"is {grid_bytes / 1e6:.1f} MB")
+    check(extra < 2 * grid_bytes, "the slot-grid tick allocates as much as G and PS")
 
 
 def over_capacity(crate, M: int):
@@ -1025,7 +1118,7 @@ def p2_probe(crate):
         lambda: p2.main(modes={"m16": p2.VARIANTS, "m8": p2.VARIANTS}, crate=crate))
     for (tag, mode), row in rows.items():
         finish_row(row, times[tag, mode], launches[f"passa_{mode}"])
-    print(f"  pair_pass_a (shipped, all 16 slots, the same main): {times['m16', 'shipped']:.4f} ms")
+    print(f"  pair_pass_a (shipped, slab order, the same main): {times['m16', 'shipped']:.4f} ms")
     return [rows["m16", mode] for mode in p2.VARIANTS]
 
 
@@ -1163,13 +1256,13 @@ def main() -> int:
         check(name not in os.environ, f"{name} is set: the phases set the knobs themselves")
 
     from sand_crate_tpu_torch import Crate
-    from sand_crate_tpu_torch.ops import cuda_build, pair_kernel, placement, pmajor
+    from sand_crate_tpu_torch.ops import cuda_build, pair_kernel, pmajor
 
     # -- 2. build (a) ------------------------------------------------------------
     with phase("build"):
         cuda_build.build("pmajor", "grid_pair", "probes")
-        print("build: pmajor.cu (K1/K2, K10), grid_pair.cu and probes.cu (P1-P4), one nvcc "
-              "each, in parallel")
+        print("build: pmajor.cu (K1/K2, K10), grid_pair.cu (K3-K9) and probes.cu (P1-P4), "
+              "one nvcc each, in parallel")
         print_ptxas(("pmajor", "grid_pair", "probes"))
 
     # -- 3. world --------------------------------------------------------------
@@ -1256,6 +1349,8 @@ def main() -> int:
         print(f"grid settle: {GRID_SETTLE_TICKS} ticks")
         print("grid kernels vs plain versions (same device inputs):")
         grid_rows, sorted_ops = grid_kernels_vs_plain(grid_crate)
+        print("slab-order grid kernels vs plain versions on the hard inputs (ops/grid_cases.py):")
+        grid_hard_cases(grid_crate.scene)
         provider = grid_provider_path(grid_crate, sorted_ops)
         del sorted_ops
 
@@ -1268,24 +1363,25 @@ def main() -> int:
     with phase("grid main path"):
         launches, rate, p50, wall = drive(
             grid_crate, GRID_TICKS, "grid main path", pair_kernel.LAUNCHES,
-            {"place_grid": GRID_TICKS, "pair_pass_a": GRID_TICKS, "pair_pass_b_grid": 0,
+            {"place_grid": 0, "pair_pass_a": GRID_TICKS, "pair_pass_b_grid": 0,
              "pair_pass_b_emit": GRID_TICKS},
             overflow_ref=over_capacity(grid_crate, GRID_SLOTS),
         )
         print(f"grid main path on {smi}: {n0} particles, {rate:.3f} steps/s "
               f"({wall / GRID_TICKS * 1000:.3f} ms/step mean over {GRID_TICKS} ticks, "
               f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
-        for r in grid_rows:  # grid-mode pass B runs on the provider path, not the tick
-            r["launches"] = (provider if r["name"] == "pair_pass_b_grid" else launches)[r["name"]]
+        for r in grid_rows:  # placement and grid-mode pass B run on the provider path
+            on_tick = r["name"] in ("pair_pass_a", "pair_pass_b_emit")
+            r["launches"] = (launches if on_tick else provider)[r["name"]]
+        tick_memory(grid_crate)
         del grid_crate
 
     # -- 9. grid trajectory --------------------------------------------------------
     with phase("grid trajectory"):
         trajectory("grid trajectory", "pallas", [
-            (placement, "place_grid", placement.place_grid_plain),
-            (pair_kernel, "pair_pass_a", pair_kernel.pair_pass_a_plain),
-            (pair_kernel, "pair_pass_b", pair_kernel.pair_pass_b_plain),
-        ], pair_kernel.LAUNCHES, {"place_grid": TRAJ_TICKS, "pair_pass_a": TRAJ_TICKS,
+            (pair_kernel, "pair_pass_a", pair_kernel.pair_pass_a_slab_plain),
+            (pair_kernel, "pair_pass_b_emit", pair_kernel.pair_pass_b_emit_plain),
+        ], pair_kernel.LAUNCHES, {"place_grid": 0, "pair_pass_a": TRAJ_TICKS,
                                   "pair_pass_b_grid": 0, "pair_pass_b_emit": TRAJ_TICKS})
 
     # -- (e) the bench entry, (f) the instrumented Crate, (g) stream_frames ------

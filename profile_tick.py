@@ -30,7 +30,7 @@ WALL_TICKS = 50
 PROFILED_TICKS = 10
 TOP = 15
 # The kernels of the port's csrc/ (K1/K2, K10, K3-K9), printed wherever they rank.
-OWN = re.compile(r"::(pm|pms|place|pass_a|pass_b)_kernel\b")
+OWN = re.compile(r"::(pm|pms|place|slab_pass|pass_b)_kernel\b")
 
 
 PMSUB = "SAND_CRATE_PMSUB"

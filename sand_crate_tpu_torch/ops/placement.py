@@ -12,6 +12,8 @@ The PyTorch counterpart of ``sand_crate_tpu/ops/placement.py``:
     and zeros elsewhere.  On CUDA tensors it zeroes G and launches the
     placement kernel of ``csrc/grid_pair.cu`` (one thread per slab column,
     a direct slot write); on CPU tensors it runs :func:`place_grid_plain`.
+    The tick's pair passes read the slab itself; the particle-order
+    provider places G and, from :func:`with_features`, the pass-A grid PS.
 
 The JAX package places with bf16 one-hot matmuls on the TPU's matrix unit
 (a 3-way exact split, x-tile gating, DMA chunks, a lo and a hi pass); a
@@ -78,6 +80,12 @@ def slab_from_sorted(pos, alive, vel, sorted_cid, M: int, nx: int, ny: int):
     starts = torch.arange(ny + 1, dtype=sorted_cid.dtype, device=pos.device) * nx
     row_start = torch.searchsorted(sorted_cid, starts, out_int32=True)
     return slab, row_start, gather_slot, overflow
+
+
+def with_features(slab, features):
+    """The slab with its rows 0-3 replaced by ``features`` (4, P_pad): placed
+    by :func:`place_grid`, each in-cap column's features land in its slot."""
+    return torch.cat([features, slab[NUM_G:]])
 
 
 def place_grid_plain(slab, row_start, m_slots: int, nx: int, ny: int, nxp: int):

@@ -28,7 +28,8 @@ parameter (the JAX scene's row_block rule by default).
 
 builds bench.py's dam break on the slot grid (16 slots a cell), settles it
 and times the tool's variants on the 16-slot grid and its compact 8-slot
-copy, then the port's shipped ``pair_pass_a`` (CUDA events).
+copy, then the port's shipped ``pair_pass_a`` on the same crate's slab
+(slab order, no grid; CUDA events).
 """
 
 from __future__ import annotations
@@ -205,15 +206,25 @@ def variant(grid, occ, coef, ticks, tr: int, mode: str) -> torch.Tensor:
     return out
 
 
+def crate_slab(crate):
+    """The tool's sorted slab (8, P_pad) of ``crate``'s state and its row
+    starts (ny + 1,) int32."""
+    from .pmajor_probe import sorted_slab
+
+    scene = crate.scene
+    slab, sorted_cid = sorted_slab(crate.state, crate.params, scene)
+    starts = torch.arange(scene.grid_ny + 1, device=slab.device) * scene.grid_nx
+    return slab, torch.searchsorted(sorted_cid, starts.to(sorted_cid.dtype), out_int32=True)
+
+
 def crate_grid(crate) -> torch.Tensor:
     """The tool's slot grid (4, NYP, M, NXP) of ``crate``'s state: its
     sorted slab placed by ``place_grid`` at the crate's cell capacity."""
     from ..ops.pallas_forces import grid_width
     from ..ops.placement import place_grid
-    from .pmajor_probe import sorted_slab
 
     scene = crate.scene
-    slab, _ = sorted_slab(crate.state, crate.params, scene)
+    slab, _ = crate_slab(crate)
     nx, ny = scene.grid_nx, scene.grid_ny
     return place_grid(slab, None, scene.cell_capacity, nx, ny, grid_width(nx))
 
@@ -257,7 +268,8 @@ def io_bytes(mode: str, occ: torch.Tensor, grid_shape, tr: int) -> int:
 def main(n: int = 1_000_000, settle: int = 100, tr: int | None = None,
          modes: dict | None = None, crate=None) -> dict:
     """Time the variants (the tool's by default) on the settled grid and its
-    8-slot copy, then the shipped pair_pass_a; ``crate``, already settled on
+    8-slot copy, then the shipped pair_pass_a on the crate's slab (slab
+    order, all 16 slots' pairs); ``crate``, already settled on
     the slot grid, takes the place of ``n`` and ``settle``.  Returns
     {(grid, mode): ms}."""
     from ..ops.pair_kernel import pair_pass_a
@@ -280,7 +292,11 @@ def main(n: int = 1_000_000, settle: int = 100, tr: int | None = None,
             times[tag, mode] = ms
             print(f"[{tag}] pass_a[{mode:>10s} tr={tr}]  {ms:7.2f} ms", flush=True)
     zero = torch.zeros((), device=device)
-    ms = cuda_ms(lambda: pair_pass_a(grid, params.diameter, zero, 0), 10)
+    tick = torch.zeros((), dtype=torch.int32, device=device)  # on the card: no host copy
+    slab, row_start = crate_slab(crate)
+    scene = crate.scene
+    ms = cuda_ms(lambda: pair_pass_a(slab, row_start, scene.cell_capacity, scene.grid_nx,
+                                     params.diameter, zero, tick), 10)
     times["m16", "shipped"] = ms
     print(f"pass_a[   shipped]  {ms:7.2f} ms")
     return times

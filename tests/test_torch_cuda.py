@@ -15,7 +15,7 @@ import torch
 from sand_crate_tpu_torch.cellwise import cell_ids_grid
 from sand_crate_tpu_torch.config import load_config_dict
 from sand_crate_tpu_torch.engine import Crate
-from sand_crate_tpu_torch.ops import pair_kernel, placement, pmajor, pmajor_cases
+from sand_crate_tpu_torch.ops import grid_cases, pair_kernel, placement, pmajor, pmajor_cases
 from sand_crate_tpu_torch.ops.pallas_forces import (
     gather_pair_sums,
     grid_width,
@@ -167,10 +167,12 @@ def _deep_particles(cuda, n=20000):
 
 @pytest.mark.cuda
 def test_grid_kernels_bit_identical_to_plain(cuda):
-    """place_grid, pair_pass_a and pair_pass_b in both modes (spring off and
-    on, noise on, a row offset in grid mode) at M = 8 and 16 on sorted
-    particles with deep cells: kernel and plain version agree bit for bit,
-    and emit mode equals grid mode plus gather_pair_sums bit for bit."""
+    """place_grid, the slab-order pair_pass_a (row offsets 0 and 5) and
+    pair_pass_b_emit, and grid-mode pair_pass_b on the placed G and PS
+    (spring off and on, noise on, a row offset in grid mode) at M = 8 and 16
+    on sorted particles with deep cells: kernel and plain version agree bit
+    for bit, and emit mode equals grid mode plus gather_pair_sums bit for
+    bit."""
     pos, vel, alive = _deep_particles(cuda)
     base = Crate(_world(), device=cuda, forces_mode="pallas").scene
     nx, ny = base.grid_nx, base.grid_ny
@@ -185,24 +187,27 @@ def test_grid_kernels_bit_identical_to_plain(cuda):
         slab, row_start, gather_slot, overflow = placement.slab_from_sorted(
             pos[order], alive[order], vel[order], cid, M, nx, ny)
         assert int(overflow) >= 30 - M
+        head = (slab, row_start, M, nx)
         grid = placement.place_grid(slab, row_start, M, nx, ny, nxp)
         assert torch.equal(grid, placement.place_grid_plain(slab, row_start, M, nx, ny, nxp))
-        ps = pair_kernel.pair_pass_a(grid, diam, amp, tick)
-        assert torch.equal(ps, pair_kernel.pair_pass_a_plain(grid, diam, amp, tick))
+        ps = pair_kernel.pair_pass_a(*head, diam, amp, tick)
+        assert torch.equal(ps, pair_kernel.pair_pass_a_slab_plain(*head, diam, amp, tick))
         assert float(ps[3].max()) >= M - 1  # the deep cell's slots see each other
-        shifted = pair_kernel.pair_pass_a(grid, diam, amp, tick, row_offset=5)
-        assert torch.equal(shifted, pair_kernel.pair_pass_a_plain(grid, diam, amp, tick,
-                                                                  row_offset=5))
+        shifted = pair_kernel.pair_pass_a(*head, diam, amp, tick, row_offset=5)
+        assert torch.equal(shifted, pair_kernel.pair_pass_a_slab_plain(*head, diam, amp, tick,
+                                                                       row_offset=5))
+        ps_grid = placement.place_grid(placement.with_features(slab, ps), row_start, M, nx, ny,
+                                       nxp)
         for spring in (False, True):
             kw = dict(enable_spring=spring)
-            out_g = pair_kernel.pair_pass_b(grid, ps, *coefs, **kw)
-            assert torch.equal(out_g, pair_kernel.pair_pass_b_plain(grid, ps, *coefs, **kw))
-            off = pair_kernel.pair_pass_b(grid, ps, *coefs, row_offset=5, **kw)
-            assert torch.equal(off, pair_kernel.pair_pass_b_plain(grid, ps, *coefs,
+            out_g = pair_kernel.pair_pass_b(grid, ps_grid, *coefs, **kw)
+            assert torch.equal(out_g, pair_kernel.pair_pass_b_plain(grid, ps_grid, *coefs, **kw))
+            off = pair_kernel.pair_pass_b(grid, ps_grid, *coefs, row_offset=5, **kw)
+            assert torch.equal(off, pair_kernel.pair_pass_b_plain(grid, ps_grid, *coefs,
                                                                   row_offset=5, **kw))
-            out_e = pair_kernel.pair_pass_b_emit(grid, ps, slab, row_start, cid, nx, *coefs, **kw)
-            plain_e = pair_kernel.pair_pass_b_plain(grid, ps, *coefs, mode="emit", slab=slab,
-                                                    n_particles=cid.shape[0], **kw)
+            out_e = pair_kernel.pair_pass_b_emit(slab, ps, row_start, M, nx, *coefs, **kw)
+            plain_e = pair_kernel.pair_pass_b_emit_plain(slab, ps, row_start, M, nx, *coefs,
+                                                         **kw)
             assert torch.equal(out_e, plain_e)
             gathered = gather_pair_sums(out_g, gather_slot, M, nx, ny, nxp, spring, overflow,
                                         torch.float32)
@@ -213,15 +218,33 @@ def test_grid_kernels_bit_identical_to_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(grid_cases.CASES))
+def test_slab_kernels_bit_identical_on_hard_cases(cuda, case):
+    """The slab-order pass A (row offsets 0 and 5) and emit pass B (spring
+    off and on) on the hard inputs of ops/grid_cases.py (cells deeper than
+    the capacity, a window longer than a staged piece, tiles across grid
+    rows, the grid's edge rows and columns, P < 32, P not a multiple of 32,
+    a 40% dead tail): kernel == plain version, bit for bit."""
+    scene = grid_cases.case_scene(case, Crate(_world(), device=cuda,
+                                              forces_mode="pallas").scene)
+    facts = grid_cases.facts(case, scene, cuda)
+    assert facts["holds"], facts
+    for label, run, plain, _ in grid_cases.variants(case, scene, cuda):
+        got = run()
+        assert torch.equal(got, plain()), label
+        assert float(got[-1].max()) >= 1, label
+
+
+@pytest.mark.cuda
 def test_pallas_crate_runs_through_the_grid_kernels(cuda):
-    """Crate.run on the slot grid launches placement, pass A and emit-mode
-    pass B once per tick, and keeps the invariants."""
+    """Crate.run on the slot grid launches the slab-order pass A and emit
+    pass B once per tick and places no grid, and keeps the invariants."""
     crate = Crate(_world(), device=cuda, forces_mode="pallas")
     n0 = crate.particle_count
     for key in pair_kernel.LAUNCHES:
         pair_kernel.LAUNCHES[key] = 0
     diag = crate.run(10)
-    assert pair_kernel.LAUNCHES == {"place_grid": 10, "pair_pass_a": 10,
+    assert pair_kernel.LAUNCHES == {"place_grid": 0, "pair_pass_a": 10,
                                     "pair_pass_b_grid": 0, "pair_pass_b_emit": 10}
     assert int(diag.particle_count) == n0 and int(diag.non_finite) == 0
 
@@ -229,11 +252,18 @@ def test_pallas_crate_runs_through_the_grid_kernels(cuda):
 @pytest.mark.cuda
 def test_grid_wrappers_reject_mixed_inputs(cuda):
     grid = torch.zeros((4, 6, 8, 128), device=cuda)
+    slab = torch.zeros((8, 1152), device=cuda)
+    row_start = torch.zeros(5, dtype=torch.int32, device=cuda)
     z = torch.zeros((), device=cuda)
     with pytest.raises(ValueError):  # the pass-A planes on the CPU
         pair_kernel.pair_pass_b(grid, grid.cpu(), z, z, z, z, z, z, z)
-    with pytest.raises(ValueError):  # f64 grid
-        pair_kernel.pair_pass_a(grid.double(), z, z, z)
+    with pytest.raises(ValueError):  # f64 slab
+        pair_kernel.pair_pass_a(slab.double(), row_start, 8, 3, z, z, z)
+    with pytest.raises(ValueError):  # int64 row starts
+        pair_kernel.pair_pass_a(slab, row_start.long(), 8, 3, z, z, z)
+    with pytest.raises(ValueError):  # the pass-A columns on the CPU
+        pair_kernel.pair_pass_b_emit(slab, torch.zeros((4, 1152)), row_start, 8, 3,
+                                     z, z, z, z, z, z, z)
 
 
 # ---- the probe kernels of csrc/probes.cu (P1-P4) --------------------------------

@@ -144,21 +144,35 @@ def _noisy_args(jp, tp, js):
         torch.tensor(amp, dtype=torch.float32), torch.tensor(TICK, dtype=torch.int32))
 
 
+def _in_cap_slots(slab):
+    """(columns, slots) of the slab's in-cap particles: the padded grid slot
+    (row + 1, rank, cx + 1) of each."""
+    slab = np.asarray(slab)
+    cols = np.nonzero(slab[7] > 0)[0]
+    cx, rank, row = (slab[r, cols].astype(np.int64) for r in (4, 5, 6))
+    return cols, (row + 1, rank, cx + 1)
+
+
 def test_pair_pass_a_matches_jax(stirring_cup_config):
-    """Pass A with noise on, M=8: [w_sum, s_x, s_y] at the occupied slots
-    at 3e-3, counts exactly; the port's empty slots hold 0."""
+    """Pass A with noise on, M=8: the port's slab-order pass A against the
+    JAX grid pass A gathered at each in-cap particle's slot — [w_sum, s_x,
+    s_y] at 3e-3, counts exactly; the other columns hold 0."""
     js, jp, ts, tp = _setup(stirring_cup_config, 8)
     slab, row_start, _, _, grid = _grid_inputs(js, _particles(js, 5))
     (jamp, jtick), (tamp, ttick) = _noisy_args(jp, tp, js)
     occ = jpk.occ_from_row_start(row_start, js.row_block, js.grid_ny)
     ref = np.asarray(jpk.pair_pass_a(grid, jp.diameter, jamp, jtick, tr=js.row_block, occ=occ,
                                      units=None))
-    got = tpk.pair_pass_a(_t(grid), tp.diameter, tamp, ttick).numpy()
-    occupied = np.asarray(grid)[0] > tpk.ALIVE_THRESHOLD
-    np.testing.assert_array_equal(got[3][occupied], ref[3][occupied], err_msg="cnt")
-    np.testing.assert_allclose(got[:3, occupied], ref[:3, occupied], rtol=TOL, atol=TOL)
-    assert not got[:, ~occupied].any()
-    assert ref[3][occupied].max() >= 7 and np.abs(ref[1][occupied]).max() > 0
+    got = tpk.pair_pass_a(_t(slab), _t(row_start), 8, ts.grid_nx, tp.diameter, tamp,
+                          ttick).numpy()
+    cols, slot = _in_cap_slots(slab)
+    ref = ref[(slice(None),) + slot]
+    np.testing.assert_array_equal(got[3, cols], ref[3], err_msg="cnt")
+    np.testing.assert_allclose(got[:3, cols], ref[:3], rtol=TOL, atol=TOL)
+    rest = np.ones(got.shape[1], bool)
+    rest[cols] = False
+    assert not got[:, rest].any()
+    assert ref[3].max() >= 7 and np.abs(ref[1]).max() > 0
 
 
 @pytest.mark.parametrize("spring", [False, True], ids=["nospring", "spring"])
@@ -183,12 +197,15 @@ def test_pair_pass_b_matches_jax(stirring_cup_config, mode, spring):
         got = tpk.pair_pass_b(_t(grid), _t(ps), *tcoef, enable_spring=spring)
         sel = np.asarray(grid)[0, 1:-1] > tpk.ALIVE_THRESHOLD
         ref, got = np.asarray(ref)[:, sel], got.numpy()[:, sel]
-    else:
+    else:  # the JAX pass-A grid at each in-cap column, as the port's slab-order PS
         scid = jnp.asarray(data[3])
         ref = jpk.pair_pass_b_emit(grid, ps, slab, row_start, scid, js.grid_nx, *jcoef,
                                    tr=js.row_block, enable_spring=spring, occ=occ, units=None)
-        got = tpk.pair_pass_b_emit(_t(grid), _t(ps), _t(slab), _t(row_start), _t(scid),
-                                   ts.grid_nx, *tcoef, enable_spring=spring)
+        cols, slot = _in_cap_slots(slab)
+        ps_cols = np.zeros((4, np.asarray(slab).shape[1]), np.float32)
+        ps_cols[:, cols] = np.asarray(ps)[(slice(None),) + slot]
+        got = tpk.pair_pass_b_emit(_t(slab), _t(ps_cols), _t(row_start), 8, ts.grid_nx,
+                                   *tcoef, enable_spring=spring)
         assert not got[:, P:].any()
         ref, got = np.asarray(ref)[:, :P], got.numpy()[:, :P]
     assert got.shape[0] == tpk.num_b(spring)
@@ -309,16 +326,21 @@ def test_dam_break_trajectory_matches_jax():
 
 
 def test_grid_wrappers_reject_bad_inputs():
-    """Tensors neither on the CPU nor on a CUDA device raise; so do grids
-    wider than the noise hash's strides and an unknown pass-B mode."""
+    """Tensors neither on the CPU nor on a CUDA device raise; so do grids and
+    cell capacities past the noise hash's strides and a slab of the wrong
+    shape."""
     meta = torch.zeros((4, 6, 8, 128), device="meta")
     z = torch.zeros(())
+    rs = torch.zeros(5, dtype=torch.int32)
     with pytest.raises(ValueError):
-        tpk.pair_pass_a(meta, z, z, z)
+        tpk.pair_pass_b(meta, meta, z, z, z, z, z, z, z)
     with pytest.raises(ValueError):
         tpl.place_grid(torch.zeros((8, 1152), device="meta"), None, 8, 3, 4, 128)
     with pytest.raises(ValueError):
-        tpk.pair_pass_a(torch.zeros((4, 6, 17, 128)), z, z, z)
+        tpk.pair_pass_a(torch.zeros((8, 1152)), rs, 17, 3, z, z, z)
     with pytest.raises(ValueError):
-        tpk.pair_pass_b(torch.zeros((4, 6, 8, 128)), torch.zeros((4, 6, 8, 128)),
-                        z, z, z, z, z, z, z, mode="rows")
+        tpk.pair_pass_b(torch.zeros((4, 6, 17, 128)), torch.zeros((4, 6, 17, 128)),
+                        z, z, z, z, z, z, z)
+    with pytest.raises(ValueError):
+        tpk.pair_pass_b_emit(torch.zeros((4, 1152)), torch.zeros((4, 1152)), rs, 8, 3,
+                             z, z, z, z, z, z, z)
