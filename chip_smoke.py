@@ -24,11 +24,16 @@ prints its wall time as "[phase] name: s"):
    Then the hard inputs of sand_crate_tpu_torch/ops/pmajor_cases.py (a
    range longer than a staged piece, tiles across grid rows, P not a
    multiple of the tile, P under one tile, a tail of dead selves), every
-   pass and variant, both noise forms: bit for bit.
+   pass and variant, both noise forms: bit for bit; and K10 on each, both
+   chunk sizes, passes A, B folded, B split and B split with the spring
+   (all four instantiations): bit for bit its plain version and K1/K2
+   one-sided.
    (b) K10 at that state, chunks of 32 and 128 selves, passes A, B folded
    and B split with the spring: bit-identical to its plain version and to
-   K1/K2 one-sided; window sizes, candidate tests per self, median times of
-   K10 and K1/K2 one-sided, the bound.
+   K1/K2 one-sided, its in-kernel ranges (window_ranges) equal to
+   candidate_ranges'; the chunk windows it searches (mean and max), the
+   candidates its warps stage and its selves walk, median times of K10 and
+   K1/K2 one-sided, the bound.
 5. pmajor main path: Crate.run for MAIN_TICKS ticks; the kernel launch
    counters must rise by one per pass per tick; no non-finite values, no
    overflow, the alive count conserved (closed box, no sources), uids a
@@ -57,8 +62,9 @@ prints its wall time as "[phase] name: s"):
    Then the hard inputs of sand_crate_tpu_torch/ops/grid_cases.py (cells
    deeper than the capacity, a window longer than a staged piece, tiles
    across grid rows, the grid's edge rows and columns, P < 32, P not a
-   multiple of 32, a dead tail), pass A at row offsets 0 and 5 and emit
-   with the spring off and on: bit for bit.  Then the particle-order
+   multiple of 32, a dead tail), pass A at row offsets 0 and 5, emit with
+   the spring off and on, and grid-mode pass B on G and PS placed from
+   each case (spring off and on, row offsets 0 and 5): bit for bit.  Then the particle-order
    provider (neighbor_forces_pallas) is driven once with the counters
    reset: place_grid twice (G and PS), pass A and grid-mode pass B once,
    equal to the sorted provider.
@@ -296,15 +302,24 @@ def hard_cases(scene):
     the spring, two-sided and one-sided noise: bit for bit."""
     from sand_crate_tpu_torch.ops import pmajor_cases
 
+    import torch
+
     for case, c in pmajor_cases.CASES.items():
         f = pmajor_cases.facts(case, scene, "cuda")
         check(f["holds"], f"hard case {case}: the inputs miss what it exercises ({c.claim}): {f}")
         variants = pmajor_cases.variants(case, scene, "cuda")
         for label, run, plain in variants:
             exact(f"hard case {case}, {label}", run(), plain())
+        k10 = pmajor_cases.k10_variants(case, scene, "cuda")
+        for label, run, plain, k1k2 in k10:
+            got = run()
+            exact(f"hard case {case}, K10 {label}", got, plain())
+            check(torch.equal(got, k1k2()), f"hard case {case}, K10 {label}: differs from K1/K2 "
+                                            f"one-sided")
         print(f"  {case} ({c.claim}): P {f['P']}, {f['alive']} alive, longest range "
               f"{f['longest_range']}, a tile across {f['rows_spanned']} grid rows at most, "
-              f"{f['dead_tiles']} dead tiles: {len(variants)} variants == plain bit for bit")
+              f"{f['dead_tiles']} dead tiles: {len(variants)} variants == plain bit for bit; "
+              f"K10 {len(k10)} variants == plain and == K1/K2 one-sided bit for bit")
 
 
 def brute_force(slab_a, slab_b, out_a, out_b, alive, coef, fold, symm):
@@ -395,12 +410,21 @@ def k10_vs_plain(crate):
     for chunk in pmajor.PMS_CHUNKS:
         win = pmajor.chunk_windows(sorted_cid, alive, nx, ny, chunk)
         selves = (win[6] - torch.arange(win.shape[1], device=win.device) * chunk).clamp(min=0)
-        cand = (win[3:6] - win[:3]).sum(dim=0)
+        lens = win[3:6] - win[:3]
+        cand = lens.sum(dim=0)
         live = selves > 0
-        tests = float((cand * selves).sum()) / n_alive
+        found = pmajor.window_ranges(sorted_cid, win, chunk, nx)
+        check(torch.equal(found[:, alive], ranges[:, alive]) and not found[:, ~alive].any(),
+              f"chunk {chunk}: the in-window ranges differ from candidate_ranges")
+        tiles = pmajor.tile_windows(found)
+        staged = float((tiles[3:] - tiles[:3]).sum())
         print(f"  chunk {chunk}: {int(live.sum())} live chunks; candidates per chunk window "
               f"(3 row offsets): mean {float(cand[live].float().mean()):.2f} max "
-              f"{int(cand[live].max())}; candidate tests per alive self {tests:.2f}")
+              f"{int(cand[live].max())}, per row offset mean "
+              f"{float(lens[:, live].float().mean()):.2f} (a self's binary search runs there); "
+              f"ranges found == candidate_ranges; staged per alive self "
+              f"{staged / n_alive:.3f}, walked per alive self {float(spans.mean()):.2f} (the "
+              f"first port tested {float((cand * selves).sum()) / n_alive:.2f})")
         for name, mode, kw, slab in variants:
             def run(slab=slab, mode=mode, kw=kw, win=win, chunk=chunk):
                 return pmajor.pms_pass(slab, sorted_cid, win, coef, mode, nx=nx, chunk=chunk, **kw)
@@ -715,23 +739,33 @@ def grid_kernels_vs_plain(crate):
 
     out_g = pass_b()
     err_g = exact("pair_pass_b grid", out_g, pass_b_plain())
+    exact("pair_pass_b grid, the other spring setting",
+          pk.pair_pass_b(grid, ps_grid, *coefs, enable_spring=not spring),
+          pk.pair_pass_b_plain(grid, ps_grid, *coefs, enable_spring=not spring))
     gathered = gather_pair_sums(out_g, gather_slot, M, nx, ny, nxp, spring, overflow,
                                 torch.float32)
     emitted = pair_sums_from_planes(out_e[:, :P], spring, overflow, torch.float32)
     for name, a, b in zip(gathered._fields, gathered, emitted):
         check(torch.equal(a, b), f"emit mode differs from grid mode + gather_pair_sums in {name}")
-    print("  pair_pass_b grid mode == plain bit for bit; emit mode == grid mode + "
-          "gather_pair_sums, bit for bit")
+    print("  pair_pass_b grid mode (spring on and off) == plain bit for bit; emit mode == grid "
+          "mode + gather_pair_sums, bit for bit")
 
     # Bytes each function must move: the slab-order passes read their slab
     # rows (pass A: posx, posy, cx, rank, row, in_cap; emit: all eight and
     # the four pass-A rows) and row_start once and write their rows; a dense
-    # output is written whole; of a dense input, the posx plane is read whole
-    # where the function must find the occupied slots itself, and the other
+    # output is written whole; of a dense input, the posx plane is read at
+    # the occupied slots and at each interior cell's first empty slot (a
+    # cell's slots are a prefix, so that finds its count), and the other
     # planes only at the occupied slots.
     f32 = 4
     occ_bytes = f32 * occupied  # one plane at the occupied slots
     rs_bytes = 4 * (ny + 1)
+    counts = (grid[0, 1:-1] > pk.ALIVE_THRESHOLD).sum(dim=1)  # (ny, nxp) per interior cell
+    posx_bytes = f32 * (occupied + int((counts < M).sum()))
+    old_bound = bound(f32 * plane + 7 * occ_bytes + f32 * nb * ny * M * nxp, pairs * PAIR_FLOPS)
+    print(f"  pair_pass_b_grid reads posx at {posx_bytes // f32} slots (the occupied and each "
+          f"interior cell's first empty one) of {plane}; its bound counting the plane whole "
+          f"was {old_bound[0]:.4f} ms ({old_bound[1]})")
     print(f"  window re-reads served by L2: pass A {staged * 24:.1f} B and emit {staged * 48:.1f} "
           f"B per alive self ({staged:.3f} staged candidates of 6 and 12 f32), against "
           f"{f32 * (6 + 4)} and {f32 * (12 + nb)} B per column that must move")
@@ -744,7 +778,7 @@ def grid_kernels_vs_plain(crate):
                    f32 * (6 + 4) * p_pad + rs_bytes, pairs * PAIR_FLOPS),
         kernel_row("pair_pass_b_grid", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:666",
                    err_g, cuda_ms(pass_b, 20), cuda_ms(pass_b_plain, 2),
-                   f32 * plane + 7 * occ_bytes + f32 * nb * ny * M * nxp, pairs * PAIR_FLOPS),
+                   posx_bytes + 7 * occ_bytes + f32 * nb * ny * M * nxp, pairs * PAIR_FLOPS),
         kernel_row("pair_pass_b_emit", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:707",
                    err_e, cuda_ms(emit, 20), cuda_ms(emit_plain, 2),
                    f32 * (8 + 4 + nb) * p_pad + rs_bytes, pairs * PAIR_FLOPS),
@@ -757,12 +791,13 @@ def grid_kernels_vs_plain(crate):
 
 
 def grid_hard_cases(scene, device="cuda"):
-    """Phase 7, hard inputs: the slab-order pass A (row offsets 0 and 5) and
-    emit pass B (spring off and on) against their plain versions on every
-    case of sand_crate_tpu_torch.ops.grid_cases (cells deeper than the
-    capacity, a window longer than a staged piece, tiles across grid rows,
-    the grid's edge rows and columns, P < 32, P not a multiple of 32, a 40%
-    dead tail), collider noise on: bit for bit."""
+    """Phase 7, hard inputs: the slab-order pass A (row offsets 0 and 5),
+    emit pass B (spring off and on) and grid-mode pass B (spring off and on,
+    row offsets 0 and 5, on G and PS placed from the case) against their
+    plain versions on every case of sand_crate_tpu_torch.ops.grid_cases
+    (cells deeper than the capacity, a window longer than a staged piece,
+    tiles across grid rows, the grid's edge rows and columns, P < 32, P not
+    a multiple of 32, a 40% dead tail), collider noise on: bit for bit."""
     from sand_crate_tpu_torch.ops import grid_cases
 
     for case, c in grid_cases.CASES.items():
@@ -773,10 +808,14 @@ def grid_hard_cases(scene, device="cuda"):
         variants = grid_cases.variants(case, sc, device)
         for label, run, plain, _ in variants:
             exact(f"grid hard case {case}, {label}", run(), plain())
+        grid_mode = grid_cases.grid_variants(case, sc, device)
+        for label, run, plain in grid_mode:
+            exact(f"grid hard case {case}, {label}", run(), plain())
         print(f"  {case} ({c.claim}): P {f['P']}, {f['alive']} alive, M {c.m_slots}, deepest "
               f"cell {f['deepest_cell']}, longest tile window {f['longest_window']}, a tile "
               f"across {f['rows_spanned']} grid rows at most, {f['dead_tiles']} dead tiles: "
-              f"{len(variants)} variants == plain bit for bit")
+              f"{len(variants)} slab-order and {len(grid_mode)} grid-mode variants == plain "
+              f"bit for bit")
 
 
 def grid_provider_path(crate, sorted_ops):

@@ -12,7 +12,16 @@ kernels, the kernel launches per tick, and the busy share = kernel time /
 wall time; the port's own kernels are listed wherever they rank.  Then the
 two p-major schedules in turns (K1/K2, K10, K10, K1/K2, twice), WALL_TICKS
 ticks each from their settled states: the wall time per tick and the
-median per-tick CUDA-event time of each turn.
+median per-tick CUDA-event time of each turn.  Then the pair stage of
+each p-major schedule at its settled state, in turns (default, PMSUB,
+PMSUB, default): for the default candidate_ranges + K1 + K2 (two-sided,
+folded) and for PMSUB chunk_windows + K10 a + K10 b (one-sided, folded),
+and for each search alone, two readings per call: the device time (the
+kernels' sum under torch.profiler over STAGE_REPS calls; no host gap
+counts) and the call's time (median of STAGE_REPS CUDA-event brackets,
+measure.cuda_ms: the gaps between the call's launches count wherever the
+host falls behind the device, as it does after a copy that waits for the
+stream).
 Prints the card's name and power limit first; needs CUDA.
 """
 
@@ -29,6 +38,7 @@ SETTLE_TICKS = 50
 WALL_TICKS = 50
 PROFILED_TICKS = 10
 TOP = 15
+STAGE_REPS = 30
 # The kernels of the port's csrc/ (K1/K2, K10, K3-K9), printed wherever they rank.
 OWN = re.compile(r"::(pm|pms|place|slab_pass|pass_b)_kernel\b")
 
@@ -117,6 +127,88 @@ def alternate(crates: dict) -> None:
     set_schedule(None)
 
 
+def stage_device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the sum of its kernels' device
+    times under torch.profiler over ``reps`` calls, per call (host gaps and
+    host-side waits are not counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
+def pair_stages(crates: dict) -> None:
+    """The pair stage of a tick on each p-major schedule, at its crate's
+    settled state, in turns: the candidate search and passes A and B."""
+    import torch
+
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+    from sand_crate_tpu_torch.ops import pmajor
+    from sand_crate_tpu_torch.ops.measure import cuda_ms
+
+    stages = {}
+    for knob, crate in crates.items():
+        st, sc, pr = crate.state, crate.scene, crate.params
+        nx, ny = sc.grid_nx, sc.grid_ny
+        cid, order = torch.sort(cell_ids_grid(st.pos, st.alive, sc), stable=True)
+        alive = st.alive[order]
+        symm = knob is None and sc.pmajor_symm
+        coef = pmajor.coef_stack(pr.diameter, pr.target_pressure, pr.spring_overlap_balance)
+        slab_a = pmajor.pass_a_slab(st.pos[order], st.vel[order], alive, cid,
+                                    pr.diameter * pr.collider_noise_level, st.tick, sc, symm=symm)
+        ranges = pmajor.candidate_ranges(cid, alive, nx, ny)
+        out_a = pmajor.pm_pass(slab_a, ranges, coef, "a", symm=symm)
+        cp = pmajor.finalize_cp(out_a[0], out_a[3], pr.ignored_pressure)
+        slab_b = pmajor.pass_b_slab(slab_a, out_a, cp * (1.0 + pr.pressure_amplifier),
+                                    pr.surface_smoothing)
+        if knob is None:
+            def search(cid=cid, alive=alive, nx=nx, ny=ny):
+                return pmajor.candidate_ranges(cid, alive, nx, ny)
+
+            def stage(search=search, slab_a=slab_a, slab_b=slab_b, coef=coef, symm=symm):
+                r = search()
+                pmajor.pm_pass(slab_a, r, coef, "a", symm=symm)
+                pmajor.pm_pass(slab_b, r, coef, "b", fold=True, symm=symm)
+            label = "default: candidate_ranges + K1 + K2"
+        else:
+            def search(cid=cid, alive=alive, nx=nx, ny=ny):
+                return pmajor.chunk_windows(cid, alive, nx, ny, pmajor.PMS_CHUNK)
+
+            def stage(search=search, slab_a=slab_a, slab_b=slab_b, coef=coef, cid=cid, nx=nx):
+                w = search()
+                pmajor.pms_pass(slab_a, cid, w, coef, "a", nx=nx, chunk=pmajor.PMS_CHUNK)
+                pmajor.pms_pass(slab_b, cid, w, coef, "b", nx=nx, chunk=pmajor.PMS_CHUNK,
+                                fold=True)
+            label = f"PMSUB: chunk_windows + K10 a + K10 b (chunk {pmajor.PMS_CHUNK})"
+        stages[knob] = (label, search, stage)
+    order = list(crates) + list(reversed(crates))
+    readings = (("device ms per call (kernel sums under torch.profiler over "
+                 f"{STAGE_REPS} calls)", stage_device_ms),
+                (f"ms per call (median of {STAGE_REPS} CUDA-event brackets, host gaps "
+                 "between launches included)", cuda_ms))
+    times = {(knob, r): ([], []) for knob in crates for r in range(len(readings))}
+    for knob in order:
+        _, search, stage = stages[knob]
+        for r, (_, timer) in enumerate(readings):
+            times[knob, r][0].append(timer(stage, STAGE_REPS))
+            times[knob, r][1].append(timer(search, STAGE_REPS))
+    for r, (what, _) in enumerate(readings):
+        print(f"pair stage at the settled state, {what}, in turns "
+              f"{' '.join(k or 'default' for k in order)}:")
+        for knob, (label, _, _) in stages.items():
+            stage_ms, search_ms = times[knob, r]
+            print(f"  {label}: {' / '.join(f'{t:.4f}' for t in stage_ms)} ms, of which the "
+                  f"search {' / '.join(f'{t:.4f}' for t in search_ms)} ms")
+
+
 def main() -> int:
     import torch
 
@@ -129,6 +221,7 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__}")
     crates = {knob: profile("pmajor", 1_000_000, knob) for knob in (None, PMSUB)}
     alternate(crates)
+    pair_stages(crates)
     del crates
     profile("pallas", 1_000_000)
     return 0

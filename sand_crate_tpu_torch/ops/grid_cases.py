@@ -14,7 +14,11 @@ from a numpy seed in units of the scene's cell size (the diameter), so a
 case fits any scene of at least 48 x 48 cells.  ``tests/test_torch_gridslab.py``
 (the CPU), ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` (the card)
 run every case with collider noise on, pass A at row offsets 0 and 5 and
-emit-mode pass B with the spring off and on.
+emit-mode pass B with the spring off and on; and grid-mode pass B
+(``pair_pass_b``, which tiles the dense grid by 32 cells of a row and
+stages each occupied tile's neighbourhood) on G and PS placed from the
+case's slab, spring off and on, row offsets 0 and 5
+(:func:`grid_variants`).
 """
 
 from __future__ import annotations
@@ -151,4 +155,36 @@ def variants(case: str, scene, device):
                     lambda a=b_args, s=spring: pk.pair_pass_b_emit(*a, enable_spring=s),
                     lambda a=b_args, s=spring: pk.pair_pass_b_emit_plain(*a, enable_spring=s),
                     lambda a=b_args, s=spring: pk.pass_b_emit_via_grid(*a, enable_spring=s)))
+    return out
+
+
+def grid_variants(case: str, scene, device):
+    """(label, kernel call, plain call) for grid-mode pass B with the spring
+    off and on at row offsets 0 and 5, on the grids G and PS placed from the
+    case's slab and its plain pass-A columns."""
+    from .pallas_forces import grid_width
+
+    m = CASES[case].m_slots
+    nx, ny = scene.grid_nx, scene.grid_ny
+    nxp = grid_width(nx)
+    slab, row_start, _ = case_slab(case, scene, device)
+    d = scene.cell_size
+
+    def scalar(v, dtype=torch.float32):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    diam, amp, tick = scalar(d), scalar(NOISE * d), scalar(TICK, torch.int32)
+    ps = pk.pair_pass_a_slab_plain(slab, row_start, m, nx, diam, amp, tick)
+    grid = placement.place_grid_plain(slab, row_start, m, nx, ny, nxp)
+    ps_grid = placement.place_grid_plain(placement.with_features(slab, ps), row_start, m, nx,
+                                         ny, nxp)
+    args = (grid, ps_grid, diam, scalar(100.0), scalar(-2.0), scalar(0.5), scalar(0.3), amp,
+            tick)
+    out = []
+    for spring in (False, True):
+        for off in ROW_OFFSETS:
+            kw = dict(enable_spring=spring, row_offset=off)
+            out.append((f"grid pass B spring={spring} row offset {off}",
+                        lambda kw=kw: pk.pair_pass_b(*args, **kw),
+                        lambda kw=kw: pk.pair_pass_b_plain(*args, **kw)))
     return out

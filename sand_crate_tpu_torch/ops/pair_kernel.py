@@ -22,6 +22,10 @@ grid PS placed the same way (``placement.place_grid`` on the slab with its
 rows 0-3 replaced by pass A's columns):
 
 * :func:`pair_pass_b` -> (8|10, NY, M, NXP), the same planes per slot.
+  Its kernel tiles the grid in ``GRID_TILE`` cells of one row per warp,
+  stages an occupied tile's 3 x (``GRID_TILE`` + 2) neighbourhood (its
+  occupied slots, compacted) and streams the dense output, zeros past each
+  cell's count; NXP must be a multiple of ``GRID_BLOCK_COLS``.
 
 On CUDA tensors each launches its kernel of ``csrc/grid_pair.cu`` (counted
 in :data:`LAUNCHES`); on CPU tensors it runs the plain torch version beside
@@ -76,6 +80,8 @@ MAX_SLOTS = 16  # the noise hash packs slot ids as gy*16*8192 + gm*8192 + gx
 MAX_NXP = 8192
 SLAB_TILE = 32  # slab-order kernels: the selves of one warp tile
 SLAB_PIECE = 128  # and the candidates it stages at a time (kPiece)
+GRID_TILE = 32  # grid-mode pass B: the cells (columns) of one warp tile
+GRID_BLOCK_COLS = 128  # and the columns of a block of four tiles
 
 # Kernel launches since the last reset, counted by the wrappers where they
 # launch a CUDA kernel (never for the plain versions).
@@ -94,7 +100,7 @@ def load_lib():
         lib.sc_place_grid.argtypes = [vp, vp, i, i, i, i, vp]
         lib.sc_pass_a.argtypes = [vp] * 5 + [i] * 4 + [vp]
         lib.sc_pass_b_emit.argtypes = [vp] * 6 + [i] * 5 + [vp]
-        lib.sc_pass_b.argtypes = [vp] * 5 + [i] * 4 + [vp]
+        lib.sc_pass_b.argtypes = [vp] * 5 + [i] * 5 + [vp]
         for fn in (lib.sc_place_grid, lib.sc_pass_a, lib.sc_pass_b_emit, lib.sc_pass_b):
             fn.restype = ctypes.c_int
     return lib
@@ -161,11 +167,6 @@ def coef_b(diameter, surface_smoothing, target_pressure, spring_overlap_balance,
     vals = (diameter, surface_smoothing, target_pressure, spring_overlap_balance,
             noise_amp, ignored_pressure)
     return torch.stack([_tensor(v, device, torch.float32) for v in vals])
-
-
-def tick_pair(tick, row_offset, device) -> torch.Tensor:
-    """(2,) int32: the tick and the grid's global padded-row offset."""
-    return torch.stack([_tensor(v, device, torch.int32) for v in (tick, row_offset)])
 
 
 # --------------------------------------------------------------------------
@@ -597,15 +598,18 @@ def pair_pass_b(
     nyp, m_slots, nxp = _grid_dims(grid)
     check_cuda("pair_pass_b: grid", grid, torch.float32, grid.shape)
     check_cuda("pair_pass_b: ps_grid", ps_grid, torch.float32, grid.shape)
+    if nxp % GRID_BLOCK_COLS:
+        raise ValueError(f"pair_pass_b: the kernel tiles {GRID_BLOCK_COLS} columns a block; "
+                         f"grid width {nxp} is not a multiple")
     dev = grid.device
     if ps_grid.device != dev:
         raise ValueError("pair_pass_b: the operands must share one device")
     coef = coef_b(diameter, surface_smoothing, target_pressure,
                   spring_overlap_balance, ignored_pressure, noise_amp, dev)
-    ticks = tick_pair(tick, row_offset, dev)
+    tick = _tensor(tick, dev, torch.int32)
     out = torch.empty((num_b(enable_spring), nyp - 2, m_slots, nxp), dtype=torch.float32,
                       device=dev)
     run_kernel("pair_pass_b_grid", load_lib().sc_pass_b, grid.data_ptr(), ps_grid.data_ptr(),
-               coef.data_ptr(), ticks.data_ptr(), out.data_ptr(), nyp, m_slots, nxp,
-               int(enable_spring), device=dev)
+               coef.data_ptr(), tick.data_ptr(), out.data_ptr(), nyp, m_slots, nxp,
+               int(row_offset), int(enable_spring), device=dev)
     return out

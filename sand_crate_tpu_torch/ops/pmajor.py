@@ -20,9 +20,11 @@ vectorised torch versions, which CPU tensors run:
   version :func:`pm_pass_plain`.
 * :func:`pms_pass` (K10, ``SAND_CRATE_PMSUB=1``): chunks of ``PMS_CHUNK``
   consecutive selves share one candidate window per row offset
-  (:func:`chunk_windows`), staged through shared memory; plain version
-  :func:`pms_pass_plain`.  The same pairs in the same order as K1/K2 with
-  one-sided noise, so the same bits.
+  (:func:`chunk_windows`); each self finds its exact ranges inside its
+  chunk's window in the kernel (:func:`window_ranges` finds the same bounds)
+  and walks them as K1/K2 do, so no P-sized search runs before it; plain
+  version :func:`pms_pass_plain`.  The same pairs in the same order as
+  K1/K2 with one-sided noise, so the same bits.
 
 Both visit every candidate, so no pair is lost and ``PairSums.overflow`` is
 0 — where the JAX kernels' fixed window budgets (``w``, ``VCAP_SUB``) can
@@ -74,7 +76,8 @@ PLAIN_CHUNK = 1 << 16
 PM_TILE = 32
 PM_PIECE = 128
 
-# Selves per K10 chunk: 32 (one warp) or 128 (the JAX kernel's chunk).
+# Selves per K10 chunk: 32 (one warp) or 128 (the JAX kernel's chunk, one
+# block of csrc/pmajor.cu's kThreads, four warps searching one window).
 PMS_CHUNK = 32
 PMS_CHUNKS = (32, 128)
 
@@ -194,6 +197,48 @@ def chunk_windows(sorted_cid: torch.Tensor, alive: torch.Tensor, nx: int, ny: in
     we = torch.searchsorted(sorted_cid, torch.clamp(cidl + d + 2, 0, NC), out_int32=True)
     we = torch.where(live, we, ws)
     return torch.cat([ws, we, end[None]]).contiguous()
+
+
+def _lower_bound(key, lo, hi, target):
+    """Per element, the first position in [lo, hi) of the ascending ``key``
+    whose value is >= ``target`` (``hi`` if none): the kernel's binary
+    search, halving every bracket at once until all are empty."""
+    lo, hi = lo.clone(), hi.clone()
+    while bool((lo < hi).any()):
+        open_ = lo < hi
+        mid = (lo + hi) // 2
+        below = key[torch.where(open_, mid, 0).long()] < target
+        lo = torch.where(open_ & below, mid + 1, lo)
+        hi = torch.where(open_ & ~below, mid, hi)
+    return lo
+
+
+def window_ranges(sorted_cid: torch.Tensor, windows: torch.Tensor, chunk: int,
+                  nx: int) -> torch.Tensor:
+    """(6, P) int32: each self's exact candidate ranges as K10 finds them,
+    inside its chunk's window of the sorted cell ids (here by binary
+    search; the kernel first tests a few candidates at once, which finds
+    the same first position).
+
+    Rows 0-2 are the first slab position whose cid reaches cid + d - 1, rows
+    3-5 the first that reaches cid + d + 2, d = -nx, 0, +nx, each searched in
+    [windows[q], windows[3 + q]) only; selves at or past the chunk's row 6
+    (dead) get (0, 0).  No clamp is needed: the window holds every alive
+    self's range, so a target below cell 0 finds the window's start (then
+    0) and one past the last cell its end (then the first dead self), as
+    :func:`candidate_ranges` clamps them."""
+    P = sorted_cid.shape[0]
+    idx = torch.arange(P, device=sorted_cid.device)
+    c = idx // chunk
+    alive = idx < windows[6, c]
+    out = torch.zeros((6, P), dtype=torch.int32, device=sorted_cid.device)
+    for q in range(3):
+        ws = torch.where(alive, windows[q, c], 0)
+        we = torch.where(alive, windows[3 + q, c], 0)
+        lo = sorted_cid + (q - 1) * nx - 1
+        out[q] = _lower_bound(sorted_cid, ws, we, lo)
+        out[3 + q] = _lower_bound(sorted_cid, out[q], we, lo + 3)
+    return out
 
 
 def _n_out(mode: str, fold: bool, spring: bool) -> int:

@@ -9,7 +9,10 @@ one tile, whole tiles of dead selves.  Positions are made from a numpy seed
 in units of the scene's cell size (the diameter), so a case fits any scene;
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run every case, pass A
 and every pass-B variant, with two-sided and one-sided noise, and require
-the kernel's bits.
+the kernel's bits.  K10 (``pms_pass``) runs the same walk on ranges it
+finds inside each chunk's window (:func:`pmajor.window_ranges`); it runs on
+every case at both chunk sizes (:func:`k10_variants`), held to its plain
+version and to K1/K2 one-sided.
 """
 
 from __future__ import annotations
@@ -107,3 +110,35 @@ def variants(case: str, scene, device):
              lambda s=slab, m=mode, kw=kw: pmajor.pm_pass(s, ranges, coef, m, **kw),
              lambda s=slab, m=mode, kw=kw: pmajor.pm_pass_plain(s, ranges, coef, m, **kw))
             for label, slab, mode, kw in out]
+
+
+def k10_variants(case: str, scene, device):
+    """(label, K10 call, plain call, K1/K2 one-sided call) for pass A, pass B
+    folded, pass B split and pass B split with the spring (the kernel's four
+    instantiations), at both chunk sizes, on the case's particles with
+    one-sided noise."""
+    pos, vel, alive, cid = sorted_particles(case, scene, device)
+    nx, ny = scene.grid_nx, scene.grid_ny
+    ranges = pmajor.candidate_ranges(cid, alive, nx, ny)
+    d = scene.cell_size
+    coef = torch.tensor([d, -2.0, 0.5], dtype=torch.float32, device=device)
+    amp = torch.tensor(0.1 * d, dtype=torch.float32, device=device)
+    tick = torch.tensor(5, dtype=torch.int32, device=device)
+    slab_a = pmajor.pass_a_slab(pos, vel, alive, cid, amp, tick, scene, symm=False)
+    out_a = pmajor.pm_pass_plain(slab_a, ranges, coef, "a")
+    cp = pmajor.finalize_cp(out_a[0], out_a[3], torch.tensor(0.3, device=device))
+    slab_b = pmajor.pass_b_slab(slab_a, out_a, cp, torch.tensor(100.0, device=device))
+    passes = (("pass A", slab_a, "a", {}), ("pass B fold", slab_b, "b", dict(fold=True)),
+              ("pass B split", slab_b, "b", {}),
+              ("pass B split+spring", slab_b, "b", dict(spring=True)))
+    out = []
+    for chunk in pmajor.PMS_CHUNKS:
+        win = pmajor.chunk_windows(cid, alive, nx, ny, chunk)
+        for name, slab, mode, kw in passes:
+            run = dict(slab=slab, cid=cid, windows=win, coef=coef, mode=mode, nx=nx, chunk=chunk,
+                       **kw)
+            out.append((f"chunk {chunk} {name}",
+                        lambda a=run: pmajor.pms_pass(**a),
+                        lambda a=run: pmajor.pms_pass_plain(**a),
+                        lambda s=slab, m=mode, kw=kw: pmajor.pm_pass(s, ranges, coef, m, **kw)))
+    return out

@@ -83,36 +83,25 @@ def test_crate_runs_through_the_kernels(cuda):
 
 
 @pytest.mark.cuda
-def test_k10_bit_identical_to_plain_and_k1k2(cuda):
-    """K10 at both chunk sizes, pass A and every pass-B variant, on random
-    sorted particles with dead ones: bit for bit its plain version and
-    K1/K2 one-sided on the same slab."""
-    rng = np.random.default_rng(4)
-    n = 20000
-    pos = torch.as_tensor(rng.random((n, 2)) * 0.4 + 0.3, dtype=torch.float32, device=cuda)
-    vel = torch.as_tensor(rng.random((n, 2)) - 0.5, dtype=torch.float32, device=cuda)
-    alive = torch.as_tensor(rng.random(n) < 0.95, device=cuda)
+@pytest.mark.parametrize("case", sorted(pmajor_cases.CASES))
+def test_k10_bit_identical_to_plain_and_k1k2(cuda, case):
+    """K10 at both chunk sizes, pass A, pass B folded, pass B split and pass
+    B split with the spring, on the hard inputs of ops/pmajor_cases.py (several selves
+    per cell, a range longer than a staged piece, tiles across grid rows, P
+    not a multiple of the tile, P under one tile, a tail of dead selves):
+    bit for bit its plain version and K1/K2 one-sided on the same slab; the
+    in-kernel ranges are window_ranges', which equal candidate_ranges'."""
     scene = Crate(_world(), device=cuda).scene
-    nx, ny = scene.grid_nx, scene.grid_ny
-    cid, order = torch.sort(cell_ids_grid(pos, alive, scene), stable=True)
-    slab_a = pmajor.pass_a_slab(
-        pos[order], vel[order], alive[order], cid, torch.tensor(4e-4, device=cuda),
-        torch.tensor(5, dtype=torch.int32, device=cuda), scene, symm=False)
-    ranges = pmajor.candidate_ranges(cid, alive[order], nx, ny)
-    coef = torch.tensor([0.0044, -2.0, 0.5], device=cuda)
-    out_a = pmajor.pm_pass(slab_a, ranges, coef, "a")
-    cp = pmajor.finalize_cp(out_a[0], out_a[3], torch.tensor(0.3, device=cuda))
-    slab_b = pmajor.pass_b_slab(slab_a, out_a, cp, torch.tensor(100.0, device=cuda))
-    cases = [(slab_a, "a", {})] + [
-        (slab_b, "b", dict(fold=f, spring=s)) for f, s in ((True, False), (False, False),
-                                                           (False, True))]
+    pos, vel, alive, cid = pmajor_cases.sorted_particles(case, scene, cuda)
+    ranges = pmajor.candidate_ranges(cid, alive, scene.grid_nx, scene.grid_ny)
     for chunk in pmajor.PMS_CHUNKS:
-        win = pmajor.chunk_windows(cid, alive[order], nx, ny, chunk)
-        for slab, mode, kw in cases:
-            got = pmajor.pms_pass(slab, cid, win, coef, mode, nx=nx, chunk=chunk, **kw)
-            assert torch.equal(got, pmajor.pms_pass_plain(slab, cid, win, coef, mode, nx=nx,
-                                                          chunk=chunk, **kw))
-            assert torch.equal(got, pmajor.pm_pass(slab, ranges, coef, mode, **kw))
+        win = pmajor.chunk_windows(cid, alive, scene.grid_nx, scene.grid_ny, chunk)
+        found = pmajor.window_ranges(cid, win, chunk, scene.grid_nx)
+        assert torch.equal(found[:, alive], ranges[:, alive])
+    for label, run, plain, k1k2 in pmajor_cases.k10_variants(case, scene, cuda):
+        got = run()
+        assert torch.equal(got, plain()), label
+        assert torch.equal(got, k1k2()), label
 
 
 @pytest.mark.cuda
@@ -230,6 +219,20 @@ def test_slab_kernels_bit_identical_on_hard_cases(cuda, case):
     facts = grid_cases.facts(case, scene, cuda)
     assert facts["holds"], facts
     for label, run, plain, _ in grid_cases.variants(case, scene, cuda):
+        got = run()
+        assert torch.equal(got, plain()), label
+        assert float(got[-1].max()) >= 1, label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(grid_cases.CASES))
+def test_grid_pass_b_bit_identical_on_hard_cases(cuda, case):
+    """Grid-mode pass B (spring off and on, row offsets 0 and 5) on G and PS
+    placed from the hard inputs of ops/grid_cases.py: kernel == plain
+    version, bit for bit, zeros at every empty slot included."""
+    scene = grid_cases.case_scene(case, Crate(_world(), device=cuda,
+                                              forces_mode="pallas").scene)
+    for label, run, plain in grid_cases.grid_variants(case, scene, cuda):
         got = run()
         assert torch.equal(got, plain()), label
         assert float(got[-1].max()) >= 1, label

@@ -143,12 +143,18 @@ def test_tile_windows_cover_each_self_in_a_settled_dam_break(settled_slab):
 
 
 def test_slab_constants_mirror_the_kernel():
-    """SLAB_PIECE is the kernel's kPiece and SLAB_TILE its warp
-    (csrc/grid_pair.cu)."""
+    """SLAB_PIECE is the kernel's kPiece and SLAB_TILE its warp, GRID_TILE
+    and GRID_BLOCK_COLS grid-mode pass B's tile and block (csrc/grid_pair.cu)."""
     src = (Path(pk.__file__).parent.parent / "csrc" / "grid_pair.cu").read_text()
     piece = int(re.search(r"constexpr int kPiece = (\d+);", src).group(1))
     assert (pk.SLAB_TILE, pk.SLAB_PIECE) == (32, piece)
     assert "t0 = (blockIdx.x * kWarps + warp) * 32" in src
+    # Grid-mode pass B: a warp tile of GRID_TILE cells stages GRID_TILE + 2
+    # cells a row; a block of kWarps tiles spans GRID_BLOCK_COLS columns.
+    cells = int(re.search(r"constexpr int kCells = (\d+);", src).group(1))
+    warps = int(re.search(r"constexpr int kWarps = (\d+);", src).group(1))
+    assert (pk.GRID_TILE + 2, pk.GRID_BLOCK_COLS) == (cells, warps * pk.GRID_TILE)
+    assert "x0 = (blockIdx.y * kWarps + warp) * 32" in src
 
 
 @pytest.mark.parametrize("case", ["deep_m8", "edges", "dead_tail"])
@@ -168,7 +174,7 @@ def test_placed_pass_a_is_the_dense_pass_a(base_scene, case):
     assert torch.equal(placed, pk.pair_pass_a_plain(grid, diam, amp, tick, row_offset=5))
 
 
-@pytest.mark.parametrize("case", ["deep_m8", "edges", "ragged"])
+@pytest.mark.parametrize("case", CASES)
 def test_grid_mode_provider_equals_the_sorted_provider(base_scene, case):
     """The particle-order provider (G and the placed PS, grid-mode pass B,
     one gather) equals the sorted provider (slab order throughout) bit for
@@ -183,6 +189,29 @@ def test_grid_mode_provider_equals_the_sorted_provider(base_scene, case):
     for name, a, b in zip(new._fields, new, old):
         assert torch.equal(a, b), name
     assert float(new.nbr_cnt.max()) >= 1
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_grid_mode_pass_b_is_zero_past_each_cell_count(base_scene, case):
+    """The contract grid-mode pass B's kernel relies on: in G a cell's
+    occupied slots are a prefix (0 .. n - 1, so its count is its first empty
+    slot), the pad columns x = 0 and x >= nx + 1 are empty, and the plain
+    grid-mode output is exactly 0 at every empty slot (spring on, row
+    offset 5, noise on)."""
+    scene = grid_cases.case_scene(case, base_scene)
+    label, _, plain = grid_cases.grid_variants(case, scene, "cpu")[-1]
+    assert label == "grid pass B spring=True row offset 5"
+    slab, row_start, _ = grid_cases.case_slab(case, scene, "cpu")
+    M, nx, ny = scene.cell_capacity, scene.grid_nx, scene.grid_ny
+    g = pl.place_grid(slab, row_start, M, nx, ny, grid_width(nx))
+    occupied = g[pk.POSX] > pk.ALIVE_THRESHOLD  # (NYP, M, NXP)
+    assert bool((occupied[:, 1:] <= occupied[:, :-1]).all())  # a prefix of the slots
+    assert not occupied[:, :, 0].any() and not occupied[:, :, nx + 1:].any()
+    assert not occupied[0].any() and not occupied[-1].any()  # the ring rows
+    out = plain()
+    empty = ~occupied[1:-1]
+    assert not out[:, empty].any()
+    assert float(out[-1].max()) >= 1 and int(occupied.sum()) == int(slab[pk.IN_CAP].sum())
 
 
 def test_slab_wrappers_reject_bad_inputs():

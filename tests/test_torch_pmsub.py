@@ -17,6 +17,8 @@ kernels against both on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 import copy
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -159,8 +161,6 @@ def _sorted_case(seed, n=3000, p_alive=0.9):
     from sand_crate_tpu_torch import load_config
     from sand_crate_tpu_torch.scene import build_scene
 
-    from pathlib import Path
-
     world = load_config(Path(__file__).resolve().parent.parent / "configs" /
                         "stirring_cup.yaml").world_config
     scene = build_scene(world, capacity=4096, device="cpu")
@@ -228,3 +228,62 @@ def test_pms_pass_rejects_bad_inputs():
         tpm.pms_pass(slab, cid, win, torch.zeros(3), "a", nx=8, chunk=64)
     with pytest.raises(ValueError):  # neither the CPU nor a CUDA device
         tpm.pms_pass(slab.to("meta"), cid, win, torch.zeros(3), "a", nx=8, chunk=32)
+
+
+@pytest.fixture(scope="module")
+def window_inputs():
+    """Sorted (cid, alive, nx, ny) inputs for K10's in-window range search:
+    the hard cases of ops/pmajor_cases.py and the grid's "edges" bands (cells
+    in rows 0 and ny - 1, so targets below cell 0 and past the last one) on
+    a 72 x 72 grid, and a ~10k dam break settled 20 ticks on the p-major
+    backend."""
+    from sand_crate_tpu_torch import Crate
+    from sand_crate_tpu_torch.bench import dam_break_world
+    from sand_crate_tpu_torch.ops import grid_cases, pmajor_cases
+    from sand_crate_tpu_torch.scene import build_scene
+
+    scene = build_scene(dam_break_world(2000), device="cpu")
+    nx, ny = scene.grid_nx, scene.grid_ny
+    out = {case: pmajor_cases.sorted_particles(case, scene, "cpu")[2:] + (nx, ny)
+           for case in pmajor_cases.CASES}
+    out["edges"] = grid_cases.sorted_particles("edges", scene, "cpu")[2:] + (nx, ny)
+    crate = Crate(dam_break_world(10_000), device="cpu")
+    crate.run(20)
+    st, sc = crate.state, crate.scene
+    cid, order = torch.sort(cell_ids_grid(st.pos, st.alive, sc), stable=True)
+    out["settled_dam_break"] = (st.alive[order], cid, sc.grid_nx, sc.grid_ny)
+    return {k: (cid, alive, nx, ny) for k, (alive, cid, nx, ny) in out.items()}
+
+
+WINDOW_INPUTS = ["dead_tail", "dense_blob", "edges", "ragged_tile", "random", "row_spanning",
+                 "settled_dam_break", "under_one_tile"]
+
+
+@pytest.mark.parametrize("chunk", tpm.PMS_CHUNKS)
+@pytest.mark.parametrize("name", WINDOW_INPUTS)
+def test_window_ranges_equal_candidate_ranges(window_inputs, name, chunk):
+    """K10 finds each self's exact ranges by a binary search inside its
+    chunk's window (window_ranges mirrors the kernel's search): for every
+    alive self they equal candidate_ranges' (the searches over all P with
+    their clamps at 0 and nx * ny), and dead selves get empty ranges."""
+    cid, alive, nx, ny = window_inputs[name]
+    ranges = tpm.candidate_ranges(cid, alive, nx, ny)
+    win = tpm.chunk_windows(cid, alive, nx, ny, chunk)
+    found = tpm.window_ranges(cid, win, chunk, nx)
+    assert found.dtype == torch.int32 and tuple(found.shape) == (6, cid.shape[0])
+    assert torch.equal(found[:, alive], ranges[:, alive])
+    assert not found[:, ~alive].any()
+    assert int((ranges[3:] - ranges[:3])[:, alive].sum()) > 0
+    if name == "edges":  # the targets the clamps catch are reached
+        rows = cid[alive] // nx
+        assert (int(rows.min()), int(rows.max())) == (0, ny - 1)
+
+
+def test_k10_constants_mirror_the_kernel():
+    """K10's chunks are one warp or one block of csrc/pmajor.cu, which the
+    kernel launches over P with the block size of K1/K2."""
+    src = (Path(tpm.__file__).parent.parent / "csrc" / "pmajor.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+    assert tpm.PMS_CHUNKS == (tpm.PM_TILE, threads) and tpm.PMS_CHUNK in tpm.PMS_CHUNKS
+    assert "static_assert(CHUNK == 32 || CHUNK == kThreads" in src
+    assert "launch_pms_mode<kThreads>" in src and "chunk == 32" in src
