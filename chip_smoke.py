@@ -92,7 +92,14 @@ prints its wall time as "[phase] name: s"):
    beside the shipped (slab-order) pair_pass_a, and its times are the rows'
    ms.  P3 is
    timed on two inputs (the tool's, whose mask almost never holds, and
-   equal rw columns) that must agree within PROBE_P3_SPREAD.
+   equal rw columns) that must agree within PROBE_P3_SPREAD.  Then every P2
+   variant and both P3 forms on the hard inputs of
+   sand_crate_tpu_torch/probes/probe_cases.py (an odd m, tr 1, 3 and 8,
+   NXP 32, air blocks, coincident particles, pairs at exactly one
+   diameter, far positions, noise with a tick and a row offset; an odd W,
+   one visit and 64, equal rw, coincident positions, a candidate at the
+   cutoff), and every P2 variant at M = 1..8 (each compiled m): bit for
+   bit.
 (i) recording and checkpoints on the stirring-cup world (an emitter and a
    motored cup): stream_frames -> TrajectoryWriter -> load_trajectory gives
    the frames back; a checkpoint saved at tick T and restored into a fresh
@@ -1146,7 +1153,7 @@ def p2_probe(crate):
             rows[tag, mode] = probe_row(
                 f"passa_{mode}_{tag}",
                 PROBE_REPLACES["passa_prefetch" if mode == "prefetch" else "passa"], got, plain(),
-                cuda_ms(plain, 1), p2.io_bytes(mode, occ, g.shape, tr), f32_ops, bf16_ops)
+                cuda_ms(plain, 1), p2.io_bytes(occ, g.shape, tr), f32_ops, bf16_ops)
             del got
     del grid, g
     torch.cuda.empty_cache()
@@ -1214,6 +1221,50 @@ def p4_p3_probes():
         print(f"  P3 {form}: tool's inputs {a:.4f} ms, equal rw {b:.4f} ms, spread {spread:.3f}")
         check(spread <= PROBE_P3_SPREAD, f"P3 {form}: the two inputs time {spread:.3f} apart")
     return rows + list(p3_rows.values())
+
+
+def probe_hard_cases():
+    """Phase (h), the hard inputs of probes/probe_cases.py: every P2 variant
+    and both P3 forms on each case, and every P2 variant at each compiled m
+    (the m sweep), bit for bit against their plain versions, after checking
+    that each case holds what it claims."""
+    import torch
+
+    from sand_crate_tpu_torch.probes import hybrid_probe as p3
+    from sand_crate_tpu_torch.probes import passa_probe as p2
+    from sand_crate_tpu_torch.probes import probe_cases
+
+    for case in probe_cases.PASSA_CASES:
+        facts = probe_cases.passa_facts(case)
+        check(facts["holds"], f"P2 case {case}: {facts}")
+        grid, occ, coef, ticks, tr = probe_cases.passa_inputs(case, "cuda")
+        for mode in p2.VARIANTS:
+            got = p2.variant(grid, occ, coef, ticks, tr, mode)
+            check(torch.equal(got, p2.variant_plain(grid, occ, coef, ticks, tr, mode)),
+                  f"P2 case {case} {mode}: kernel differs from its plain version")
+        print(f"  P2 {case} ({probe_cases.PASSA_CASES[case].claim}): {facts}; all "
+              f"{len(p2.VARIANTS)} variants == plain bit for bit")
+    for m_slots in probe_cases.SWEEP_SLOTS:
+        grid, occ, coef, ticks, tr = probe_cases.passa_inputs(probe_cases.SWEEP_CASE, "cuda",
+                                                              m_slots=m_slots)
+        for mode in p2.VARIANTS:
+            check(torch.equal(p2.variant(grid, occ, coef, ticks, tr, mode),
+                              p2.variant_plain(grid, occ, coef, ticks, tr, mode)),
+                  f"P2 {probe_cases.SWEEP_CASE} at M {m_slots} {mode}: kernel differs from its "
+                  "plain version")
+    print(f"  P2 m sweep ({probe_cases.SWEEP_CASE} at M = {probe_cases.SWEEP_SLOTS[0]}.."
+          f"{probe_cases.SWEEP_SLOTS[-1]}, every compiled m): all {len(p2.VARIANTS)} variants "
+          "== plain bit for bit")
+    for case in probe_cases.HYBRID_CASES:
+        facts = probe_cases.hybrid_facts(case)
+        check(facts["holds"], f"P3 case {case}: {facts}")
+        sfeat, cand, iters = probe_cases.hybrid_inputs(case, "cuda")
+        for hybrid in (False, True):
+            got = p3.chain(sfeat, cand, iters, hybrid)
+            check(torch.equal(got, p3.chain_plain(sfeat, cand, iters, hybrid)),
+                  f"P3 case {case} hybrid={hybrid}: kernel differs from its plain version")
+        print(f"  P3 {case} ({probe_cases.HYBRID_CASES[case].claim}): {facts}; f32 and hybrid "
+              "== plain bit for bit")
 
 
 def recording_and_checkpoints():
@@ -1436,6 +1487,9 @@ def main() -> int:
         print(f"P4 (tools/bf16_probe.py) and P3 (tools/hybrid_probe.py) vs their plain "
               f"versions, iters {PROBE_ITERS}:")
         probe_rows = p4_p3_probes() + probe_rows
+    with phase("probe hard cases"):
+        print("P2 and P3 vs their plain versions on the hard inputs (probes/probe_cases.py):")
+        probe_hard_cases()
 
     # -- (i) recording and checkpoints -------------------------------------------
     with phase("recording + checkpoints"):

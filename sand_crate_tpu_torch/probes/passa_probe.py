@@ -20,9 +20,13 @@ padded rows i*tr + 1 .. i*tr + tr of a zeroed (4, NYP, M, NXP) output:
   of the window; the next block's window fetched ahead) that compute what
   ``full`` computes: on the card they run the ``full`` kernel.
 
-The kernel is ``csrc/probes.cu`` ``passa_probe_kernel`` (a CTA of 32 x 8
-slots per row block, the window staged through shared memory).  ``tr`` is a
-parameter (the JAX scene's row_block rule by default).
+The kernels are ``csrc/probes.cu`` ``passa_f32_kernel`` and
+``passa_bf16_kernel``, compiled for each m in 1..8: a CTA per tile of
+TILE_X columns of a row block stages the window (a halo column each side,
+each slot twice so that the slot rotation is an offset) through shared
+memory; the f32 kernel runs a thread per (slot, column), the bf16 kernel a
+thread per (slot, two columns) in packed bf16x2.  ``tr`` is a parameter (the
+JAX scene's row_block rule by default); ``probe_cases`` holds hard inputs.
 
     python -m sand_crate_tpu_torch.probes.passa_probe [n_particles] [settle]
 
@@ -49,6 +53,7 @@ M_LO = 8  # the lo slot half
 ALIVE_THRESHOLD = 1.5
 EPS = 1e-12
 TR_MAX = 8
+TILE_X = 32  # the kernels' column tile (kTx): NXP must be a multiple of it
 VARIANTS = ("full", "nostencil", "bf16", "nooutdma", "plane0", "tiny", "novel", "prefetch")
 # The tool's main: its variants per grid.
 TOOL_MODES = {"m16": ("full", "nostencil", "bf16", "novel"), "m8": ("full", "nostencil", "bf16")}
@@ -185,9 +190,9 @@ def variant(grid, occ, coef, ticks, tr: int, mode: str) -> torch.Tensor:
     _, nyp, m_slots, nxp = grid.shape
     if not 1 <= tr <= TR_MAX:
         raise ValueError(f"passa_probe: tr {tr} not in [1, {TR_MAX}]")
-    if nxp % 32 or nxp > 8192 or m_slots > 16:
-        raise ValueError(f"passa_probe: grid {tuple(grid.shape)} (NXP a multiple of 32, "
-                         "at most 8192; at most 16 slots)")
+    if nxp % TILE_X or nxp > 8192 or not 1 <= m_slots <= 16:
+        raise ValueError(f"passa_probe: grid {tuple(grid.shape)} (NXP a multiple of "
+                         f"{TILE_X}, at most 8192; 1 to 16 slots)")
     if dispatch("passa_probe.variant", grid, occ, coef, ticks):
         return variant_plain(grid, occ, coef, ticks, tr, mode)
     nblocks = (nyp - 2) // tr
@@ -253,16 +258,16 @@ def operations(mode: str, occ: torch.Tensor, grid_shape, tr: int):
     return (0, ops) if bf16 else (ops, 0)
 
 
-def io_bytes(mode: str, occ: torch.Tensor, grid_shape, tr: int) -> int:
-    """The occupied blocks' windows (two position planes of the lo slots)
-    read once and the variant's output written once."""
-    _, _, m_slots, nxp = grid_shape
+def io_bytes(occ: torch.Tensor, grid_shape, tr: int) -> int:
+    """The bytes one call moves, the same for every variant: the occupied
+    blocks' windows (two position planes of the lo slots) read once, and
+    the whole (4, NYP, M, NXP) output written once, as the zero fill that
+    :func:`variant` allocates (and the timed call includes, as the tool's
+    ``jnp.zeros``); the rows a variant writes lie inside it."""
+    _, nyp, m_slots, nxp = grid_shape
     m = min(m_slots, M_LO)
     n_occ = int(occ.sum())
-    _, wmask, _ = _SPEC[mode]
-    n_rows, n_cols = _extent(mode, tr, nxp)
-    written = bin(wmask).count("1") * n_occ * n_rows * m * n_cols
-    return 4 * (2 * n_occ * (tr + 2) * m * nxp + written)
+    return 4 * (2 * n_occ * (tr + 2) * m * nxp + NUM_A * nyp * m_slots * nxp)
 
 
 def main(n: int = 1_000_000, settle: int = 100, tr: int | None = None,

@@ -21,6 +21,7 @@ from sand_crate_tpu_torch.ops.pallas_forces import (
     grid_width,
     pair_sums_from_planes,
 )
+from sand_crate_tpu_torch.probes import probe_cases
 
 BOX = [[[0.0, 0.0], [0.0, 1.0]], [[0.0, 0.0], [1.0, 0.0]],
        [[1.0, 0.0], [1.0, 1.0]], [[0.0, 1.0], [1.0, 1.0]]]
@@ -329,6 +330,47 @@ def test_probe_pmajor_and_passa_bit_identical_to_plain(cuda):
         for mode in passa_probe.VARIANTS:
             got = passa_probe.variant(g, occ, pcoef, ticks, tr, mode)
             assert torch.equal(got, passa_probe.variant_plain(g, occ, pcoef, ticks, tr, mode)), mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(probe_cases.PASSA_CASES) + sorted(probe_cases.HYBRID_CASES))
+def test_probe_passa_and_hybrid_bit_identical_on_hard_cases(cuda, case):
+    """P2 (every variant) or P3 (both forms) on a hard input of
+    probes/probe_cases.py (an odd m, tr 1, 3 and 8, NXP 32, air blocks,
+    coincident particles, pairs at exactly one diameter, far positions; an
+    odd W, one visit, coincident positions, a candidate at the cutoff):
+    kernel == plain version, bit for bit."""
+    from sand_crate_tpu_torch.probes import hybrid_probe, passa_probe
+
+    if case in probe_cases.PASSA_CASES:
+        assert probe_cases.passa_facts(case)["holds"], case
+        grid, occ, coef, ticks, tr = probe_cases.passa_inputs(case, cuda)
+        for mode in passa_probe.VARIANTS:
+            got = passa_probe.variant(grid, occ, coef, ticks, tr, mode)
+            want = passa_probe.variant_plain(grid, occ, coef, ticks, tr, mode)
+            assert torch.equal(got, want), mode
+    else:
+        assert probe_cases.hybrid_facts(case)["holds"], case
+        sfeat, cand, iters = probe_cases.hybrid_inputs(case, cuda)
+        for hybrid in (False, True):
+            got = hybrid_probe.chain(sfeat, cand, iters, hybrid)
+            assert torch.equal(got, hybrid_probe.chain_plain(sfeat, cand, iters, hybrid)), hybrid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_slots", probe_cases.SWEEP_SLOTS)
+def test_probe_passa_bit_identical_at_every_m(cuda, m_slots):
+    """P2 (every variant) on the sweep case at M = 1..8, so that each
+    compiled m of both kernels (m = 1 and 2 the edges of the twice-staged
+    rotation) runs: kernel == plain version, bit for bit."""
+    from sand_crate_tpu_torch.probes import passa_probe
+
+    grid, occ, coef, ticks, tr = probe_cases.passa_inputs(probe_cases.SWEEP_CASE, cuda,
+                                                          m_slots=m_slots)
+    for mode in passa_probe.VARIANTS:
+        got = passa_probe.variant(grid, occ, coef, ticks, tr, mode)
+        want = passa_probe.variant_plain(grid, occ, coef, ticks, tr, mode)
+        assert torch.equal(got, want), mode
 
 
 @pytest.mark.cuda

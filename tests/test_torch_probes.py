@@ -29,6 +29,7 @@ from __future__ import annotations
 import copy
 import functools
 import math
+import re
 from pathlib import Path
 
 import jax
@@ -48,7 +49,8 @@ from sand_crate_tpu.scene import build_scene as jax_build_scene
 from sand_crate_tpu.scene import init_state as jax_init_state
 from sand_crate_tpu.state import Params as JaxParams
 from sand_crate_tpu_torch.ops.pallas_forces import grid_width
-from sand_crate_tpu_torch.probes import bf16_probe, hybrid_probe, passa_probe, pmajor_probe
+from sand_crate_tpu_torch.probes import (bf16_probe, hybrid_probe, passa_probe, pmajor_probe,
+                                         probe_cases)
 from tools import bf16_probe as tool_p4
 from tools import hybrid_probe as tool_p3
 from tools import passa_probe as tool_p2
@@ -277,21 +279,12 @@ def test_passa_probe_block_flags_match_jax(dam_break_2k):
     assert 0 < int(got.sum()) < got.shape[0]
 
 
-@pytest.mark.parametrize("tag, mode", [("m16", v) for v in passa_probe.VARIANTS]
-                         + [("m8", "full"), ("m8", "bf16")])
-def test_passa_probe_matches_tool(p2_grids, dam_break_2k, tag, mode):
-    """Every P2 variant against the tool's kernel (prefetch_kernel for
-    "prefetch") on the same grid, block 1 marked as air (skipped), with a
-    nonzero noise amplitude and tick so that the jitter hash is exercised."""
-    grid = p2_grids[tag]
-    params = dam_break_2k[1]
+def _tool_variant(grid, occ, coef, ticks, tr, mode):
+    """tools/passa_probe.py's kernel (prefetch_kernel for "prefetch") in
+    interpret mode, with the tool's grid spec, on numpy inputs."""
     _, nyp, m_slots, nxp = grid.shape
-    tr, m = P2_TR, min(m_slots, 8)
+    m = min(m_slots, 8)
     nblocks = (nyp - 2) // tr
-    occ = np.array([1, 0], np.int32)
-    diam = np.float32(params.diameter)
-    coef = np.array([diam, 0.1 * diam], np.float32)
-    ticks = np.array([3, 0], np.int32)
     if mode == "prefetch":
         kernel = functools.partial(tool_p2.prefetch_kernel, tr=tr, m=m)
         win = pltpu.VMEM((2, jpk.NUM_G, tr + 2, m, nxp), jnp.float32)
@@ -319,20 +312,171 @@ def test_passa_probe_matches_tool(p2_grids, dam_break_2k, tag, mode):
         input_output_aliases={4: 0},
         interpret=True,
     )
-    want = np.asarray(f(jnp.asarray(occ), jnp.asarray(coef), jnp.asarray(ticks),
+    return np.asarray(f(jnp.asarray(occ), jnp.asarray(coef), jnp.asarray(ticks),
                         jnp.asarray(grid), jnp.zeros((jpk.NUM_A, nyp, m_slots, nxp))))
-    got = passa_probe.variant(*(torch.as_tensor(a) for a in (grid, occ, coef, ticks)),
-                              tr, mode).numpy()
-    assert not got[:, 1 + tr:].any()  # the air block's rows keep their zeros
-    if mode in ("full", "bf16", "novel", "prefetch"):
-        occupied = grid[0, 1:1 + tr, :m] > 1.5
-        assert occupied.sum() > 50 and (want[3, 1:1 + tr, :m][occupied] > 0).mean() > 0.9
+
+
+def _hold_passa(got, want, mode):
+    """The count plane exactly, the sums at the f32 or bf16 tolerance."""
     np.testing.assert_array_equal(got[3], want[3], err_msg="count plane")
     for p, name in enumerate(("w_sum", "s_x", "s_y")):
         if mode == "bf16":  # a term is w <= 1 or (1 - w) w nh, |.| <= 0.25
             _close_bf16(got[p], want[p], term=1.0, err_msg=name)
         else:
             _close(got[p], want[p], err_msg=name)
+
+
+@pytest.mark.parametrize("tag, mode", [("m16", v) for v in passa_probe.VARIANTS]
+                         + [("m8", "full"), ("m8", "bf16")])
+def test_passa_probe_matches_tool(p2_grids, dam_break_2k, tag, mode):
+    """Every P2 variant against the tool's kernel (prefetch_kernel for
+    "prefetch") on the same grid, block 1 marked as air (skipped), with a
+    nonzero noise amplitude and tick so that the jitter hash is exercised."""
+    grid = p2_grids[tag]
+    params = dam_break_2k[1]
+    tr, m = P2_TR, min(grid.shape[2], 8)
+    occ = np.array([1, 0], np.int32)
+    diam = np.float32(params.diameter)
+    coef = np.array([diam, 0.1 * diam], np.float32)
+    ticks = np.array([3, 0], np.int32)
+    want = _tool_variant(grid, occ, coef, ticks, tr, mode)
+    got = passa_probe.variant(*(torch.as_tensor(a) for a in (grid, occ, coef, ticks)),
+                              tr, mode).numpy()
+    assert not got[:, 1 + tr:].any()  # the air block's rows keep their zeros
+    if mode in ("full", "bf16", "novel", "prefetch"):
+        occupied = grid[0, 1:1 + tr, :m] > 1.5
+        assert occupied.sum() > 50 and (want[3, 1:1 + tr, :m][occupied] > 0).mean() > 0.9
+    _hold_passa(got, want, mode)
+
+
+# ---- the hard inputs of probes/probe_cases.py -----------------------------------
+
+
+@pytest.mark.parametrize("case", sorted(probe_cases.PASSA_CASES))
+def test_passa_case_holds_what_it_claims(case):
+    """Each P2 hard case holds what it is built to hold (an odd m, tr 1, 3
+    and 8, NXP 32, air blocks, coincident pairs at the eps floor, pairs at
+    exactly one diameter, far positions with noise, a tick and a row
+    offset), and the wrapper's plain version runs on it."""
+    facts = probe_cases.passa_facts(case)
+    assert facts["holds"], facts
+    grid, occ, coef, ticks, tr = probe_cases.passa_inputs(case)
+    out = passa_probe.variant(grid, occ, coef, ticks, tr, "full")
+    assert out.shape == grid.shape and bool(torch.isfinite(out).all())
+    assert float(out[3].sum()) > 0
+
+
+@pytest.mark.parametrize("m_slots", probe_cases.SWEEP_SLOTS)
+def test_passa_m_sweep_runs_every_variant(m_slots):
+    """The m sweep (the sweep case at M = 1..8, one compiled kernel each):
+    the inputs hold M slots, and every variant's plain version gives each
+    occupied self an integer count of at most its 9 m - 1 stencil slots;
+    nostencil, nooutdma, plane0 and tiny leave the count plane zero."""
+    grid, occ, coef, ticks, tr = probe_cases.passa_inputs(probe_cases.SWEEP_CASE,
+                                                          m_slots=m_slots)
+    assert grid.shape[2] == m_slots and int(occ.sum()) > 0
+    occupied = grid[0] > passa_probe.ALIVE_THRESHOLD
+    assert bool(occupied.any())
+    for mode in passa_probe.VARIANTS:
+        count = passa_probe.variant(grid, occ, coef, ticks, tr, mode)[3]
+        assert bool((count == count.round()).all()) and float(count.max()) <= 9 * m_slots - 1
+        if mode in ("full", "bf16", "novel", "prefetch"):
+            assert float(count[occupied].sum()) > 0, mode
+        if mode in ("nostencil", "nooutdma", "plane0", "tiny"):
+            assert not count.any(), mode
+
+
+@pytest.mark.parametrize("case", sorted(probe_cases.HYBRID_CASES))
+def test_hybrid_case_holds_what_it_claims(case):
+    """Each P3 hard case holds what it is built to hold (W 2, 255 and 256,
+    one visit and 64, random and equal rw, coincident positions, a
+    candidate at exactly the cutoff and one just past it), and the
+    wrapper's plain version gives every column, an odd W's last included."""
+    facts = probe_cases.hybrid_facts(case)
+    assert facts["holds"], facts
+    sfeat, cand, iters = probe_cases.hybrid_inputs(case)
+    for hybrid in (False, True):
+        out = hybrid_probe.chain(sfeat, cand, iters, hybrid)
+        assert out.shape == (sfeat.shape[0], cand.shape[1]) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("case, mode", [("m3_tr1", "full"), ("coincident", "full"),
+                                        ("far", "bf16")])
+def test_passa_hard_case_matches_tool(case, mode):
+    """P2's plain version against the tool's kernel on hard inputs: an odd m
+    at tr 1, coincident particles (nd2 at its floor), and far positions in
+    bf16 (the relative coordinates), noise on where the case has it."""
+    grid, occ, coef, ticks, tr = (a.numpy() if isinstance(a, torch.Tensor) else a
+                                  for a in probe_cases.passa_inputs(case))
+    want = _tool_variant(grid, occ, coef, ticks, tr, mode)
+    got = passa_probe.variant(*(torch.as_tensor(a) for a in (grid, occ, coef, ticks)),
+                              tr, mode).numpy()
+    assert (want[3] > 0).mean() > 0.05
+    _hold_passa(got, want, mode)
+
+
+@pytest.mark.parametrize("case, hybrid", [("coincident", False), ("cutoff", True)])
+def test_hybrid_hard_case_matches_tool(case, hybrid):
+    """P3's plain version against the tool's kernel on candidates that
+    coincide with their self (nd2 at its floor) and that sit exactly at the
+    cutoff (the mask's <=), one visit."""
+    sfeat, cand, iters = probe_cases.hybrid_inputs(case)
+    blocks = sfeat.shape[0] // tool_p3.CS
+    f = pl.pallas_call(
+        functools.partial(tool_p3._kernel, iters=iters, hybrid=hybrid),
+        grid=(blocks,),
+        in_specs=[pl.BlockSpec((tool_p3.CS, 8), lambda i: (i, 0)),
+                  pl.BlockSpec((8, tool_p3.W), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((tool_p3.CS, tool_p3.W), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((blocks * tool_p3.CS, tool_p3.W), jnp.float32),
+        interpret=True,
+    )
+    want = np.asarray(f(jnp.asarray(sfeat.numpy()), jnp.asarray(cand.numpy())))
+    got = hybrid_probe.chain(sfeat, cand, iters, hybrid).numpy()
+    assert (want != 0).mean() > 0.1
+    if hybrid:
+        _close_bf16(got, want, term=0.06)
+    else:
+        _close(got, want)
+
+
+def test_passa_io_bytes_count_the_zero_fill():
+    """io_bytes counts the window read and the whole output written once,
+    as the zero fill that the wrapper allocates and the timed call
+    includes: the rows a variant writes lie inside that fill and are not
+    counted again."""
+    grid, occ, coef, ticks, tr = probe_cases.passa_inputs("m4_tr3_air")
+    _, nyp, m_slots, nxp = grid.shape
+    n_occ, m = int(occ.sum()), min(m_slots, 8)
+    read, fill = 2 * n_occ * (tr + 2) * m * nxp, 4 * nyp * m_slots * nxp
+    assert passa_probe.io_bytes(occ, grid.shape, tr) == 4 * (read + fill)
+    assert passa_probe.variant(grid, occ, coef, ticks, tr, "nostencil").numel() == fill
+
+
+def test_probe_constants_mirror_the_kernels():
+    """TILE_X and TR_MAX are P2's kTx and kTrMax, M_LO its largest compiled
+    m, and hybrid_probe.CS P3's kCs (csrc/probes.cu)."""
+    src = (REPO / "sand_crate_tpu_torch" / "csrc" / "probes.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (passa_probe.TILE_X, passa_probe.TR_MAX) == (const("kTx"), const("kTrMax"))
+    cases = [int(v) for v in re.findall(r"SC_PASSA_CASE\((\d+)\)\n", src)]
+    assert cases == list(range(1, passa_probe.M_LO + 1))
+    assert hybrid_probe.CS == const("kCs")
+
+
+def test_passa_variant_rejects_what_the_kernel_does_not_take():
+    """NXP not a multiple of the kernels' tile, no slots or more than 16,
+    and tr outside 1..TR_MAX raise before any launch."""
+    grid, occ, coef, ticks, tr = probe_cases.passa_inputs("m3_tr1")
+    with pytest.raises(ValueError, match="multiple of 32"):
+        passa_probe.variant(grid[..., :48], occ, coef, ticks, tr, "full")
+    with pytest.raises(ValueError, match="1 to 16 slots"):
+        passa_probe.variant(grid[:, :, :0], occ, coef, ticks, tr, "full")
+    with pytest.raises(ValueError, match="tr 9"):
+        passa_probe.variant(grid, occ, coef, ticks, passa_probe.TR_MAX + 1, "full")
 
 
 def test_probe_wrappers_raise_off_cpu_and_cuda():
