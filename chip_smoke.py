@@ -90,16 +90,20 @@ prints its wall time as "[phase] name: s"):
    crates) with the launch counters reset just before and read just after:
    it prints G(mul+add)/s, us per visit, window widths, ms per variant
    beside the shipped (slab-order) pair_pass_a, and its times are the rows'
-   ms.  P3 is
+   ms; P1 also prints the range of its squared distances (inside
+   inv_sqrt_rn's exact range) and each row's share of its bound.  P3 is
    timed on two inputs (the tool's, whose mask almost never holds, and
-   equal rw columns) that must agree within PROBE_P3_SPREAD.  Then every P2
-   variant and both P3 forms on the hard inputs of
-   sand_crate_tpu_torch/probes/probe_cases.py (an odd m, tr 1, 3 and 8,
-   NXP 32, air blocks, coincident particles, pairs at exactly one
-   diameter, far positions, noise with a tick and a row offset; an odd W,
-   one visit and 64, equal rw, coincident positions, a candidate at the
-   cutoff), and every P2 variant at M = 1..8 (each compiled m): bit for
-   bit.
+   equal rw columns) that must agree within PROBE_P3_SPREAD.  Then both P1
+   modes, every P2 variant, both P3 forms and all three P4 kinds on the
+   hard inputs of sand_crate_tpu_torch/probes/probe_cases.py (W 200 and
+   1000, clamped windows, the slab's zero padding, nd2 at its floor, pairs
+   at exactly one diameter, one block; an odd m, tr 1, 3 and 8, NXP 32,
+   air blocks, coincident particles, pairs at exactly one diameter, far
+   positions, noise with a tick and a row offset; an odd W, one visit and
+   64, equal rw, coincident positions, a candidate at the cutoff; every
+   step rounding, subnormal inputs, overflow to inf, a partial last block,
+   0 iterations), and every P2 variant at M = 1..8 (each compiled m): bit
+   for bit.
 (i) recording and checkpoints on the stirring-cup world (an emitter and a
    motored cup): stream_frames -> TrajectoryWriter -> load_trajectory gives
    the frames back; a checkpoint saved at tick T and restored into a fresh
@@ -1101,6 +1105,14 @@ def p1_probe(crate):
     slab_p, dma_lo, ws, _ = p1.prepare(slab, sorted_cid, sc.grid_nx, sc.grid_ny)
     coef = p1.coefficients(pr.diameter, slab.device)
     nblocks, nchunks = dma_lo.shape[0], ws.shape[0] // 3
+    # The kernel's 1 / sqrt (inv_sqrt_rn) is exact for nd2 in [2^-100, 2^127];
+    # nd2 >= 1e-12 by its clamp, and at most the squared span of the slab's
+    # positions (the padding's zeros included) widened by the jitter.
+    span = slab_p[:2].amax(dim=1) - slab_p[:2].amin(dim=1) + 0.1 * coef[0]
+    nd2_max = float((span * span).sum())
+    print(f"  P1 nd2 in [1e-12, {nd2_max:.4f}] (inv_sqrt_rn exact in [2^-100, 2^127]); "
+          f"dynamic shared memory a CTA: a {p1.shared_bytes('a')} B, b {p1.shared_bytes('b')} B")
+    check(nd2_max < 2.0**127, f"P1 nd2 reaches {nd2_max}, past inv_sqrt_rn's exact range")
     rows = {}
     for mode in ("a", "b"):
         for w in (PROBE_W + 128, PROBE_W + 256):
@@ -1120,6 +1132,7 @@ def p1_probe(crate):
                                  lambda: p1.main(w=PROBE_W, mode="all", crate=crate))
     for (mode, w), row in rows.items():
         finish_row(row, times[mode, w], launches[f"pmajor_probe_{mode}"])
+        print(f"  P1 {mode} W {w}: {row['bound_ms'] / row['ms']:.3f} of its bound")
     return [rows[mode, PROBE_W + 256] for mode in ("a", "b")]
 
 
@@ -1224,15 +1237,38 @@ def p4_p3_probes():
 
 
 def probe_hard_cases():
-    """Phase (h), the hard inputs of probes/probe_cases.py: every P2 variant
-    and both P3 forms on each case, and every P2 variant at each compiled m
-    (the m sweep), bit for bit against their plain versions, after checking
-    that each case holds what it claims."""
+    """Phase (h), the hard inputs of probes/probe_cases.py: both P1 modes,
+    every P2 variant, both P3 forms and all three P4 kinds on each of their
+    cases, and every P2 variant at each compiled m (the m sweep), bit for bit
+    against their plain versions, after checking that each case holds what
+    it claims."""
     import torch
 
+    from sand_crate_tpu_torch.probes import bf16_probe as p4
     from sand_crate_tpu_torch.probes import hybrid_probe as p3
     from sand_crate_tpu_torch.probes import passa_probe as p2
+    from sand_crate_tpu_torch.probes import pmajor_probe as p1
     from sand_crate_tpu_torch.probes import probe_cases
+
+    for case in probe_cases.PMAJOR_CASES:
+        facts = probe_cases.pmajor_facts(case)
+        check(facts["holds"], f"P1 case {case}: {facts}")
+        slab_p, dma_lo, ws, coef, w = probe_cases.pmajor_inputs(case, "cuda")
+        for mode in ("a", "b"):
+            check(torch.equal(p1.probe(slab_p, dma_lo, ws, coef, w, mode),
+                              p1.probe_plain(slab_p, dma_lo, ws, coef, w, mode)),
+                  f"P1 case {case} mode {mode}: kernel differs from its plain version")
+        print(f"  P1 {case} ({probe_cases.PMAJOR_CASES[case].claim}): {facts}; modes a and b "
+              "== plain bit for bit")
+    for case in probe_cases.CHAIN_CASES:
+        facts = probe_cases.chain_facts(case)
+        check(facts["holds"], f"P4 case {case}: {facts}")
+        for kind in p4.KINDS:
+            x, iters, a, b = probe_cases.chain_inputs(case, kind, "cuda")
+            check(torch.equal(p4.chain(x, kind, iters, a, b), p4.chain_plain(x, kind, iters, a, b)),
+                  f"P4 case {case} {kind}: kernel differs from its plain version")
+        print(f"  P4 {case} ({probe_cases.CHAIN_CASES[case].claim}): {facts}; f32, bf16 and "
+              "mixed == plain bit for bit")
 
     for case in probe_cases.PASSA_CASES:
         facts = probe_cases.passa_facts(case)
@@ -1488,7 +1524,7 @@ def main() -> int:
               f"versions, iters {PROBE_ITERS}:")
         probe_rows = p4_p3_probes() + probe_rows
     with phase("probe hard cases"):
-        print("P2 and P3 vs their plain versions on the hard inputs (probes/probe_cases.py):")
+        print("P1-P4 vs their plain versions on the hard inputs (probes/probe_cases.py):")
         probe_hard_cases()
 
     # -- (i) recording and checkpoints -------------------------------------------

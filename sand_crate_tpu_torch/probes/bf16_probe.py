@@ -6,9 +6,13 @@ COLS), and the mixed shape the hybrid kernel needs (an f32 mask, then bf16
 where + mul and bf16 accumulators).  Each element runs LANES independent
 chains ``c_k = x * (1 + 0.01 k)``, then ``iters`` x ``c = c * a + b``, then
 sums them.  The kernels are ``csrc/probes.cu`` ``chain_f32_kernel`` (a
-thread per element), ``chain_bf16_kernel`` (a thread per packed bf16x2
-pair, ``__hmul2_rn``/``__hadd2_rn``: no mul+add is contracted into an FMA)
-and ``mixed_kernel``.
+thread per element), ``chain_bf16_kernel`` (CHAIN_PAIRS packed bf16x2 pairs
+a thread, each step one bf16x2 multiply and one add, each rounded once: no
+mul+add is contracted into an FMA; ``a`` and ``b`` staged through shared
+memory, so that the card issues the steps on two pipes) and
+``mixed_kernel``.  ``a`` and ``b``
+default to the tool's constants; the hard inputs of ``probe_cases`` set
+others.
 
     python -m sand_crate_tpu_torch.probes.bf16_probe [iters_per_elem]
 
@@ -33,6 +37,8 @@ BLOCKS = 64
 LANES = 8  # independent chains, so the probe is issue-bound, not latency-bound
 A = 1.0000001  # the chain's multiplier; bf16(A) is 1.0
 B = 1e-7
+CHAIN_THREADS = 128  # chain_bf16_kernel's block (kChainThreads)
+CHAIN_PAIRS = 2  # and its bf16x2 pairs a thread (kChainPairs)
 KINDS = ("f32", "bf16", "mixed")
 _LABEL = {"f32": "bf16_chain_f32", "bf16": "bf16_chain_bf16", "mixed": "bf16_mixed"}
 
@@ -49,13 +55,14 @@ def _scale(k: int) -> torch.Tensor:
     return torch.tensor(1.0 + 0.01 * k, dtype=torch.float32)
 
 
-def chain_plain(x: torch.Tensor, kind: str, iters: int) -> torch.Tensor:
+def chain_plain(x: torch.Tensor, kind: str, iters: int, a: float = A,
+                b: float = B) -> torch.Tensor:
     """Plain torch version of the three kernels: f32 operations, with the
     bf16 roundings written out after each operation the kernel does in
-    bf16."""
+    bf16 (the mixed kernel takes no ``b``)."""
     dev = x.device
-    a = torch.tensor(A, dtype=torch.float32)
-    b = torch.tensor(B, dtype=torch.float32)
+    a = torch.tensor(a, dtype=torch.float32)
+    b = torch.tensor(b, dtype=torch.float32)
     if kind == "f32":
         chains = [x * _scale(k).to(dev) for k in range(LANES)]
         for _ in range(iters):
@@ -88,21 +95,21 @@ def chain_plain(x: torch.Tensor, kind: str, iters: int) -> torch.Tensor:
     return acc
 
 
-def chain(x: torch.Tensor, kind: str, iters: int) -> torch.Tensor:
+def chain(x: torch.Tensor, kind: str, iters: int, a: float = A, b: float = B) -> torch.Tensor:
     """One probe kernel (``kind`` f32, bf16 or mixed) over ``x``: CPU tensors
     run :func:`chain_plain`, CUDA tensors launch the kernel of
     ``csrc/probes.cu`` (counted in ``probes.LAUNCHES``)."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if dispatch("bf16_probe.chain", x):
-        return chain_plain(x, kind, iters)
+        return chain_plain(x, kind, iters, a, b)
     dtype = torch.bfloat16 if kind == "bf16" else torch.float32
     check_cuda("bf16_probe.chain: x", x, dtype, x.shape)
     if x.numel() % 2:
         raise ValueError("bf16_probe.chain: the element count must be even (bf16x2 pairs)")
     out = torch.empty_like(x)
     run_kernel(_LABEL[kind], load_lib().sc_probe_chain, x.data_ptr(), out.data_ptr(),
-               KINDS.index(kind), x.numel(), iters, float(A), float(B), device=x.device)
+               KINDS.index(kind), x.numel(), iters, float(a), float(b), device=x.device)
     return out
 
 

@@ -8,10 +8,10 @@ range, a chunk's windows come from its first self's row and column only,
 and dead columns carry junk.  The port reproduces that index arithmetic and
 the tool's hashed candidate jitter (``_hash2``: arithmetic shifts, wrapping
 multiplies, the seed summed in f32 before the int32 cast).  The kernel is
-``csrc/probes.cu`` ``pmajor_probe_kernel`` (a CTA of 128 threads per chunk,
-one self each; the candidates staged through shared memory 128 columns at
-a time).  Mode "a" sums 4 rows (pass-A shape), mode "b" 8 (pass-B shape,
-stand-in operands).
+``csrc/probes.cu`` ``pmajor_probe_kernel`` (a CTA of 64 threads per chunk,
+two selves each; the three windows staged through shared memory TILE
+columns at a time, one 16-byte load a candidate).  Mode "a" sums 4 rows
+(pass-A shape), mode "b" 8 (pass-B shape, stand-in operands).
 
     python -m sand_crate_tpu_torch.probes.pmajor_probe [n_particles] [settle] [W] [mode]
 
@@ -32,8 +32,10 @@ from ..ops.pair_kernel import check_cuda
 from . import dispatch, load_lib, require_card, run_kernel
 
 CPB = 64  # chunks per block
-OWN = CPB * 128  # own columns per block
+CHUNK = 128  # selves per chunk
+OWN = CPB * CHUNK  # own columns per block
 VCAP = 16384  # window columns per block
+TILE = 256  # columns of each window the kernel stages at once (kP1Tile)
 _I32 = 1 << 32
 
 
@@ -111,6 +113,12 @@ def coefficients(diameter, device) -> torch.Tensor:
     return torch.stack([d, torch.zeros((), dtype=torch.float32, device=device)])
 
 
+def shared_bytes(mode: str) -> int:
+    """Dynamic shared memory of one CTA of the kernel (p1_smem_bytes): TILE
+    columns of the three windows, 16 bytes a candidate in mode a, 36 in b."""
+    return 3 * TILE * (16 if mode == "a" else 36)
+
+
 def _windows(dma_lo: torch.Tensor, ws: torch.Tensor, w: int):
     """Per chunk: the self window columns (nchunks, 128) and the three
     candidate window starts (nchunks, 3), as the kernel computes them."""
@@ -127,6 +135,19 @@ def _windows(dma_lo: torch.Tensor, ws: torch.Tensor, w: int):
     return selves, starts
 
 
+def jitter(cand: torch.Tensor, coef: torch.Tensor):
+    """The probe's jittered positions (npx, npy) of slab columns ``cand``
+    (8, ...): each position plus the low 16 bits of ``hash2`` of its
+    column's (rw * 131072 + rk * 8192 + cx), summed in f32 and truncated to
+    int32, scaled to a tenth of the diameter."""
+    jscale = (coef[1] * 0.0 + coef[0] * 0.1) / 65535.0
+    hseed = (cand[6] * 131072.0 + cand[5] * 8192.0 + cand[4]).to(torch.int32).long()
+    h1 = hash2(hseed + coef[1].to(torch.int32).long())
+    h2 = hash2(hseed ^ 0x5BD1E995)
+    return (cand[0] + (h1 & 0xFFFF).to(torch.float32) * jscale,
+            cand[1] + (h2 & 0xFFFF).to(torch.float32) * jscale)
+
+
 def probe_plain(slab_p, dma_lo, ws, coef, w: int, mode: str) -> torch.Tensor:
     """Plain torch version of the kernel -> (nchunks, 8, 128) f32: the
     three windows' terms added per candidate column, the columns summed in
@@ -140,19 +161,12 @@ def probe_plain(slab_p, dma_lo, ws, coef, w: int, mode: str) -> torch.Tensor:
     diam = coef[0]
     inv_diam = 1.0 / diam
     diam2 = diam * diam
-    amp = coef[1] * 0.0 + diam * 0.1
-    jscale = amp / 65535.0
-    hadd = coef[1].to(torch.int32).long()
     n_out = 4 if mode == "a" else 8
     acc = [torch.zeros_like(s_px) for _ in range(n_out)]
     zero = torch.zeros((), dtype=f32, device=slab_p.device)
     for col in range(w):
         cand = slab_p[:, starts + col][..., None]  # (8, nchunks, 3, 1)
-        hseed = (cand[6] * 131072.0 + cand[5] * 8192.0 + cand[4]).to(torch.int32).long()
-        h1 = hash2(hseed + hadd)
-        h2 = hash2(hseed ^ 0x5BD1E995)
-        npx = cand[0] + (h1 & 0xFFFF).to(f32) * jscale
-        npy = cand[1] + (h2 & 0xFFFF).to(f32) * jscale
+        npx, npy = jitter(cand, coef)
         v = [zero] * n_out
         for q in range(3):
             c_px, c_py = cand[0][:, q], cand[1][:, q]

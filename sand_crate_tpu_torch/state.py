@@ -230,23 +230,29 @@ def _tensor(value, device, dtype):
     return torch.as_tensor(a, device=device)
 
 
-def params_from_numpy(arrays: dict, device="cpu", dtype=torch.float32) -> Params:
-    """Params from ``{field: array}`` (e.g. the JAX Params leaves)."""
+def params_from_numpy(arrays: dict, device="cuda", dtype=torch.float32) -> Params:
+    """Params from ``{field: array}`` (e.g. the JAX Params leaves), on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device, "params_from_numpy")
     return Params(**{k: _tensor(arrays[k], device, dtype) for k in Params._fields})
 
 
-def scene_from_numpy(fields: dict, device="cpu", dtype=torch.float32) -> Scene:
-    """Scene from ``{field: value}``: tensor fields from arrays, static fields
-    as given.  Keys that the port's Scene has no field for (the JAX Scene's
-    TPU-tactic fields) are ignored."""
+def scene_from_numpy(fields: dict, device="cuda", dtype=torch.float32) -> Scene:
+    """Scene from ``{field: value}``: tensor fields from arrays on ``device``
+    (the card unless the caller asks for the CPU), static fields as given.
+    Keys that the port's Scene has no field for (the JAX Scene's TPU-tactic
+    fields) are ignored."""
+    device = resolve_device(device, "scene_from_numpy")
     arrays = {k: _tensor(fields[k], device, dtype) for k in SCENE_ARRAYS}
     arrays["seg_body"] = arrays["seg_body"].long()
     return Scene(**arrays, **{k: fields[k] for k in SCENE_STATICS if k in fields})
 
 
-def state_from_numpy(arrays: dict, device="cpu", dtype=torch.float32) -> CrateState:
+def state_from_numpy(arrays: dict, device="cuda", dtype=torch.float32) -> CrateState:
     """CrateState from ``{field: array}`` (e.g. the JAX CrateState leaves;
-    its ``key`` has no counterpart and is ignored)."""
+    its ``key`` has no counterpart and is ignored), on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device, "state_from_numpy")
     return CrateState(
         **{k: _tensor(arrays[k], device, dtype) for k in CrateState._fields}
     )

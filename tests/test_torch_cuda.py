@@ -358,6 +358,29 @@ def test_probe_passa_and_hybrid_bit_identical_on_hard_cases(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(probe_cases.PMAJOR_CASES) + sorted(probe_cases.CHAIN_CASES))
+def test_probe_pmajor_and_chain_bit_identical_on_hard_cases(cuda, case):
+    """P1 (modes a and b) or P4 (f32, bf16 and mixed) on a hard input of
+    probes/probe_cases.py (W 200 and 1000, clamped windows, the zero
+    padding, nd2 at its floor, pairs at one diameter, one block; every step
+    rounding, subnormal inputs, overflow to inf, a partial last block, 0
+    iterations): kernel == plain version, bit for bit."""
+    from sand_crate_tpu_torch.probes import bf16_probe, pmajor_probe
+
+    if case in probe_cases.PMAJOR_CASES:
+        slab_p, dma_lo, ws, coef, w = probe_cases.pmajor_inputs(case, cuda)
+        for mode in ("a", "b"):
+            got = pmajor_probe.probe(slab_p, dma_lo, ws, coef, w, mode)
+            assert torch.equal(got, pmajor_probe.probe_plain(slab_p, dma_lo, ws, coef, w, mode)), mode
+    else:
+        for kind in bf16_probe.KINDS:
+            x, iters, a, b = probe_cases.chain_inputs(case, kind, cuda)
+            got = bf16_probe.chain(x, kind, iters, a, b)
+            want = bf16_probe.chain_plain(x, kind, iters, a, b)
+            assert torch.equal(got, want), kind
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m_slots", probe_cases.SWEEP_SLOTS)
 def test_probe_passa_bit_identical_at_every_m(cuda, m_slots):
     """P2 (every variant) on the sweep case at M = 1..8, so that each

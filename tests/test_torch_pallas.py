@@ -71,9 +71,9 @@ def _setup(stirring_cup_config, M, enable_spring=False, capacity=512):
                          cell_capacity=M, enable_spring=enable_spring)
     fields = {f.name: getattr(js, f.name) for f in dataclasses.fields(js)}
     ts = scene_from_numpy({k: np.asarray(v) if hasattr(v, "shape") else v
-                           for k, v in fields.items()})
+                           for k, v in fields.items()}, device="cpu")
     jp = JaxParams.from_coefficients(w.coefficients)
-    tp = params_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()})
+    tp = params_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()}, device="cpu")
     assert ts.cell_capacity == M and ts.forces_mode == "pallas"
     return js, jp, ts, tp
 

@@ -61,8 +61,9 @@ def _both(scene, params, pos, vel, alive, noise_amp=0.0, tick=0, fold=False):
         params.ignored_pressure, params.spring_overlap_balance, scene,
         pressure_amplifier=pa,
     )
-    tscene = scene_from_numpy(_jax_scene_fields(scene))
-    tparams = params_from_numpy({k: np.asarray(v) for k, v in params._asdict().items()})
+    tscene = scene_from_numpy(_jax_scene_fields(scene), device="cpu")
+    tparams = params_from_numpy({k: np.asarray(v) for k, v in params._asdict().items()},
+                                device="cpu")
     got = tpm.neighbor_forces_pmajor(
         torch.as_tensor(pos), torch.as_tensor(vel), torch.as_tensor(alive),
         torch.tensor(noise_amp, dtype=torch.float32),
@@ -199,7 +200,7 @@ def _regime_sorted(stirring_cup_config, regime):
     cap = cfg.get("capacity", 128)
     scene, params = _setup(stirring_cup_config, capacity=cap, max_particles=cap,
                            **cfg["scene_kw"])
-    tscene = scene_from_numpy(_jax_scene_fields(scene))
+    tscene = scene_from_numpy(_jax_scene_fields(scene), device="cpu")
     pos, _, alive = cfg["data"](float(np.asarray(params.diameter)))
     pos, alive = torch.as_tensor(pos), torch.as_tensor(alive)
     cid, order = torch.sort(cell_ids_grid(pos, alive, tscene), stable=True)
@@ -262,10 +263,10 @@ def test_plain_chunking_is_invisible(stirring_cup_config, monkeypatch):
     """The plain version's self chunking changes nothing but the chunk loop."""
     scene, params = _setup(stirring_cup_config, capacity=512, max_particles=512,
                            forces_mode="pmajor")
-    tscene = scene_from_numpy(_jax_scene_fields(scene))
+    tscene = scene_from_numpy(_jax_scene_fields(scene), device="cpu")
     pos, vel, alive = _random(21, 512, 0.9, 0.05, 0.9)
     args = (torch.as_tensor(pos), torch.as_tensor(vel), torch.as_tensor(alive))
-    tp = params_from_numpy({k: np.asarray(v) for k, v in params._asdict().items()})
+    tp = params_from_numpy({k: np.asarray(v) for k, v in params._asdict().items()}, device="cpu")
 
     def run():
         return tpm.neighbor_forces_pmajor(

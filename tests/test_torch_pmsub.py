@@ -63,8 +63,8 @@ def _setup(stirring_cup_config, capacity=128, max_particles=96, **scene_kw):
     fields = {f.name: getattr(js, f.name) for f in dataclasses.fields(js)}
     fields = {k: np.asarray(v) if hasattr(v, "shape") else v for k, v in fields.items()}
     fields["forces_mode"] = "pmajor"
-    tp = params_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()})
-    return js, jp, scene_from_numpy(fields), tp
+    tp = params_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()}, device="cpu")
+    return js, jp, scene_from_numpy(fields, device="cpu"), tp
 
 
 def _both(setup, pos, vel, alive, noise_amp=0.0, tick=0, fold=False):

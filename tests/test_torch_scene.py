@@ -98,7 +98,7 @@ def test_from_numpy_round_trip(name):
         (params_from_numpy, jparams),
         (scene_from_numpy, jscene_f),
     ):
-        back = to_numpy(conv(src))
+        back = to_numpy(conv(src, device="cpu"))
         for k, v in back.items():
             if isinstance(v, np.ndarray):
                 np.testing.assert_array_equal(v, src[k], err_msg=k)
@@ -169,6 +169,28 @@ def test_functional_entry_defaults_to_the_card():
             Params.from_coefficients(world.coefficients)
     assert build_scene(world, device="cpu").segments0.device.type == "cpu"
     assert Params.from_coefficients(world.coefficients, "cpu").dt.device.type == "cpu"
+
+
+def test_carry_over_defaults_to_the_card():
+    """params_from_numpy, scene_from_numpy and state_from_numpy, which carry
+    the JAX package's pytrees into the port, run on the card unless the
+    caller asks for the CPU: with no device they land on CUDA, and without a
+    card they raise instead of falling back."""
+    jworld = jax_load_config(REPO / "configs" / "stirring_cup.yaml").world_config
+    jscene = jax_build_scene(jworld, forces_mode="pmajor", capacity=256)
+    leaves = (
+        (state_from_numpy, _jax_fields(jax_init_state(jworld, jscene, seed=1)), "pos"),
+        (params_from_numpy, _jax_fields(JaxParams.from_coefficients(jworld.coefficients)), "dt"),
+        (scene_from_numpy, _jax_fields(jscene), "segments0"),
+    )
+    for conv, src, field in leaves:
+        if torch.cuda.is_available():
+            assert getattr(conv(src), field).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError,
+                               match=f"{conv.__name__} runs on the CUDA device.*device='cpu'"):
+                conv(src)
+        assert getattr(conv(src, device="cpu"), field).device.type == "cpu"
 
 def test_port_imports_no_jax_nor_yaml():
     # Only modules that the imports below add count (an interpreter start-up
