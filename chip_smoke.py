@@ -109,6 +109,22 @@ prints its wall time as "[phase] name: s"):
    the frames back; a checkpoint saved at tick T and restored into a fresh
    Crate runs on as the uninterrupted crate does, held against two
    uninterrupted runs from one seed (bit for bit where those agree).
+(j) batched crates and the small- and mid-crate backends (plain torch, no
+   kernel of their own; every kernel count stays 0 on their paths): (a)
+   stirring_cup and wave_machine (bench.STIRRING_CUP, bench.WAVE_MACHINE)
+   as one crate on dense, chunked and pmajor for SMALL_TICKS ticks each,
+   dense and pmajor twice in turns, steps/s and step p50 per backend, the
+   first run of each under the profiler too (the evidence for
+   "auto"'s thresholds), non_finite and overflow 0, uids unique, the count
+   within its budget, and after the sources stop the alive set kept; (b) a
+   vmapped BatchedCrates of VMAP_CRATES crates without emitters against
+   each crate stepped alone, dense and chunked; (c) run_datagen with
+   DATAGEN_CRATES stirring_cup crates (the BASELINE.json config #5 size),
+   DATAGEN_TICKS ticks sampled every DATAGEN_EVERY: every crate finite,
+   overflow 0, particle-steps/s and peak memory; (d) WAVE_CRATES
+   wave_machine crates for WAVE_TICKS ticks: particle-steps/s, overflow 0.
+   (c) and (d) run on BatchedCrates' default backend and then on the other
+   one (the evidence for its threshold).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -182,6 +198,16 @@ PROBE_W = 256  # pmajor_probe's default W: modes a and b at W + 128 and W + 256
 PROBE_P3_SPREAD = 0.10  # P3's two inputs must time within 10% of each other
 CKPT_FRAMES = 20  # stream_frames frames of 2 ticks before the checkpoint
 CKPT_TICKS = 30  # ticks after it
+SMALL_TICKS = 200  # (j)(a): single-crate ticks per backend
+SMALL_AFTER = 20  # ticks after the timed run (sources stopped: alive kept)
+VMAP_CRATES = 4  # (j)(b)
+VMAP_TICKS = 20
+DATAGEN_CRATES = 1024  # (j)(c): BASELINE.json config #5
+DATAGEN_TICKS = 100
+DATAGEN_EVERY = 20
+WAVE_CRATES = 64  # (j)(d): the JAX package's measured batch (ops/chunked.py:80)
+WAVE_TICKS = 20
+PROFILED_TICKS = 5  # (j): ticks under torch.profiler for the device's busy share
 
 
 def check(ok: bool, what: str) -> None:
@@ -1364,6 +1390,288 @@ def recording_and_checkpoints():
           "restored coefficients differ")
 
 
+def kernel_counts():
+    """Every kernel launch counter of the port, as one dict."""
+    from sand_crate_tpu_torch.ops import pair_kernel, pmajor
+
+    return {**{f"pmajor.{k}": v for k, v in pmajor.LAUNCHES.items()},
+            **{f"grid.{k}": v for k, v in pair_kernel.LAUNCHES.items()}}
+
+
+def reset_kernel_counts() -> None:
+    from sand_crate_tpu_torch.ops import pair_kernel, pmajor
+
+    reset(pmajor.LAUNCHES)
+    reset(pair_kernel.LAUNCHES)
+
+
+def profiled(run, ticks: int) -> str:
+    """``run(ticks)`` under torch.profiler (as profile_tick.py reads it): the
+    host-clock ms a tick, the kernels' device ms a tick, the busy share
+    (kernel time / wall time) and the kernel launches a tick."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(ticks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / ticks * 1e3
+    events = prof.key_averages()
+    kernel_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / ticks / 1e3
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    return (f"profiled {ticks} ticks: wall {wall_ms:.3f} ms/tick (profiler on), kernels "
+            f"{kernel_ms:.3f} ms/tick, busy share {kernel_ms / wall_ms:.3f}, "
+            f"{launches / ticks:.0f} launches/tick")
+
+
+def small_crate(name: str, raw: dict, mode: str, smi: str, profile: bool) -> float:
+    """(j)(a): one crate of the dict world ``raw`` on backend ``mode`` for
+    SMALL_TICKS ticks (host clock closed by a synchronize) and P50_TICKS
+    event-timed ticks, with ``profile`` PROFILED_TICKS more under the
+    profiler; its invariants; returns steps/s."""
+    import copy
+
+    import torch
+
+    from sand_crate_tpu_torch import Crate, load_config_dict
+    from sand_crate_tpu_torch.physics import step
+
+    world = load_config_dict(copy.deepcopy(raw)).world_config
+    budget = int(world.coefficients["max_particles"])
+    crate = Crate(world, device="cuda", forces_mode=mode)
+    crate.run(5)  # first ticks allocate
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    diag = crate.run(SMALL_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    want = SMALL_TICKS if mode == "pmajor" else 0
+    check(launches["pmajor.a"] == launches["pmajor.b"] == want
+          and sum(launches.values()) == 2 * want,
+          f"{name} on {mode}: kernel launches {launches} (pmajor: K1/K2 once a tick; else none)")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(P50_TICKS + 1)]
+    state = crate.state
+    events[0].record()
+    for k in range(P50_TICKS):
+        state, _ = step(state, crate.params, crate.scene, crate.generator)
+        events[k + 1].record()
+    torch.cuda.synchronize()
+    p50 = statistics.median(events[k].elapsed_time(events[k + 1]) for k in range(P50_TICKS))
+    crate.state = state
+    st = crate.state
+    n = crate.particle_count
+    check(int(diag.non_finite) == 0 and int(diag.neighbor_overflow) == 0,
+          f"{name} on {mode}: non_finite {int(diag.non_finite)}, "
+          f"overflow {int(diag.neighbor_overflow)}")
+    check(0 < n <= budget, f"{name} on {mode}: {n} particles, budget {budget}")
+    uids = torch.sort(st.uid[st.alive]).values
+    check(bool((uids[1:] > uids[:-1]).all()), f"{name} on {mode}: uids not unique")
+    check(bool(torch.isfinite(st.pos[st.alive]).all()), f"{name} on {mode}: non-finite positions")
+    sources_off = bool((st.tick >= crate.scene.src_active_ticks).all())
+    if sources_off:
+        alive0 = by_uid(st, st.alive)
+        crate.run(SMALL_AFTER)
+        alive1 = by_uid(crate.state, crate.state.alive)
+        check(not bool((alive1 & ~alive0).any()), f"{name} on {mode}: a particle came alive "
+                                                  "with every source stopped")
+        r = crate.params.particle_radius
+        frozen = by_uid(crate.state, crate.state.pos)[alive0 & ~alive1]
+        check(bool(((frozen < -r) | (frozen > 1.0 + r)).any(dim=1).all()),
+              f"{name} on {mode}: a particle died inside the box")
+        kept = f"; sources stopped: {int(alive1.sum())} of {int(alive0.sum())} kept " \
+               f"over {SMALL_AFTER} ticks (the rest culled outside the box)"
+    else:
+        kept = "; a source still emits"
+    print(f"  {name} on {mode} ({smi}): capacity {crate.scene.capacity}, {n} particles at "
+          f"tick {int(st.tick)}, {SMALL_TICKS / wall:.3f} steps/s ({wall / SMALL_TICKS * 1e3:.3f} "
+          f"ms/step, host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, "
+          f"{P50_TICKS} ticks); launches {launches}{kept}")
+    if profile:
+        print(f"    {profiled(crate.run, PROFILED_TICKS)}")
+    return SMALL_TICKS / wall
+
+
+def vmapped_vs_solo(mode: str) -> None:
+    """(j)(b): VMAP_CRATES dam-break crates without emitters and with
+    viscosities of their own, vmapped, against each crate stepped alone
+    with its params: uid-aligned at the step tolerance (batched reductions
+    may round in another order on the card).  Dense without collider noise
+    (a draw per crate), chunked with it (hashed)."""
+    import torch
+
+    from sand_crate_tpu_torch import Config, Params
+    from sand_crate_tpu_torch.config import PlaybackConfig
+    from sand_crate_tpu_torch.physics import step
+    from sand_crate_tpu_torch.scene import init_state
+    from sand_crate_tpu_torch.sweep import BatchedCrates, grid_params
+
+    world = dam_break_world(600 if mode == "dense" else 1000)
+    config = Config(world_config=world, playback_config=PlaybackConfig())
+    base = Params.from_coefficients(world.coefficients, "cuda")
+    if mode == "dense":
+        base = base._replace(collider_noise_level=torch.zeros_like(base.collider_noise_level))
+    batched = grid_params(base, {"viscosity": [2.0, 5.0, 8.0, 12.0][:VMAP_CRATES]})
+    reset_kernel_counts()
+    crates = BatchedCrates(config, batched, device="cuda", seed=7)
+    check(crates.scene.forces_mode == mode, f"BatchedCrates picked {crates.scene.forces_mode}")
+    crates.run(VMAP_TICKS // 2)
+    crates.run(VMAP_TICKS - VMAP_TICKS // 2)
+    check(sum(kernel_counts().values()) == 0, "a batched run launched a kernel")
+    worst = 0.0
+    for i in range(VMAP_CRATES):
+        pr = Params(*(x[i] for x in batched))
+        st = init_state(world, crates.scene, seed=7 + i)
+        gen = torch.Generator(device="cuda")
+        for _ in range(VMAP_TICKS):
+            st, _ = step(st, pr, crates.scene, gen)
+        ia, ib = st.uid.long().argsort(), crates.state.uid[i].long().argsort()
+        alive = st.alive[ia]
+        check(torch.equal(crates.state.alive[i][ib], alive), f"{mode} crate {i}: alive differs")
+        for name in ("pos", "vel"):
+            a, b = getattr(crates.state, name)[i][ib][alive], getattr(st, name)[ia][alive]
+            worst = max(worst, float((a - b).abs().max()))
+            torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)
+    print(f"  vmapped vs solo, {mode}: {VMAP_CRATES} crates x {VMAP_TICKS} ticks of "
+          f"{crates.particle_counts().tolist()} particles (capacity {crates.scene.capacity}): "
+          f"max |difference| of pos and vel {worst:.3e}")
+
+
+def datagen_1024(smi: str, mode: str) -> float:
+    """(j)(c): run_datagen at BASELINE.json config #5's size on ``mode``;
+    returns its crate-steps/s."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sand_crate_tpu_torch import Params, load_config_dict
+    from sand_crate_tpu_torch.bench import STIRRING_CUP
+    from sand_crate_tpu_torch.recording import load_trajectory
+    from sand_crate_tpu_torch.sweep import (DEFAULT_RANDOM_RANGES, BatchedCrates, random_params,
+                                            run_datagen)
+
+    config = load_config_dict(copy.deepcopy(STIRRING_CUP))
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = run_datagen(config, DATAGEN_CRATES, DATAGEN_TICKS, DATAGEN_EVERY, tmp,
+                          seed=3, forces_mode=mode, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        frames = list(load_trajectory(tmp))
+    check(sum(kernel_counts().values()) == 0, "datagen launched a kernel")
+    check(out["frames"] == len(frames) == DATAGEN_TICKS // DATAGEN_EVERY, "datagen frames")
+    check(out["overflow"] == 0 and out["non_finite"] == 0,
+          f"datagen overflow {out['overflow']}, non_finite {out['non_finite']}")
+    counts = [int(f["alive"].sum()) for f in frames]
+    for f in frames:
+        check(f["pos"].shape[0] == DATAGEN_CRATES, "datagen frames lack the crate axis")
+        check(bool(np.isfinite(f["pos"][f["alive"]]).all()), "datagen: non-finite positions")
+    last = frames[-1]["alive"].sum(axis=1)
+    check(bool((last > 0).all()), "datagen: a crate emitted nothing")
+    batch = BatchedCrates(config, random_params(torch.Generator(device="cuda"),
+                                                Params.from_coefficients(
+                                                    config.world_config.coefficients, "cuda"),
+                                                DEFAULT_RANDOM_RANGES, DATAGEN_CRATES),
+                          device="cuda", forces_mode=mode)
+    batch.run(DATAGEN_EVERY)
+    profile = profiled(batch.run, PROFILED_TICKS)
+    del batch
+    steps = sum(counts) * DATAGEN_EVERY
+    print(f"  run_datagen ({smi}): {DATAGEN_CRATES} stirring_cup crates x {DATAGEN_TICKS} ticks, "
+          f"sampled every {DATAGEN_EVERY}, {mode} (capacity 640): {wall:.3f} s end to end "
+          f"(shards written), {DATAGEN_CRATES * DATAGEN_TICKS / wall:.1f} crate-steps/s, "
+          f"{steps / wall:.1f} particle-steps/s (particles counted at each sample: "
+          f"{counts}), alive per crate at the end {int(last.min())}-{int(last.max())}; "
+          f"peak memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    print(f"    a fresh batch after {DATAGEN_EVERY} ticks, {profile}")
+    return DATAGEN_CRATES * DATAGEN_TICKS / wall
+
+
+def wave_64(smi: str, mode: str) -> float:
+    """(j)(d): WAVE_CRATES wave_machine crates on ``mode``; returns
+    crate-steps/s."""
+    import copy
+
+    import torch
+
+    from sand_crate_tpu_torch import Params, load_config_dict
+    from sand_crate_tpu_torch.bench import WAVE_MACHINE
+    from sand_crate_tpu_torch.sweep import DEFAULT_RANDOM_RANGES, BatchedCrates, random_params
+
+    config = load_config_dict(copy.deepcopy(WAVE_MACHINE))
+    base = Params.from_coefficients(config.world_config.coefficients, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    crates = BatchedCrates(config, random_params(gen, base, DEFAULT_RANDOM_RANGES, WAVE_CRATES),
+                           device="cuda", seed=5, forces_mode=mode)
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps, worst, bounds = 0, 0, []
+    for _ in range(2):
+        before = int(crates.particle_counts().sum())
+        bounds.append(crates.live_rows(WAVE_TICKS // 2))
+        diag = crates.run(WAVE_TICKS // 2)
+        steps += (before + int(diag.particle_count.sum())) * (WAVE_TICKS // 2) // 2
+        worst = max(worst, int(diag.neighbor_overflow.max()))
+        check(int(diag.non_finite.max()) == 0, "wave crates: non-finite particles")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(sum(kernel_counts().values()) == 0, "a batched run launched a kernel")
+    check(worst == 0, f"wave crates: overflow {worst}")
+    print(f"  {WAVE_CRATES} wave_machine crates on {mode} ({smi}): {WAVE_TICKS} ticks in two "
+          f"runs (sweep bounds {bounds} of capacity {crates.scene.capacity}), {wall:.3f} s, "
+          f"{steps / wall:.1f} particle-steps/s (mean of each run's first and last count), "
+          f"{int(crates.particle_counts().sum())} particles at the end; overflow {worst}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"    {profiled(crates.run, PROFILED_TICKS)}")
+    return WAVE_CRATES * WAVE_TICKS / wall
+
+
+def batched_crates(smi: str) -> None:
+    """Phase (j)."""
+    from sand_crate_tpu_torch.bench import STIRRING_CUP, WAVE_MACHINE
+    from sand_crate_tpu_torch.scene import auto_forces_mode, default_capacity
+    from sand_crate_tpu_torch.sweep import DENSE_MAX_CAPACITY
+
+    # Dense and pmajor, the close pair, run twice in turns; chunked (4-5x
+    # behind dense in every reading) once.
+    print("(a) one crate per backend, in turns (dense, chunked, pmajor, pmajor, dense):")
+    modes = ("dense", "chunked", "pmajor")
+    for name, raw in (("stirring_cup", STIRRING_CUP), ("wave_machine", WAVE_MACHINE)):
+        cap = default_capacity(raw["world"]["coefficients"]["max_particles"])
+        rates = {mode: [] for mode in modes}
+        for k, mode in enumerate(modes + ("pmajor", "dense")):
+            rates[mode].append(small_crate(name, raw, mode, smi, profile=k < len(modes)))
+        print(f"  {name}: auto picks {auto_forces_mode(cap)} at capacity {cap}; steps/s "
+              + ", ".join(f"{m} " + " / ".join(f"{x:.3f}" for x in r) for m, r in rates.items()))
+    print("(b) vmapped BatchedCrates vs each crate alone:")
+    vmapped_vs_solo("dense")
+    vmapped_vs_solo("chunked")
+    # (c) and (d) run each batch on both vmappable backends, BatchedCrates'
+    # default first: the evidence for its dense/chunked threshold.
+    for label, run, name, cap in (("(c) batched datagen", datagen_1024, "stirring_cup", 640),
+                                  ("(d) mid-size batch", wave_64, "wave_machine", 4096)):
+        print(f"{label}:")
+        first = "dense" if cap <= DENSE_MAX_CAPACITY else "chunked"
+        other = "chunked" if first == "dense" else "dense"
+        rates = {first: run(smi, first), other: run(smi, other)}
+        print(f"  {name} batch: BatchedCrates picks {first} at capacity {cap}; crate-steps/s "
+              + ", ".join(f"{m} {r:.1f}" for m, r in rates.items()))
+
+
 def main() -> int:
     import torch
 
@@ -1530,6 +1838,11 @@ def main() -> int:
     # -- (i) recording and checkpoints -------------------------------------------
     with phase("recording + checkpoints"):
         recording_and_checkpoints()
+
+    # -- (j) batched crates, the dense and chunked backends ------------------------
+    with phase("batched crates"):
+        print(f"batched crates and the small- and mid-crate backends on {smi}:")
+        batched_crates(smi)
 
     print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,8 +5,10 @@ step over fixed-capacity particle tensors with a cell-sorted state — running
 on an NVIDIA Hopper GPU, with the pair passes of its two backends as
 hand-written CUDA kernels (``csrc/pmajor.cu`` for "pmajor", per-self K1/K2
 or, under ``SAND_CRATE_PMSUB=1``, the chunk-window K10;
-``csrc/grid_pair.cu`` for the slot-grid "pallas" mode).  It imports neither
-JAX nor ``sand_crate_tpu``.  On CPU tensors every kernel runs as its plain
+``csrc/grid_pair.cu`` for the slot-grid "pallas" mode), and the small- and
+mid-crate backends "dense" and "chunked" in plain torch, which vmap over a
+crate axis (``sweep.py``: batched crates, sweeps, datagen).  It imports
+neither JAX nor ``sand_crate_tpu``.  On CPU tensors every kernel runs as its plain
 torch version.  ``python -m sand_crate_tpu_torch.bench`` is its headline
 benchmark.
 """

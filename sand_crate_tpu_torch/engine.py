@@ -9,8 +9,9 @@ size, and the ``particles`` / ``particle_velocities`` /
 views (playback.py:77-81), while the state lives on ``device`` as a
 :class:`~sand_crate_tpu_torch.state.CrateState` advanced by the functional
 step.  ``device`` defaults to "cuda": without a card the constructor raises,
-and the caller asks for the CPU with ``device="cpu"``.  The emitters draw
-from a ``torch.Generator`` on the same device, seeded from ``seed``.
+and the caller asks for the CPU with ``device="cpu"``.  The emitters (and
+the dense backend's collider noise) draw from a ``torch.Generator`` on the
+same device, seeded from ``seed``.
 
 Two execution modes, as in the JAX package:
 * ``physics_tick()`` — one step per call, for interactive playback; with
@@ -69,6 +70,8 @@ class Crate:
         enable_spring: bool = False,
         forces_mode: str = "auto",
         cell_capacity: Optional[int] = None,
+        chunk_halo: Optional[int] = None,
+        chunk_cs: int = 256,
         pmajor_symm: Optional[bool] = None,
         instrument: bool = False,
         device="cuda",
@@ -80,6 +83,8 @@ class Crate:
             enable_spring=enable_spring,
             forces_mode=forces_mode,
             cell_capacity=cell_capacity,
+            chunk_halo=chunk_halo,
+            chunk_cs=chunk_cs,
             pmajor_symm=pmajor_symm,
             # Instrumented runs want the true per-force monitor split, so
             # they keep tension and pressure as separate pair sums.
@@ -135,14 +140,16 @@ class Crate:
         """Rebuild the neighbor grid when a live radius edit outgrows it
         (JAX engine.py:131-167).
 
-        Both backends search the 3x3 cell stencil, which covers the cutoff
-        only while diameter <= cell_size; the cell dims are static Scene
-        fields while particle_radius is a live coefficient.  When an edit
-        pushes 2 * radius past cell_size, the Scene is rebuilt around the
-        new diameter with the same options; the state needs nothing, since
-        every tick sorts it anew."""
+        The grid backends search the 3x3 cell stencil (chunked: rows within
+        one of each other), which covers the cutoff only while diameter <=
+        cell_size; the cell dims are static Scene fields while
+        particle_radius is a live coefficient.  When an edit pushes 2 *
+        radius past cell_size, the Scene is rebuilt around the new diameter
+        with the same options (the chunked halo follows the new grid, as in
+        the JAX package); the state needs nothing, since every tick sorts it
+        anew.  The dense backend has no stencil and keeps its scene."""
         scene = self.scene
-        if 2.0 * radius <= scene.cell_size:
+        if scene.forces_mode == "dense" or 2.0 * radius <= scene.cell_size:
             return
         world = self.world_config
         coeff = dict(world.coefficients)
@@ -153,6 +160,7 @@ class Crate:
             enable_spring=scene.enable_spring,
             forces_mode=scene.forces_mode,
             cell_capacity=scene.cell_capacity,
+            chunk_cs=scene.chunk_cs,
             fold_pairs=scene.fold_pairs,
             pmajor_symm=scene.pmajor_symm,
             device=scene.segments0.device,

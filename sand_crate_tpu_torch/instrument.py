@@ -50,6 +50,7 @@ def instrumented_tick(
             state.vel, state.alive, state.uid, ghost, state.tick, params, scene,
             prepos=state.pos, segments=state.segments,
             body_lin_vel=state.body_lin_vel, body_ang_vel=state.body_ang_vel,
+            generator=generator,
         )
         sync()
     vel, alive, ghost, sums = ops.vel, ops.alive, ops.ghost, ops.sums

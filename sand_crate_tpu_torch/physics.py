@@ -1,8 +1,8 @@
 """The physics tick as one functional step on tensors.
 
-The PyTorch counterpart of ``sand_crate_tpu/physics.py`` for the p-major
-and slot-grid ("pallas") backends.  Tick order (must match the reference
-crate.py:91-129):
+The PyTorch counterpart of ``sand_crate_tpu/physics.py`` for the p-major,
+slot-grid ("pallas"), dense and chunked backends.  Tick order (must match
+the reference crate.py:91-129):
 
   1.  spawn from sources, cull out-of-box particles
   2.  advance rigid bodies
@@ -10,15 +10,19 @@ crate.py:91-129):
       hard wall projection
   4.  stable cell-id sort of (vel, pre-fix pos, uid), ghost pass recomputed
       on the sorted order, then the pair sums (ops/pmajor.py: feature rows
-      -> pass A -> cell pressure -> pass B; or ops/pallas_forces.py: slab
-      -> slot grid -> pass A -> pass B emitted in sorted order)
+      -> pass A -> cell pressure -> pass B; ops/pallas_forces.py: slab
+      -> slot grid -> pass A -> pass B emitted in sorted order; or
+      ops/chunked.py: fixed windows of the sorted slab); the dense backend
+      skips the sort and sums all pairs (cellwise.neighbor_forces_dense)
   5.  tension, gravity, pressure, spring (flag-gated), viscosity, wall
       bounce, continuous collision kicks
   6.  integrate positions
 
-The state stays permanently cell-sorted (``uid`` carries identity), as in
-the JAX package.  Nothing here reads a tensor back to the host, so
-:func:`rollout` queues ticks on the device without waiting for them.
+The sorted backends keep the state permanently cell-sorted (``uid``
+carries identity), as in the JAX package.  Nothing here reads a tensor
+back to the host, so :func:`rollout` queues ticks on the device without
+waiting for them, and on the dense and chunked backends the step vmaps
+over a leading crate axis (``sweep.py``).
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ from typing import NamedTuple
 import torch
 
 from . import geometry as geo
-from .cellwise import PairSums, cell_ids_grid
+from .cellwise import PairSums, cell_ids_grid, neighbor_forces_dense
 from .config import BODY_FIXED, BODY_FREE, BODY_MOTORED
+from .ops.chunked import neighbor_forces_chunked_sorted
 from .ops.pallas_forces import neighbor_forces_pallas_sorted
 from .ops.pmajor import neighbor_forces_pmajor_sorted
 from .state import NUM_FORCES, CrateState, Diagnostics, Params, Scene
@@ -118,8 +123,10 @@ def spawn_particles(
     p = torch.clamp(params.dt.to(torch.float32), 0.0, 1.0)
     for z in range(scene.num_sources):
         active = state.tick < scene.src_active_ticks[z]
+        # The count takes p's shape (and, under vmap, its crate axis), so
+        # each crate draws its own count into an output of its own size.
         n_raw = torch.binomial(
-            scene.src_flow[z].to(torch.float32), p, generator=generator
+            torch.zeros_like(p) + scene.src_flow[z].to(torch.float32), p, generator=generator
         ).to(torch.int32)
         want = torch.minimum(torch.where(active, n_raw, 0), budget).to(torch.int32)
         n = torch.clamp(want, max=ns)
@@ -316,15 +323,36 @@ def neighbor_stage(
     segments: torch.Tensor,
     body_lin_vel: torch.Tensor,
     body_ang_vel: torch.Tensor,
+    generator: torch.Generator | None = None,
+    live_rows: int | None = None,
 ) -> TickOperands:
     """Neighbor detection + collider population + pressures (crate.py:102-108)
-    on the scene's backend, p-major or the slot grid ("pallas").
+    on the scene's backend: p-major, the slot grid ("pallas"), chunked or
+    dense.
 
-    A stable sort by cell id permutes (vel, prepos, uid); the hard-wall-fixed
-    position and the ghost sums are recomputed on the sorted pre-fix
-    positions (_ghost_core), which gives the permuted values exactly.  Dead
-    particles sort last (cell id NC), so ``alive == sorted_cid < NC``.  Both
-    backends share the sort and the recompute, as in the JAX package."""
+    The sorted backends (all but dense) share one stable sort by cell id,
+    which permutes (vel, prepos, uid); the hard-wall-fixed position and the
+    ghost sums are recomputed on the sorted pre-fix positions
+    (_ghost_core), which gives the permuted values exactly.  Dead particles
+    sort last (cell id NC), so ``alive == sorted_cid < NC``.  The dense
+    backend keeps slot order and draws its collider noise, one (P, 2)
+    uniform array, from ``generator`` (the JAX package draws it from its
+    tick key).  ``live_rows`` bounds the chunked sweep (ops/chunked.py)."""
+    diam = params.diameter
+    if scene.forces_mode == "dense":
+        noise = (
+            (torch.rand((scene.capacity, 2), generator=generator, device=ghost.pos.device,
+                        dtype=ghost.pos.dtype) - 0.5)
+            * diam
+            * params.collider_noise_level
+        )
+        sums = neighbor_forces_dense(
+            ghost.pos, vel, alive, noise, diam, params.surface_smoothing,
+            params.target_pressure, params.ignored_pressure, params.spring_overlap_balance,
+            scene,
+        )
+        return TickOperands(pos=ghost.pos, vel=vel, alive=alive, uid=uid, ghost=ghost,
+                            sums=sums)
     cid = cell_ids_grid(ghost.pos, alive, scene)
     sorted_cid, order = torch.sort(cid, stable=True)
     vel, prepos, uid = vel[order], prepos[order], uid[order]
@@ -332,7 +360,6 @@ def neighbor_stage(
     ghost = _ghost_core(
         prepos, alive, segments, body_lin_vel, body_ang_vel, params, scene
     )
-    diam = params.diameter
     args = (
         ghost.pos,
         vel,
@@ -349,6 +376,8 @@ def neighbor_stage(
     )
     if scene.forces_mode == "pallas":
         sums = neighbor_forces_pallas_sorted(*args)
+    elif scene.forces_mode == "chunked":
+        sums = neighbor_forces_chunked_sorted(*args, live_rows=live_rows)
     else:
         # Enables the folded tension+pressure pass-B sum when
         # scene.fold_pairs is set.
@@ -478,12 +507,20 @@ def finish_tick(
 
 
 def step(
-    state: CrateState, params: Params, scene: Scene, generator: torch.Generator
+    state: CrateState,
+    params: Params,
+    scene: Scene,
+    generator: torch.Generator,
+    live_rows: int | None = None,
 ) -> tuple[CrateState, Diagnostics]:
     """One physics tick: (state, params, scene) -> (state, diagnostics).
 
-    ``generator`` supplies the emitters' random draws (a torch.Generator on
-    the state's device)."""
+    ``generator`` supplies the random draws (a torch.Generator on the
+    state's device): the emitters', then the dense backend's collider
+    noise.  ``live_rows`` is the chunked backend's sweep bound for batched
+    crates, an upper bound on this crate's alive count that is the same for
+    every crate of a vmapped batch (ops/chunked.py; other backends ignore
+    it); sweep.BatchedCrates computes it for each ``run``."""
     # -- lifecycle ---------------------------------------------------------
     state, spawn_truncated = spawn_particles(state, params, scene, generator)
     state = cull_particles(state, params)
@@ -497,6 +534,7 @@ def step(
         state.vel, state.alive, state.uid, ghost, state.tick, params, scene,
         prepos=state.pos, segments=state.segments,
         body_lin_vel=state.body_lin_vel, body_ang_vel=state.body_ang_vel,
+        generator=generator, live_rows=live_rows,
     )
     pos, vel, alive, ghost, sums = ops.pos, ops.vel, ops.alive, ops.ghost, ops.sums
 
@@ -529,13 +567,15 @@ def rollout(
     scene: Scene,
     num_ticks: int,
     generator: torch.Generator,
+    live_rows: int | None = None,
 ) -> tuple[CrateState, Diagnostics]:
     """Run ``num_ticks`` steps; returns the final state and the last tick's
     diagnostics, both on the device.  No tensor is read back to the host
-    inside the loop, so on a GPU the ticks queue without waiting."""
+    inside the loop, so on a GPU the ticks queue without waiting.
+    ``live_rows``: the chunked sweep bound, as in :func:`step`."""
     diag = None
     for _ in range(num_ticks):
-        state, diag = step(state, params, scene, generator)
+        state, diag = step(state, params, scene, generator, live_rows)
     return state, diag
 
 

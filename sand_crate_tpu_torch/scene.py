@@ -19,8 +19,6 @@ from .state import CrateState, Scene, resolve_device, scene_from_numpy
 
 # The JAX package's other backends, by the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "dense": "ROADMAP queue 1 item 7",
-    "chunked": "ROADMAP queue 1 item 7",
     "gather": "ROADMAP queue 1 item 8",
     "cellwise": "ROADMAP queue 1 item 8",
 }
@@ -53,6 +51,20 @@ def default_capacity(max_particles: int) -> int:
     return max(128, _round_up(int(max_particles), 128))
 
 
+def auto_forces_mode(capacity: int) -> str:
+    """The backend ``forces_mode="auto"`` picks for a crate of ``capacity``
+    slots, on every device, so a CPU run takes the path the card takes:
+    dense all-pairs up to 4096, the p-major kernels above.
+
+    On its accelerator the JAX package runs chunked from 2049 to 4096
+    (sand_crate_tpu/scene.py:85-100).  On the H100 the chunked backend's
+    loop over self chunks ran a capacity-4096 crate (wave_machine) about 5x
+    slower than dense, and dense was ahead of p-major too (chip_smoke.py
+    phase (j), PERF.md), so the port's dense range reaches 4096; chunked
+    serves batched crates (sweep.py)."""
+    return "dense" if capacity <= 4096 else "pmajor"
+
+
 def build_scene(
     world: WorldConfig,
     *,
@@ -60,6 +72,8 @@ def build_scene(
     enable_spring: bool = False,
     forces_mode: str = "auto",
     cell_capacity: int | None = None,
+    chunk_halo: int | None = None,
+    chunk_cs: int = 256,
     fold_pairs: bool | None = None,
     pmajor_symm: bool | None = None,
     device="cuda",
@@ -67,29 +81,31 @@ def build_scene(
 ) -> Scene:
     """Build the immutable Scene from a parsed world config.
 
-    ``forces_mode``: "pmajor", "pallas" (the slot-grid backend), or "auto",
-    which resolves to "pmajor" at every size until the small-crate backends
-    are ported (the JAX thresholds at sand_crate_tpu/scene.py:86-98 were
-    tuned on a TPU; the JAX "auto" never picks "pallas" either).  Every
-    other JAX mode raises NotImplementedError naming the ROADMAP item that
-    ports it.  ``cell_capacity``: the pallas grid's slots per cell (default
-    16, as in the JAX package).  ``device`` defaults to the card; without
-    one it raises, and the caller asks for the CPU with ``device="cpu"``.
+    ``forces_mode``: "pmajor", "pallas" (the slot-grid backend), "dense",
+    "chunked", or "auto", which picks by capacity (:func:`auto_forces_mode`;
+    it never picks "pallas" or "chunked").  Every other JAX mode
+    raises NotImplementedError naming the ROADMAP item that ports it.
+    ``cell_capacity``: the pallas grid's slots per cell (default 16, as in
+    the JAX package).  ``chunk_halo`` / ``chunk_cs``: the chunked backend's
+    halo (default: about two grid rows of the sorted slab, as in the JAX
+    package) and self-chunk width.  ``device`` defaults to the card;
+    without one it raises, and the caller asks for the CPU with
+    ``device="cpu"``.
     """
     device = resolve_device(device, "build_scene")
+    coeff = world.coefficients
+    diameter = 2.0 * float(coeff["particle_radius"])
+    capacity = capacity or default_capacity(int(coeff["max_particles"]))
     if forces_mode == "auto":
-        forces_mode = "pmajor"
+        forces_mode = auto_forces_mode(capacity)
     if forces_mode in _NOT_PORTED:
         raise NotImplementedError(
             f"forces_mode={forces_mode!r} is not ported yet ({_NOT_PORTED[forces_mode]})"
         )
-    if forces_mode not in ("pmajor", "pallas"):
+    if forces_mode not in ("pmajor", "pallas", "dense", "chunked"):
         raise ValueError(f"unknown forces_mode {forces_mode!r}")
     if cell_capacity is None:
         cell_capacity = 16
-    coeff = world.coefficients
-    diameter = 2.0 * float(coeff["particle_radius"])
-    capacity = capacity or default_capacity(int(coeff["max_particles"]))
 
     # ---- rigid bodies ----
     seg_list, seg_body = [], []
@@ -163,6 +179,10 @@ def build_scene(
         row_block //= 2
     grid_ny = _round_up(grid_nx, row_block)
 
+    # ---- chunked-backend halo (JAX scene.py:194-206) ----
+    if chunk_halo is None:
+        chunk_halo = min(_round_up(capacity, 128), max(256, _round_up(2 * grid_nx, 128)))
+
     # ---- p-major pair options (JAX defaults, scene.py:208-221) ----
     if fold_pairs is None:
         fold_pairs = forces_mode == "pmajor" and not enable_spring
@@ -196,6 +216,8 @@ def build_scene(
             enable_spring=enable_spring,
             forces_mode=forces_mode,
             cell_capacity=int(cell_capacity),
+            chunk_halo=int(chunk_halo),
+            chunk_cs=int(chunk_cs),
             fold_pairs=bool(fold_pairs),
             pmajor_symm=bool(pmajor_symm),
             motor_exprs=tuple(motor_exprs),

@@ -87,11 +87,10 @@ class Scene:
 
     Tensor fields live on the crate's device; the trailing int/float/bool
     fields are host values the step branches on.  The JAX Scene's
-    TPU-tactic fields (``row_block``, ``max_neighbors``, ``chunk_halo``,
-    ``chunk_cs``, ``pmajor_w``, ``pmajor_cs``, ``pmajor_split``) have no
-    counterpart: the port's p-major kernel visits every candidate, the grid
-    kernels need no row block, and the backends the other fields tune are
-    not ported yet.
+    TPU-tactic fields ``row_block``, ``max_neighbors``, ``pmajor_w``,
+    ``pmajor_cs`` and ``pmajor_split`` have no counterpart: the port's
+    p-major kernel visits every candidate, the grid kernels need no row
+    block, and the fixed-K gather backend is not ported yet.
     """
 
     # --- rigid bodies (reference: rigid_body.py:36-40) ---------------------
@@ -123,14 +122,21 @@ class Scene:
     max_spawn: int = 64
     enable_spring: bool = False
     # Neighbor-force backend: "pmajor" (the grid-free sorted-slab pair
-    # kernels, ops/pmajor.py) or "pallas" (the padded slot grid,
-    # ops/pallas_forces.py); scene.build_scene rejects the JAX package's
-    # other modes until they are ported.
+    # kernels, ops/pmajor.py), "pallas" (the padded slot grid,
+    # ops/pallas_forces.py), "dense" (masked all-pairs, cellwise.py) or
+    # "chunked" (fixed-halo windows of the sorted slab, ops/chunked.py);
+    # scene.build_scene rejects the JAX package's other modes until they
+    # are ported.
     forces_mode: str = "pmajor"
     # Slots per grid cell of the "pallas" backend (M of the (F, NYP, M, NXP)
     # grid).  It changes results: particles past rank M in a cell take
     # their rank % M cellmate's sums and are counted in the overflow.
     cell_capacity: int = 16
+    # The "chunked" backend's candidate halo (sorted-slab positions on each
+    # side of a self chunk; a pair further apart is lost and counted into
+    # the overflow) and its self-chunk width (JAX state.py:142, 149).
+    chunk_halo: int = 384
+    chunk_cs: int = 256
     # Fold tension and pressure into one pass-B force sum (see the JAX
     # Scene.fold_pairs): the PairSums then carry the combined kick in
     # dv_tension and zeros in pressure_real.
@@ -189,7 +195,9 @@ class Diagnostics(NamedTuple):
 
     force_dv: torch.Tensor  # (NUM_FORCES,) f32 — mean ||dv|| over alive
     particle_count: torch.Tensor  # () int32
-    neighbor_overflow: torch.Tensor  # () int32 — over-capacity particles (pmajor: 0)
+    # () int32 — pallas: particles past a cell's capacity; chunked: candidate
+    # slots past the halo and alive rows past the sweep bound; pmajor, dense: 0
+    neighbor_overflow: torch.Tensor
     max_speed: torch.Tensor  # () f32
     non_finite: torch.Tensor  # () int32 — alive particles with NaN/inf
     spawn_truncated: torch.Tensor  # () int32 — emissions past max_spawn
@@ -232,7 +240,9 @@ def _tensor(value, device, dtype):
 
 def params_from_numpy(arrays: dict, device="cuda", dtype=torch.float32) -> Params:
     """Params from ``{field: array}`` (e.g. the JAX Params leaves), on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU).  Stacked
+    Params (every leaf with a leading crate axis, as ``sweep`` batches
+    them) carry over leaf by leaf in the same way."""
     device = resolve_device(device, "params_from_numpy")
     return Params(**{k: _tensor(arrays[k], device, dtype) for k in Params._fields})
 

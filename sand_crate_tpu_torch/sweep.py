@@ -1,0 +1,252 @@
+"""Batched crates: vmapped parameter sweeps and data generation.
+
+The PyTorch counterpart of ``sand_crate_tpu/sweep.py``.  The reference's
+sweep runs its coefficient variants one after another (main.py:21-36).
+Because the step is a pure function of (state, params), the variants become
+a leading crate axis instead: ``torch.func.vmap`` of the port's own
+``physics.step`` advances every crate at once on one device.  This is the
+batched datagen mode of BASELINE.json config #5 (1024 crates, randomized
+coefficients).  Params and states are stacked (every leaf gains the crate
+axis), so every coefficient can differ per crate; the scene is shared.
+
+Only the dense and chunked backends vmap: neither reads a tensor back to
+the host, and the chunked sweep bound is a host int that is the same for
+every crate.  The emitters and the dense collider noise draw from one
+``torch.Generator`` with ``randomness="different"``, so every crate draws
+numbers of its own.  The JAX package draws from ``jax.random``, so the two
+agree in their invariants and ranges, not in their draws.
+
+Every entry point runs on the card unless the caller asks for the CPU
+(``device="cpu"``); without a card it raises.
+"""
+
+from __future__ import annotations
+
+import itertools
+from pathlib import Path
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+
+from .config import Config
+from .physics import step
+from .recording import TrajectoryWriter
+from .scene import build_scene, default_capacity, init_state
+from .state import CrateState, Diagnostics, Params, Scene, resolve_device
+
+# The largest capacity BatchedCrates runs on the dense backend by default;
+# larger crates take the chunked windows (JAX sweep.py:92-94).
+DENSE_MAX_CAPACITY = 1024
+
+
+def stack_params(params_list: Iterable[Params]) -> Params:
+    """Stack per-crate Params along a new leading axis."""
+    return Params(*(torch.stack(leaves) for leaves in zip(*params_list)))
+
+
+def stack_states(states: Iterable[CrateState]) -> CrateState:
+    return CrateState(*(torch.stack(leaves) for leaves in zip(*states)))
+
+
+def grid_params(base: Params, options: dict) -> Params:
+    """Cartesian-product coefficient grid -> stacked Params (main.py:26-36),
+    in ``itertools.product`` order over ``options``' keys."""
+    keys = list(options)
+    variants = []
+    for values in itertools.product(*(options[k] for k in keys)):
+        override = {
+            k: torch.as_tensor(v, dtype=getattr(base, k).dtype, device=getattr(base, k).device)
+            for k, v in zip(keys, values)
+        }
+        variants.append(base._replace(**override))
+    return stack_params(variants)
+
+
+def random_params(
+    generator: torch.Generator, base: Params, ranges: dict[str, tuple[float, float]], n: int
+) -> Params:
+    """``n`` crates with each coefficient of ``ranges`` uniform in its
+    (lo, hi), drawn from ``generator`` (on ``base``'s device); the others
+    are ``base``'s."""
+    device = base.dt.device
+    overrides = {}
+    for name, (lo, hi) in ranges.items():
+        u = torch.rand((n,), generator=generator, device=device)
+        lo_t = torch.tensor(lo, dtype=torch.float32, device=device)
+        hi_t = torch.tensor(hi, dtype=torch.float32, device=device)
+        overrides[name] = lo_t + u * (hi_t - lo_t)
+    tiled = Params(*(x.expand((n,) + x.shape).clone() for x in base))
+    return tiled._replace(**overrides)
+
+
+class BatchedCrates:
+    """N independent crates advanced in lockstep with a vmapped step.
+
+    All crates share one Scene (geometry, capacity); params and state carry
+    a leading crate axis.  ``run`` queues its ticks on the device; crate i
+    starts from ``init_state(seed=seed + i)``, and the crates' random draws
+    come from one generator seeded with ``seed``."""
+
+    def __init__(
+        self,
+        config: Config,
+        batched_params: Params,
+        *,
+        seed: int = 0,
+        scene: Optional[Scene] = None,
+        device="cuda",
+        **scene_kwargs,
+    ) -> None:
+        world = config.world_config
+        if scene is None:
+            device = resolve_device(device, "BatchedCrates")
+            # Small crates vmap best as dense (P, P) planes; past ~1k
+            # particles those planes grow too large and the chunked
+            # backend's fixed windows take over.
+            cap = scene_kwargs.get("capacity") or default_capacity(
+                int(world.coefficients["max_particles"])
+            )
+            scene_kwargs.setdefault(
+                "forces_mode", "dense" if cap <= DENSE_MAX_CAPACITY else "chunked"
+            )
+            scene = build_scene(world, device=device, **scene_kwargs)
+        if scene.forces_mode not in ("dense", "chunked"):
+            raise ValueError(
+                f"BatchedCrates vmaps the dense and chunked backends only, not "
+                f"forces_mode={scene.forces_mode!r} (its pair passes read the host)"
+            )
+        self.scene = scene
+        device = scene.segments0.device
+        self.params = Params(*(x.to(device) for x in batched_params))
+        self.n = int(self.params.dt.shape[0])
+        self.state = stack_states(
+            [init_state(world, scene, seed=seed + i) for i in range(self.n)]
+        )
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(seed)
+
+    def live_rows(self, num_ticks: int) -> int | None:
+        """The chunked sweep bound for the next ``num_ticks`` ticks (None on
+        the dense backend): the largest alive count of any crate now, plus
+        a 6-sigma bound on the whole call's Binomial(flow, dt) emissions,
+        at most the capacity (JAX sweep.py:103-123).  The same for every
+        crate; a spawn run past it is counted into the overflow."""
+        if self.scene.forces_mode != "chunked":
+            return None
+        sc = self.scene
+        cur = int(self.state.alive.sum(dim=1).max())
+        exp = float(sc.src_flow.sum()) * float(self.params.dt.max()) * num_ticks
+        slack = min(int(exp + 6.0 * exp**0.5 + 16), num_ticks * sc.num_sources * sc.max_spawn)
+        return min(sc.capacity, cur + slack)
+
+    def run(self, num_ticks: int) -> Diagnostics:
+        """Advance all crates ``num_ticks``; returns stacked Diagnostics of
+        the last tick, but ``neighbor_overflow``, each crate's largest over
+        the call's ticks."""
+        self.state, diag = _batched_rollout(
+            self.state, self.params, self.scene, num_ticks, self.generator,
+            self.live_rows(num_ticks),
+        )
+        return diag
+
+    def particle_counts(self) -> np.ndarray:
+        return self.state.alive.sum(dim=1).cpu().numpy()
+
+    def positions(self) -> np.ndarray:
+        return self.state.pos.cpu().numpy()
+
+
+def _batched_rollout(state, params, scene, num_ticks: int, generator, live_rows=None):
+    """vmap over the crate axis of ``num_ticks`` steps.  ``live_rows`` is a
+    host int, the same for every crate.  The overflow is reduced with a max
+    over the ticks: the last tick's alone would hide one in the middle."""
+    if num_ticks < 1:
+        raise ValueError(f"num_ticks must be at least 1, got {num_ticks}")
+
+    def one(st, pr):
+        worst = None
+        for _ in range(num_ticks):
+            st, diag = step(st, pr, scene, generator, live_rows)
+            over = diag.neighbor_overflow
+            worst = over if worst is None else torch.maximum(worst, over)
+        return st, diag._replace(neighbor_overflow=worst)
+
+    return torch.func.vmap(one, randomness="different")(state, params)
+
+
+# Default coefficient ranges for randomized datagen crates (spans around the
+# shipped scene values, configs/stirring_cup.yaml; JAX sweep.py:159-166).
+DEFAULT_RANDOM_RANGES = {
+    "viscosity": (2.0, 12.0),
+    "pressure_amplifier": (10.0, 60.0),
+    "surface_smoothing": (20.0, 150.0),
+    "target_pressure": (-6.0, 3.0),
+    "ignored_pressure": (0.05, 0.4),
+}
+
+
+def run_datagen(
+    config: Config,
+    n_crates: int,
+    ticks: int,
+    sample_every: int,
+    out_dir,
+    *,
+    seed: int = 0,
+    ranges: Optional[dict] = None,
+    forces_mode: Optional[str] = None,
+    device="cuda",
+) -> dict:
+    """Batched trajectory data generation (BASELINE.json config #5).
+
+    ``n_crates`` crates with randomized coefficients advance in lockstep;
+    every ``sample_every`` ticks one batched frame (pos, alive, pressure,
+    segments of every crate) streams to npz shards, and the per-crate
+    coefficients are saved beside them as labels (``params.npz``).
+    ``forces_mode`` None lets BatchedCrates pick.  Returns the frame and
+    crate counts, the directory, and the largest overflow and non-finite
+    count of any crate over the run."""
+    device = resolve_device(device, "run_datagen")
+    base = Params.from_coefficients(config.world_config.coefficients, device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    batched = random_params(generator, base, ranges or DEFAULT_RANDOM_RANGES, n_crates)
+    kw = {} if forces_mode is None else {"forces_mode": forces_mode}
+    crates = BatchedCrates(config, batched, seed=seed, device=device, **kw)
+    out_dir = Path(out_dir)
+    writer = TrajectoryWriter(out_dir, shard_frames=8)
+    np.savez_compressed(
+        out_dir / "params.npz",
+        **{name: getattr(batched, name).cpu().numpy() for name in Params._fields},
+    )
+    n_frames = ticks // sample_every
+    overflow = non_finite = 0
+    for i in range(n_frames):
+        diag = crates.run(sample_every)
+        st = crates.state
+        writer.append(dict(pos=st.pos, alive=st.alive, pressure=st.pressure,
+                           segments=st.segments))
+        overflow = max(overflow, int(diag.neighbor_overflow.max()))
+        non_finite = max(non_finite, int(diag.non_finite.max()))
+        print(f"datagen frame {i + 1}/{n_frames} (tick {(i + 1) * sample_every})")
+    path = writer.close(meta={"crates": n_crates, "sample_every": sample_every})
+    print(f"wrote {n_frames} batched frames x {n_crates} crates -> {path}")
+    return {"frames": n_frames, "crates": n_crates, "dir": str(path),
+            "overflow": overflow, "non_finite": non_finite}
+
+
+def run_vmapped_sweep(config: Config, options: dict, ticks: int = 400, device="cuda") -> dict:
+    """Run the reference's coefficient sweep as one vmapped batch."""
+    device = resolve_device(device, "run_vmapped_sweep")
+    base = Params.from_coefficients(config.world_config.coefficients, device)
+    batched = grid_params(base, options)
+    crates = BatchedCrates(config, batched, device=device)
+    print(f"Running {crates.n} crates x {ticks} ticks vmapped on one device...")
+    diag = crates.run(ticks)
+    counts = crates.particle_counts()
+    keys = list(options)
+    print(f"{'variant':<8} " + " ".join(f"{k[:12]:>12}" for k in keys) + "  particles")
+    for i, values in enumerate(itertools.product(*(options[k] for k in keys))):
+        print(f"{i:<8} " + " ".join(f"{v:>12}" for v in values) + f"  {counts[i]}")
+    return {"particle_counts": counts, "diagnostics": diag}

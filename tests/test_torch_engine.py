@@ -31,10 +31,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 # JAX Scene fields that tune TPU tactics or backends the port does not have
 # (as tests/test_torch_scene.py).
-TPU_ONLY = {
-    "row_block", "max_neighbors", "chunk_halo", "chunk_cs",
-    "pmajor_w", "pmajor_cs", "pmajor_split",
-}
+TPU_ONLY = {"row_block", "max_neighbors", "pmajor_w", "pmajor_cs", "pmajor_split"}
 
 
 def _world(name="stirring_cup.yaml", max_particles=400):
@@ -49,8 +46,8 @@ def test_instrumented_tick_matches_fused_step():
     it gives the state of a fused run on that scene, bit for bit, and its
     PhaseTimer carries the JAX package's phase names."""
     world = _world()
-    inst = Crate(world, instrument=True, seed=2, device="cpu")
-    fused = Crate(world, seed=2, device="cpu")
+    inst = Crate(world, instrument=True, seed=2, forces_mode="pmajor", device="cpu")
+    fused = Crate(world, seed=2, forces_mode="pmajor", device="cpu")
     assert fused.scene.fold_pairs and not inst.scene.fold_pairs
     fused.scene = dataclasses.replace(fused.scene, fold_pairs=False)
     for _ in range(5):

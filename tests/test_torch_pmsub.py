@@ -163,7 +163,7 @@ def _sorted_case(seed, n=3000, p_alive=0.9):
 
     world = load_config(Path(__file__).resolve().parent.parent / "configs" /
                         "stirring_cup.yaml").world_config
-    scene = build_scene(world, capacity=4096, device="cpu")
+    scene = build_scene(world, capacity=4096, forces_mode="pmajor", device="cpu")
     diam = 2 * float(world.coefficients["particle_radius"])
     pos, vel, alive = _random(seed, n, 0.5, 0.2, p_alive)
     pos[:200] = _blob(seed, diam, 200)[0]
@@ -242,7 +242,7 @@ def window_inputs():
     from sand_crate_tpu_torch.ops import grid_cases, pmajor_cases
     from sand_crate_tpu_torch.scene import build_scene
 
-    scene = build_scene(dam_break_world(2000), device="cpu")
+    scene = build_scene(dam_break_world(2000), forces_mode="pmajor", device="cpu")
     nx, ny = scene.grid_nx, scene.grid_ny
     out = {case: pmajor_cases.sorted_particles(case, scene, "cpu")[2:] + (nx, ny)
            for case in pmajor_cases.CASES}

@@ -35,10 +35,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = sorted(p.name for p in (REPO / "configs").glob("*.yaml"))
 # JAX Scene fields that tune TPU tactics or backends the port does not have.
-TPU_ONLY = {
-    "row_block", "max_neighbors", "chunk_halo", "chunk_cs",
-    "pmajor_w", "pmajor_cs", "pmajor_split",
-}
+TPU_ONLY = {"row_block", "max_neighbors", "pmajor_w", "pmajor_cs", "pmajor_split"}
 
 
 def _jax_fields(tree):
@@ -108,10 +105,13 @@ def test_from_numpy_round_trip(name):
 
 def test_forces_modes():
     world = load_config(REPO / "configs" / "stirring_cup.yaml").world_config
-    assert build_scene(world, device="cpu").forces_mode == "pmajor"  # "auto" at every size
-    scene = build_scene(world, enable_spring=True, device="cpu")
+    assert build_scene(world, device="cpu").forces_mode == "dense"  # "auto" at capacity 640
+    scene = build_scene(world, forces_mode="pmajor", enable_spring=True, device="cpu")
     assert (scene.fold_pairs, scene.pmajor_symm) == (False, True)
-    for mode in ("dense", "chunked", "gather", "cellwise"):
+    for mode in ("dense", "chunked"):
+        scene = build_scene(world, forces_mode=mode, device="cpu")
+        assert (scene.forces_mode, scene.fold_pairs, scene.pmajor_symm) == (mode, False, False)
+    for mode in ("gather", "cellwise"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_scene(world, forces_mode=mode, device="cpu")
     # The slot-grid backend resolves its options as the JAX build_scene does.
@@ -151,6 +151,18 @@ def test_stirring_cup_dict_equals_yaml():
     assert bench.STIRRING_CUP == raw
     a = load_config_dict(bench.STIRRING_CUP).world_config
     b = load_config(REPO / "configs" / "stirring_cup.yaml").world_config
+    assert a == b
+
+
+def test_wave_machine_dict_equals_yaml():
+    """The wave-machine world of the card (bench.WAVE_MACHINE, chip_smoke's
+    mid-size crate) equals configs/wave_machine.yaml."""
+    from sand_crate_tpu_torch import bench
+
+    raw = yaml.safe_load((REPO / "configs" / "wave_machine.yaml").read_text())
+    assert bench.WAVE_MACHINE == raw
+    a = load_config_dict(bench.WAVE_MACHINE).world_config
+    b = load_config(REPO / "configs" / "wave_machine.yaml").world_config
     assert a == b
 
 

@@ -255,7 +255,7 @@ def test_crate_surface(tmp_path):
     the cell size rebuilding the grid, and a checkpoint round trip (the
     edited coefficients and the state come back)."""
     world = load_config(REPO / "configs" / "hourglass.yaml").world_config
-    crate = Crate(world, device="cpu")
+    crate = Crate(world, forces_mode="pmajor", device="cpu")
     n = crate.particle_count
     assert crate.particles.shape == (n, 2) == crate.particle_velocities.shape
     assert crate.particles_pressure.shape == (n,)
