@@ -125,6 +125,31 @@ prints its wall time as "[phase] name: s"):
    wave_machine crates for WAVE_TICKS ticks: particle-steps/s, overflow 0.
    (c) and (d) run on BatchedCrates' default backend and then on the other
    one (the evidence for its threshold).
+(k) the command line's main path: ``cli.main(["run", <configs/dam_break.yaml
+   as JSON>, "--headless", "--no-record", "--ticks", CLI_TICKS,
+   "--ticks-per-frame", 2])`` on the card (Playback -> Crate.stream_frames
+   -> p-major at capacity 100,096): K1/K2 once a tick and nothing else, the
+   state finite, uids unique, the next tick's overflow and non-finite count
+   0, ticks/s; the last frame from the C rasterizer (native/rasterize.c,
+   which must build) equal pixel for pixel to the numpy rasterizer; phase
+   (i)'s recording replayed through ``cli.main(["replay", ...])``; then the
+   wave machine (bench.WAVE_MACHINE) WAVE_BACKEND_TICKS ticks on dense,
+   gather and cellwise (plain torch, no kernel launched; overflow and
+   non_finite 0), and at the dense crate's state the gather's and
+   cellwise's pair sums (noise 0) equal to dense's within SUMS_TOL, the
+   counts exactly, below the 20-neighbor cap and the cell capacity.
+(l) the runaway check: the 1M dam break settled SETTLE_TICKS ticks on
+   p-major, its state copied into crates on p-major, pallas and cellwise
+   (the cell grid in plain torch, 16 slots a cell), and on p-major without
+   noise and with one-sided noise, each run RUNAWAY_TICKS ticks; every
+   RUNAWAY_EVERY ticks each one's count of particles faster than
+   RUNAWAY_SPEED, max speed, overflow, non-finite count and fullest cell,
+   and its ms a tick and peak allocation; K1/K2 and the slab-order grid
+   kernels once a tick; the first p-major runaways' neighbors and pair sums
+   at the tick before they leave, on p-major and on the 16-slot grid, and
+   p-major's p_i and counts on the over-full cells against a brute force
+   (PILE_P_TOL); at the end each p-major runaway's speed, window width and
+   neighbor count.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -139,7 +164,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 from sand_crate_tpu_torch.ops.measure import bound, cuda_ms
 
@@ -208,6 +235,26 @@ DATAGEN_EVERY = 20
 WAVE_CRATES = 64  # (j)(d): the JAX package's measured batch (ops/chunked.py:80)
 WAVE_TICKS = 20
 PROFILED_TICKS = 5  # (j): ticks under torch.profiler for the device's busy share
+CLI_TICKS = 200  # (k): the CLI run of configs/dam_break.yaml
+CLI_TICKS_PER_FRAME = 2
+WAVE_BACKEND_TICKS = 150  # (k): wave_machine ticks on dense, gather and cellwise
+# (k): gather and cellwise pair sums vs dense's, the dense tests' tolerance
+# (tests/test_torch_dense_chunked.py::_assert_sums): 1e-5 relative plus 1e-5
+# of the field's largest magnitude.
+SUMS_TOL = 1e-5
+# (l): ticks of each backend after the shared settled state.  Fewer than
+# MAIN_TICKS: the cell grid in plain torch takes ~1.7 s a tick at 1M on an
+# H100, and p-major's first runaways come ~23 ticks after the settle.
+RUNAWAY_TICKS = 40
+RUNAWAY_EVERY = 20  # (l): ticks between two readings
+RUNAWAY_MODES = {"pmajor": {}, "pallas": dict(forces_mode="pallas", cell_capacity=GRID_SLOTS),
+                 "cellwise": dict(forces_mode="cellwise", cell_capacity=GRID_SLOTS)}
+# (l): p-major without collider noise and with one-sided noise: the runaways'
+# cause is not the noise form
+RUNAWAY_VARIANTS = {"pmajor, noise 0": {}, "pmajor, one-sided": dict(pmajor_symm=False)}
+# (l): p-major's p_i on a pile against a float64 brute force: the JAX
+# suite's PairSums tolerance (tests/test_pmajor.py:53)
+PILE_P_TOL = 3e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -1329,13 +1376,12 @@ def probe_hard_cases():
               "== plain bit for bit")
 
 
-def recording_and_checkpoints():
+def recording_and_checkpoints(traj_dir):
     """Phase (i) on the stirring-cup world (emitters: the generator state
-    matters): recorded frames read back; a restored checkpoint runs on as
-    the uninterrupted crate, held against two uninterrupted runs."""
+    matters): recorded frames, written to ``traj_dir``, read back; a
+    restored checkpoint runs on as the uninterrupted crate, held against
+    two uninterrupted runs."""
     import copy
-    import tempfile
-    from pathlib import Path
 
     import numpy as np
     import torch
@@ -1348,19 +1394,19 @@ def recording_and_checkpoints():
     crate, twin = Crate(world, device="cuda"), Crate(world, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        writer = TrajectoryWriter(tmp / "traj", shard_frames=8)
+        writer = TrajectoryWriter(traj_dir, shard_frames=8)
         frames = list(crate.stream_frames(CKPT_FRAMES, ticks_per_frame=2, chunk_frames=8))
         for f in frames:
             writer.append(f)
         writer.close(meta={"world": "stirring_cup"})
-        back = list(load_trajectory(tmp / "traj"))
-        check(len(back) == CKPT_FRAMES == trajectory_info(tmp / "traj")["frames"],
+        back = list(load_trajectory(traj_dir))
+        check(len(back) == CKPT_FRAMES == trajectory_info(traj_dir)["frames"],
               "recorded frame count")
         for f, g in zip(frames, back):
             for key in ("pos", "alive", "pressure", "segments"):
                 check(np.array_equal(f[key], g[key]), f"recorded frames differ in {key}")
         print(f"recording: {CKPT_FRAMES} frames of 2 ticks, stream_frames -> TrajectoryWriter "
-              f"({len(trajectory_info(tmp / 'traj')['shards'])} shards) -> load_trajectory: equal; "
+              f"({len(trajectory_info(traj_dir)['shards'])} shards) -> load_trajectory: equal; "
               f"{crate.particle_count} particles at tick {crate.tick}")
         path = crate.save_checkpoint(tmp / "ckpt.npz")
         t0 = crate.tick
@@ -1672,6 +1718,302 @@ def batched_crates(smi: str) -> None:
               + ", ".join(f"{m} {r:.1f}" for m, r in rates.items()))
 
 
+def cli_path(smi: str, recording_dir) -> None:
+    """Phase (k): the command line's main path on the card.  ``python -m
+    sand_crate_tpu_torch run`` (cli.main) on configs/dam_break.yaml, given
+    as JSON (bench.DAM_BREAK: no PyYAML needed), headless
+    without recording: Playback -> Crate.stream_frames -> p-major, K1/K2
+    once a tick; its invariants and ticks/s.  The last frame rendered by
+    the C rasterizer, equal pixel for pixel to the numpy one.  The replay of
+    phase (i)'s recording (``recording_dir``, holding its trajectory/)
+    through the command line.  Then the gather and cellwise backends on the
+    wave machine: each runs WAVE_BACKEND_TICKS ticks, and their pair sums
+    at the dense crate's state equal dense's at SUMS_TOL, below the
+    20-neighbor cap and the cell capacity."""
+    import copy
+
+    import torch
+
+    from sand_crate_tpu_torch import Crate, cli, load_config_dict
+    from sand_crate_tpu_torch.bench import DAM_BREAK, WAVE_MACHINE
+    from sand_crate_tpu_torch.cellwise import neighbor_forces_cellwise, neighbor_forces_dense
+    from sand_crate_tpu_torch.physics import neighbor_forces_gather, step
+    from sand_crate_tpu_torch.render import _render_numpy_reference, rasterize_lib, render_frame
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = Path(tmp) / "dam_break.json"
+        config.write_text(json.dumps(DAM_BREAK))
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pb = cli.main(["run", str(config), "--headless", "--no-record", "--ticks", str(CLI_TICKS),
+                       "--ticks-per-frame", str(CLI_TICKS_PER_FRAME)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    want = {k: 0 for k in launches}
+    want.update({"pmajor.a": CLI_TICKS, "pmajor.b": CLI_TICKS})
+    check(launches == want, f"CLI run launches {launches} != {want}")
+    crate = pb.crate
+    st, sc = crate.state, crate.scene
+    n = crate.particle_count
+    check(sc.forces_mode == "pmajor" and st.pos.device.type == "cuda" and crate.tick == CLI_TICKS,
+          f"CLI run: {sc.forces_mode} on {st.pos.device} at tick {crate.tick}")
+    check(bool(torch.isfinite(st.pos[st.alive]).all() and torch.isfinite(st.vel[st.alive]).all()),
+          "CLI run: non-finite state")
+    uids = torch.sort(st.uid[st.alive]).values
+    check(bool((uids[1:] > uids[:-1]).all()), "CLI run: uids not unique")
+    _, diag = step(st, crate.params, sc, crate.generator)  # the next tick's diagnostics
+    check(int(diag.neighbor_overflow) == 0 and int(diag.non_finite) == 0,
+          f"CLI run: overflow {int(diag.neighbor_overflow)}, non_finite {int(diag.non_finite)}")
+    print(f"CLI run on {smi}: configs/dam_break.yaml as JSON, {n} particles (capacity "
+          f"{sc.capacity}, {sc.forces_mode}), {CLI_TICKS} ticks in frames of "
+          f"{CLI_TICKS_PER_FRAME}: {CLI_TICKS / wall:.3f} ticks/s ({wall:.3f} s for cli.main, "
+          f"the Crate's construction included; host clock + synchronize); launches {launches}; "
+          f"overflow 0, non_finite 0, uids unique")
+
+    check(rasterize_lib() is not None, "the C rasterizer did not build")
+    frame_args = (st.pos.cpu().numpy(), st.pressure.cpu().numpy(), crate.segments)
+    w = h = 1000
+    radius = float(crate.particle_radius)
+    alive = st.alive.cpu().numpy()
+    t0 = time.perf_counter()
+    img = render_frame(*frame_args, size=(w, h), particle_radius=radius, alive=alive)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = _render_numpy_reference(*frame_args, w, h, radius, alive)
+    np_ms = (time.perf_counter() - t0) * 1e3
+    check(img.shape == (h, w, 3) and (img == ref).all(), "C frame != numpy frame")
+    print(f"  last frame {w}x{h}: C rasterizer {c_ms:.1f} ms, numpy {np_ms:.1f} ms (host clock), "
+          f"equal pixel for pixel; {int((img[..., 2] == 255).sum())} lit pixels")
+    frames = cli.main(["replay", str(recording_dir), "--headless"])
+    check(len(frames) == CKPT_FRAMES, f"replay gave {len(frames)} frames, recorded {CKPT_FRAMES}")
+    print(f"  replay of phase (i)'s trajectory: {len(frames)} frames of {frames[0].shape}")
+
+    world = load_config_dict(copy.deepcopy(WAVE_MACHINE)).world_config
+    crates = {m: Crate(world, device="cuda", forces_mode=m) for m in ("dense", "gather", "cellwise")}
+    reset_kernel_counts()
+    for mode, c in crates.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diag = c.run(WAVE_BACKEND_TICKS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / WAVE_BACKEND_TICKS * 1e3
+        check(int(diag.non_finite) == 0 and int(diag.neighbor_overflow) == 0,
+              f"wave_machine on {mode}: non_finite {int(diag.non_finite)}, "
+              f"overflow {int(diag.neighbor_overflow)}")
+        print(f"  wave_machine on {mode}: {c.particle_count} particles at tick {c.tick}, "
+              f"{ms:.3f} ms/tick (host clock + synchronize), overflow 0, non_finite 0")
+    check(not any(kernel_counts().values()), f"dense/gather/cellwise launched {kernel_counts()}")
+    ref_crate = crates["dense"]
+    st, pr = ref_crate.state, ref_crate.params
+    zero = torch.zeros_like(st.pos)
+    coefs = (pr.diameter, pr.surface_smoothing, pr.target_pressure, pr.ignored_pressure,
+             pr.spring_overlap_balance)
+    dense = neighbor_forces_dense(st.pos, st.vel, st.alive, zero, *coefs, ref_crate.scene)
+    quiet = pr._replace(collider_noise_level=torch.zeros_like(pr.collider_noise_level))
+    got = {
+        "gather": neighbor_forces_gather(st.pos, st.vel, st.alive, crates["gather"].generator,
+                                         quiet, crates["gather"].scene),
+        "cellwise": neighbor_forces_cellwise(st.pos, st.vel, st.alive, zero, *coefs,
+                                             crates["cellwise"].scene),
+    }
+    cap = crates["gather"].scene.max_neighbors
+    check(0 < int(dense.nbr_cnt.max()) < cap, f"wave_machine max neighbor count "
+                                              f"{int(dense.nbr_cnt.max())} not below {cap}")
+    for mode, sums in got.items():
+        check(int(sums.overflow) == 0, f"{mode}: a cell over capacity")
+        check(torch.equal(sums.nbr_cnt, dense.nbr_cnt), f"{mode}: neighbor counts differ")
+        errs = []
+        for name in ("p_i", "dv_tension", "pressure_real", "visc_vsum"):
+            x, y = getattr(sums, name), getattr(dense, name)
+            err = (x - y).abs()
+            scale = float(y.abs().max())
+            check(bool((err <= SUMS_TOL * (y.abs() + scale)).all()),
+                  f"{mode} {name} differs from dense by {float(err.max())}")
+            errs.append(f"{name} {float(err.max()):.3e} (max |dense| {scale:.3e})")
+        print(f"  {mode} vs dense pair sums at the dense crate's tick {ref_crate.tick} "
+              f"({ref_crate.particle_count} particles, noise 0, max neighbors "
+              f"{int(dense.nbr_cnt.max())} < {cap}, overflow 0): counts equal; max abs err "
+              + ", ".join(errs))
+
+
+def runaway_check(smi: str) -> None:
+    """Phase (l): the 1M dam break settled SETTLE_TICKS ticks on p-major, its
+    state (and generator) copied into crates of the same world on p-major,
+    the slot grid and the cell grid in plain torch (RUNAWAY_MODES), and on
+    p-major without collider noise and with one-sided noise, each run
+    RUNAWAY_TICKS ticks; every RUNAWAY_EVERY ticks each one's count of
+    particles faster than RUNAWAY_SPEED, max speed, overflow, non-finite
+    count and fullest cell (its population and corner); each one's ms a tick
+    and peak allocation.  The launch counts of those runs are checked.  Then :func:`pile_forensics` from the same
+    settled state, and at the end each p-major runaway's candidate window
+    width (its three exact row ranges, ops.pmajor.candidate_ranges) and
+    neighbor count (particles within one diameter, brute force)."""
+    import torch
+
+    from sand_crate_tpu_torch import Crate
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+    from sand_crate_tpu_torch.ops import pmajor
+
+    world = dam_break_world(N_TARGET)
+    base = Crate(world, device="cuda")
+    base.run(SETTLE_TICKS)
+    settled = clone_state(base.state)
+    crates = {}
+    for name, kw in {**RUNAWAY_MODES, **RUNAWAY_VARIANTS}.items():
+        c = Crate(world, device="cuda", **kw)
+        c.state = clone_state(settled)
+        c.generator.set_state(base.generator.get_state())
+        if name == "pmajor, noise 0":
+            c.collider_noise_level = 0.0
+        crates[name] = c
+    del base
+    sc = crates["cellwise"].scene
+    print(f"runaway check on {smi}: the 1M dam break ({crates['pmajor'].particle_count} "
+          f"particles) settled {SETTLE_TICKS} ticks on pmajor, then {RUNAWAY_TICKS} ticks on "
+          f"each of {', '.join(crates)} from that state (cellwise: grid "
+          f"{sc.grid_ny}x{sc.grid_nx}, {sc.cell_capacity} slots a cell)")
+    reset_kernel_counts()
+    wall = dict.fromkeys(crates, 0.0)
+    peak = dict.fromkeys(crates, 0)
+    for t in range(RUNAWAY_EVERY, RUNAWAY_TICKS + 1, RUNAWAY_EVERY):
+        for name, c in crates.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            diag = c.run(RUNAWAY_EVERY)
+            torch.cuda.synchronize()
+            wall[name] += time.perf_counter() - t0
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated() - held)
+            st, sc = c.state, c.scene
+            speed = st.vel[st.alive].norm(dim=1)
+            per = torch.bincount(cell_ids_grid(st.pos, st.alive, sc)[st.alive].long(),
+                                 minlength=sc.num_cells)
+            k = int(per.argmax())
+            print(f"  tick {SETTLE_TICKS + t} {name:>17}: {int((speed > RUNAWAY_SPEED).sum())} "
+                  f"faster than {RUNAWAY_SPEED}, max_speed {float(diag.max_speed):.4f}, overflow "
+                  f"{int(diag.neighbor_overflow)}, non_finite {int(diag.non_finite)}; fullest cell "
+                  f"{int(per[k])} particles at x {(k % sc.grid_nx - 1) * sc.cell_size:.4f}, "
+                  f"y {(k // sc.grid_nx - 1) * sc.cell_size:.4f}", flush=True)
+            check(int(diag.non_finite) == 0, f"runaway check: {name} non-finite")
+    counts = kernel_counts()
+    pm_runs = 1 + len(RUNAWAY_VARIANTS)
+    want = {k: 0 for k in counts}
+    want.update({"pmajor.a": pm_runs * RUNAWAY_TICKS, "pmajor.b": pm_runs * RUNAWAY_TICKS,
+                 "grid.pair_pass_a": RUNAWAY_TICKS, "grid.pair_pass_b_emit": RUNAWAY_TICKS})
+    print(f"  launches {counts}; wall (host clock + synchronize) and peak allocation beyond "
+          "what is held: " + ", ".join(f"{m} {wall[m] / RUNAWAY_TICKS * 1e3:.3f} ms/tick "
+                                      f"{peak[m] / 2**30:.2f} GiB" for m in crates))
+    check(counts == want, f"runaway check launches {counts} != {want}")
+
+    c = crates["pmajor"]
+    del crates
+    pile_forensics(world, settled)
+    st, sc = c.state, c.scene
+    cid = cell_ids_grid(st.pos, st.alive, sc)
+    sorted_cid, order = torch.sort(cid, stable=True)
+    ranges = pmajor.candidate_ranges(sorted_cid, sorted_cid < sc.num_cells, sc.grid_nx,
+                                     sc.grid_ny)
+    widths = (ranges[3:] - ranges[:3]).sum(dim=0)
+    width = torch.empty_like(widths)
+    width[order] = widths
+    speed = torch.where(st.alive, st.vel.norm(dim=1), 0.0)
+    fast = torch.nonzero(speed > RUNAWAY_SPEED).flatten()
+    alive_pos = st.pos[st.alive]
+    diam = float(c.params.diameter)
+    rows = []
+    for i in fast.tolist():
+        near = int(((alive_pos - st.pos[i]).norm(dim=1) <= diam).sum()) - 1
+        rows.append((round(float(speed[i]), 1), int(width[i]), near))
+    all_w = widths[sorted_cid < sc.num_cells].float()
+    print(f"  pmajor runaways at tick {SETTLE_TICKS + RUNAWAY_TICKS}: {len(rows)} as (speed, "
+          f"window width, neighbors within one diameter), window width of all alive: mean "
+          f"{float(all_w.mean()):.2f} max {int(all_w.max())}:")
+    for k in range(0, len(rows), 8):
+        print("   ", "; ".join(f"{s} {w} {n}" for s, w, n in rows[k:k + 8]))
+
+
+def clone_state(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def pile_forensics(world, settled) -> None:
+    """Phase (l), the runaways' cause: from the settled state, p-major tick by
+    tick up to RUNAWAY_TICKS until a particle passes RUNAWAY_SPEED; at the
+    state before that tick, for the particles that pass it, their neighbors
+    within one diameter (brute force), the cell they sort into, and their
+    pair sums (noise off, split pass B) on p-major and on the slot grid of
+    16 slots; and p-major's p_i and neighbor counts for every self in a cell
+    of more than 16, against a brute force (the pair mask in f32 as the
+    kernel takes it: counts exact; p_i from float64 distances within
+    PILE_P_TOL: the pile's pair distances are near the f32 spacing of
+    positions ~1, so each w carries ~1e-4 of rounding)."""
+    import torch
+
+    from sand_crate_tpu_torch import Crate, physics
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+    from sand_crate_tpu_torch.ops.pallas_forces import neighbor_forces_pallas_sorted
+    from sand_crate_tpu_torch.ops.pmajor import neighbor_forces_pmajor_sorted
+
+    c = Crate(world, device="cuda")
+    c.state = clone_state(settled)
+    for _ in range(RUNAWAY_TICKS):
+        before = c.state
+        c.run(1)
+        fast_uid = c.state.uid[c.state.alive & (c.state.vel.norm(dim=1) > RUNAWAY_SPEED)]
+        if fast_uid.numel():
+            break
+    check(fast_uid.numel() > 0, f"no p-major runaway within {RUNAWAY_TICKS} ticks")
+    pr, sc = c.params, c.scene
+    s = physics.advance_bodies(physics.cull_particles(before, pr), pr, sc)
+    pos = physics.ghost_phase(s, pr, sc).pos
+    sorted_cid, order = torch.sort(cell_ids_grid(pos, s.alive, sc), stable=True)
+    pos, vel, uid = pos[order], s.vel[order], s.uid[order]
+    alive = sorted_cid < sc.num_cells
+    args = (pos, vel, alive, sorted_cid, torch.zeros_like(pr.diameter), before.tick, pr.diameter,
+            pr.surface_smoothing, pr.target_pressure, pr.ignored_pressure,
+            pr.spring_overlap_balance)
+    exact = neighbor_forces_pmajor_sorted(*args, sc)
+    grid_scene = Crate(world, device="cuda", forces_mode="pallas", cell_capacity=GRID_SLOTS).scene
+    capped = neighbor_forces_pallas_sorted(*args, grid_scene)
+    per = torch.bincount(sorted_cid[alive].long(), minlength=sc.num_cells)
+    diam = float(pr.diameter)
+    alive_pos = pos[alive].double()
+    print(f"  first p-major runaways at tick {c.tick}: {fast_uid.numel()}; at tick {c.tick - 1} "
+          f"(noise off) as (neighbors, cell population, p-major p_i |dv_tension|, "
+          f"{GRID_SLOTS}-slot grid neighbors p_i |dv_tension|):")
+    rows = []
+    for u in fast_uid.tolist():
+        k = int(torch.nonzero(uid == u)[0])
+        near = int(((alive_pos - pos[k].double()).norm(dim=1) <= diam).sum()) - 1
+        rows.append(f"{near} {int(per[sorted_cid[k]])} {float(exact.p_i[k]):.2f} "
+                    f"{float(exact.dv_tension[k].norm()):.0f} {int(capped.nbr_cnt[k])} "
+                    f"{float(capped.p_i[k]):.2f} {float(capped.dv_tension[k].norm()):.0f}")
+    for k in range(0, len(rows), 4):
+        print("   ", "; ".join(rows[k:k + 4]))
+    selves = torch.nonzero(alive & (per[sorted_cid.clamp(max=sc.num_cells - 1).long()]
+                                    > GRID_SLOTS)).flatten()
+    worst = 0.0
+    pos_alive = pos[alive]
+    for k in selves.tolist():
+        rel = pos_alive - pos[k]
+        m = rel[:, 0] * rel[:, 0] + rel[:, 1] * rel[:, 1] <= pr.diameter * pr.diameter  # f32
+        dist = rel[m].double().norm(dim=1)
+        cnt = int(m.sum()) - 1  # less the self
+        p_ref = max(0.0, float(torch.clamp(1.0 - dist / diam, 0.0, 1.0).sum()) - 1.0
+                    - float(pr.ignored_pressure))
+        check(cnt == int(exact.nbr_cnt[k]),
+              f"pile self {k}: p-major counts {int(exact.nbr_cnt[k])}, brute force {cnt}")
+        worst = max(worst, abs(p_ref - float(exact.p_i[k])) / max(p_ref, 1.0))
+    print(f"  {len(selves)} selves in cells of more than {GRID_SLOTS}: p-major p_i vs a float64 "
+          f"brute force, max relative error {worst:.3e}; their p_i up to "
+          f"{float(exact.p_i[selves].max()):.2f}, {GRID_SLOTS}-slot grid up to "
+          f"{float(capped.p_i[selves].max()):.2f}")
+    check(worst <= PILE_P_TOL, f"pile p_i off by {worst} of a brute force")
+
+
 def main() -> int:
     import torch
 
@@ -1835,14 +2177,24 @@ def main() -> int:
         print("P1-P4 vs their plain versions on the hard inputs (probes/probe_cases.py):")
         probe_hard_cases()
 
-    # -- (i) recording and checkpoints -------------------------------------------
-    with phase("recording + checkpoints"):
-        recording_and_checkpoints()
+    with tempfile.TemporaryDirectory() as tmp:
+        traj_dir = Path(tmp) / "trajectory"
+        # -- (i) recording and checkpoints ---------------------------------------
+        with phase("recording + checkpoints"):
+            recording_and_checkpoints(traj_dir)
 
-    # -- (j) batched crates, the dense and chunked backends ------------------------
-    with phase("batched crates"):
-        print(f"batched crates and the small- and mid-crate backends on {smi}:")
-        batched_crates(smi)
+        # -- (j) batched crates, the dense and chunked backends --------------------
+        with phase("batched crates"):
+            print(f"batched crates and the small- and mid-crate backends on {smi}:")
+            batched_crates(smi)
+
+        # -- (k) the command line's main path, rendering, replay, gather, cellwise --
+        with phase("CLI main path"):
+            cli_path(smi, traj_dir.parent)
+
+    # -- (l) the runaway check: p-major, pallas and cellwise from one state ---------
+    with phase("runaway check"):
+        runaway_check(smi)
 
     print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

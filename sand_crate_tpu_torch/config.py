@@ -32,6 +32,7 @@ load_config.py:29-46) and extends it:
 from __future__ import annotations
 
 import ast
+import json
 import math
 import operator
 import re
@@ -533,12 +534,22 @@ def load_config_dict(raw: dict) -> Config:
 
 
 def load_config(config_file_path: str | Path) -> Config:
-    """Load a scene YAML (reference schema; load_config.py:29-46 equivalent)."""
-    import yaml
+    """Load a scene file (reference schema; load_config.py:29-46 equivalent).
 
-    with open(config_file_path, "r") as f:
-        raw = yaml.safe_load(f)
-    return load_config_dict(raw)
+    A ``.json`` file is read with ``json``: JSON is a subset of YAML, so the
+    dict is the one ``yaml.safe_load`` gives, and a host without PyYAML
+    reads it.  Any other file is YAML and needs PyYAML."""
+    path = Path(config_file_path)
+    with open(path) as f:
+        if path.suffix == ".json":
+            return load_config_dict(json.load(f))
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(
+                f"reading {path} needs PyYAML (pip install pyyaml); without it, "
+                "give the scene as a .json file") from e
+        return load_config_dict(yaml.safe_load(f))
 
 
 def dump_config(config: Config) -> str:

@@ -69,6 +69,7 @@ class Crate:
         capacity: Optional[int] = None,
         enable_spring: bool = False,
         forces_mode: str = "auto",
+        max_neighbors: int = 20,
         cell_capacity: Optional[int] = None,
         chunk_halo: Optional[int] = None,
         chunk_cs: int = 256,
@@ -82,6 +83,7 @@ class Crate:
             capacity=capacity,
             enable_spring=enable_spring,
             forces_mode=forces_mode,
+            max_neighbors=max_neighbors,
             cell_capacity=cell_capacity,
             chunk_halo=chunk_halo,
             chunk_cs=chunk_cs,
@@ -159,6 +161,7 @@ class Crate:
             capacity=scene.capacity,
             enable_spring=scene.enable_spring,
             forces_mode=scene.forces_mode,
+            max_neighbors=scene.max_neighbors,
             cell_capacity=scene.cell_capacity,
             chunk_cs=scene.chunk_cs,
             fold_pairs=scene.fold_pairs,

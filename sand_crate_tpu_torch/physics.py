@@ -1,8 +1,8 @@
 """The physics tick as one functional step on tensors.
 
-The PyTorch counterpart of ``sand_crate_tpu/physics.py`` for the p-major,
-slot-grid ("pallas"), dense and chunked backends.  Tick order (must match
-the reference crate.py:91-129):
+The PyTorch counterpart of ``sand_crate_tpu/physics.py``, on all six of
+its force backends.  Tick order (must match the reference
+crate.py:91-129):
 
   1.  spawn from sources, cull out-of-box particles
   2.  advance rigid bodies
@@ -11,15 +11,20 @@ the reference crate.py:91-129):
   4.  stable cell-id sort of (vel, pre-fix pos, uid), ghost pass recomputed
       on the sorted order, then the pair sums (ops/pmajor.py: feature rows
       -> pass A -> cell pressure -> pass B; ops/pallas_forces.py: slab
-      -> slot grid -> pass A -> pass B emitted in sorted order; or
-      ops/chunked.py: fixed windows of the sorted slab); the dense backend
-      skips the sort and sums all pairs (cellwise.neighbor_forces_dense)
+      -> slot grid -> pass A -> pass B emitted in sorted order;
+      ops/chunked.py: fixed windows of the sorted slab; or the cell grid of
+      cellwise.py); the dense backend skips the sort and sums all pairs
+      (cellwise.neighbor_forces_dense), the gather backend skips it and
+      sums over fixed-K neighbor lists (:func:`neighbor_forces_gather`)
   5.  tension, gravity, pressure, spring (flag-gated), viscosity, wall
       bounce, continuous collision kicks
   6.  integrate positions
 
 The sorted backends keep the state permanently cell-sorted (``uid``
-carries identity), as in the JAX package.  Nothing here reads a tensor
+carries identity), as in the JAX package.  The dense, cellwise and gather
+backends draw their collider noise from the crate's generator (the JAX
+package from its tick key), so with noise on they match it in their
+invariants only.  Nothing here reads a tensor
 back to the host, so :func:`rollout` queues ticks on the device without
 waiting for them, and on the dense and chunked backends the step vmaps
 over a leading crate axis (``sweep.py``).
@@ -32,8 +37,14 @@ from typing import NamedTuple
 import torch
 
 from . import geometry as geo
-from .cellwise import PairSums, cell_ids_grid, neighbor_forces_dense
+from .cellwise import (
+    PairSums,
+    cell_ids_grid,
+    neighbor_forces_cellwise_sorted,
+    neighbor_forces_dense,
+)
 from .config import BODY_FIXED, BODY_FREE, BODY_MOTORED
+from .neighbors import neighbor_list
 from .ops.chunked import neighbor_forces_chunked_sorted
 from .ops.pallas_forces import neighbor_forces_pallas_sorted
 from .ops.pmajor import neighbor_forces_pmajor_sorted
@@ -66,6 +77,55 @@ class _TorchNamespace:
 
 
 TORCH_XP = _TorchNamespace()
+
+
+def neighbor_forces_gather(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    alive: torch.Tensor,
+    generator: torch.Generator | None,
+    params: Params,
+    scene: Scene,
+) -> PairSums:
+    """Reference-closest pair sums over fixed-K neighbor lists
+    (neighbors.py): the reference's 20-neighbor cap and a collider jitter
+    per directed edge (crate.py:168-170), drawn from ``generator`` (the JAX
+    package draws it from its tick key)."""
+    diam = params.diameter
+    nbr = neighbor_list(pos, alive, diam, scene)
+    idx, mask = nbr.idx, nbr.mask  # (P, K)
+    mask_f = mask.to(pos.dtype)
+    noise = (
+        (torch.rand(idx.shape + (2,), generator=generator, device=pos.device, dtype=pos.dtype)
+         - 0.5)
+        * diam
+        * params.collider_noise_level
+    )
+    rel = pos[:, None, :] - (pos[idx] + noise)  # (P, K, 2)
+    ndist = torch.sqrt(torch.clamp(rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1],
+                                   min=0.0))
+    nhat = rel / torch.clamp(ndist, min=EPS)[..., None]
+    vel_snap = vel[idx]  # (P, K, 2) snapshot for viscosity (crate.py:175)
+
+    # pressures (crate.py:261-284)
+    w = (1.0 - torch.clamp(ndist / torch.clamp(diam, min=EPS), 0.0, 1.0)) * mask_f
+    p_i = torch.clamp(w.sum(dim=1) - params.ignored_pressure, min=0.0)
+    p_i = torch.where(mask.any(dim=1) & alive, p_i, 0.0)
+    p_j = p_i[idx] * mask_f
+
+    # surface tension (crate.py:335-358)
+    s = (((1.0 - w) * w)[..., None] * nhat * mask_f[..., None]).sum(dim=1)
+    align = ((s[:, None, :] - s[idx]) * nhat).sum(dim=-1) * params.surface_smoothing
+    tpf = p_j + p_i[:, None] - 2.0 * params.target_pressure
+    return PairSums(
+        p_i=p_i,
+        dv_tension=((mask_f * (align + tpf))[..., None] * nhat).sum(dim=1),
+        pressure_real=((mask_f * (p_i[:, None] + p_j))[..., None] * nhat).sum(dim=1),
+        spring_real=((mask_f * (params.spring_overlap_balance - w))[..., None] * nhat).sum(dim=1),
+        visc_vsum=(mask_f[..., None] * vel_snap).sum(dim=1),
+        nbr_cnt=mask_f.sum(dim=1),
+        overflow=nbr.overflow,
+    )
 
 
 def motor_value(motor: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -298,6 +358,13 @@ def ghost_phase(state: CrateState, params: Params, scene: Scene) -> GhostInfo:
     )
 
 
+def _particle_noise(pos: torch.Tensor, generator, params: Params) -> torch.Tensor:
+    """The (P, 2) collider jitter of the dense and cellwise backends:
+    uniform in [-0.5, 0.5) * diameter * collider_noise_level."""
+    u = torch.rand(pos.shape, generator=generator, device=pos.device, dtype=pos.dtype)
+    return (u - 0.5) * params.diameter * params.collider_noise_level
+
+
 class TickOperands(NamedTuple):
     """Per-particle operands of the force phases in cell-sorted order, plus
     their pair sums."""
@@ -327,29 +394,27 @@ def neighbor_stage(
     live_rows: int | None = None,
 ) -> TickOperands:
     """Neighbor detection + collider population + pressures (crate.py:102-108)
-    on the scene's backend: p-major, the slot grid ("pallas"), chunked or
-    dense.
+    on the scene's backend.
 
-    The sorted backends (all but dense) share one stable sort by cell id,
-    which permutes (vel, prepos, uid); the hard-wall-fixed position and the
-    ghost sums are recomputed on the sorted pre-fix positions
-    (_ghost_core), which gives the permuted values exactly.  Dead particles
-    sort last (cell id NC), so ``alive == sorted_cid < NC``.  The dense
-    backend keeps slot order and draws its collider noise, one (P, 2)
-    uniform array, from ``generator`` (the JAX package draws it from its
-    tick key).  ``live_rows`` bounds the chunked sweep (ops/chunked.py)."""
+    The sorted backends (p-major, the slot grid "pallas", chunked and
+    cellwise) share one stable sort by cell id, which permutes (vel,
+    prepos, uid); the hard-wall-fixed position and the ghost sums are
+    recomputed on the sorted pre-fix positions (_ghost_core), which gives
+    the permuted values exactly.  Dead particles sort last (cell id NC), so
+    ``alive == sorted_cid < NC``.  The dense and gather backends keep slot
+    order.  Dense and cellwise draw their collider noise, one (P, 2)
+    uniform array, from ``generator``; gather draws one per directed edge.
+    ``live_rows`` bounds the chunked sweep (ops/chunked.py)."""
     diam = params.diameter
+    if scene.forces_mode == "gather":
+        sums = neighbor_forces_gather(ghost.pos, vel, alive, generator, params, scene)
+        return TickOperands(pos=ghost.pos, vel=vel, alive=alive, uid=uid, ghost=ghost,
+                            sums=sums)
     if scene.forces_mode == "dense":
-        noise = (
-            (torch.rand((scene.capacity, 2), generator=generator, device=ghost.pos.device,
-                        dtype=ghost.pos.dtype) - 0.5)
-            * diam
-            * params.collider_noise_level
-        )
         sums = neighbor_forces_dense(
-            ghost.pos, vel, alive, noise, diam, params.surface_smoothing,
-            params.target_pressure, params.ignored_pressure, params.spring_overlap_balance,
-            scene,
+            ghost.pos, vel, alive, _particle_noise(ghost.pos, generator, params), diam,
+            params.surface_smoothing, params.target_pressure, params.ignored_pressure,
+            params.spring_overlap_balance, scene,
         )
         return TickOperands(pos=ghost.pos, vel=vel, alive=alive, uid=uid, ghost=ghost,
                             sums=sums)
@@ -374,7 +439,12 @@ def neighbor_stage(
         params.spring_overlap_balance,
         scene,
     )
-    if scene.forces_mode == "pallas":
+    if scene.forces_mode == "cellwise":
+        sums = neighbor_forces_cellwise_sorted(
+            ghost.pos, vel, alive, sorted_cid, _particle_noise(ghost.pos, generator, params),
+            *args[6:],
+        )
+    elif scene.forces_mode == "pallas":
         sums = neighbor_forces_pallas_sorted(*args)
     elif scene.forces_mode == "chunked":
         sums = neighbor_forces_chunked_sorted(*args, live_rows=live_rows)

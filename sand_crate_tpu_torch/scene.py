@@ -14,14 +14,10 @@ import math
 import numpy as np
 import torch
 
-from .config import BODY_FIXED, BODY_MOTORED, InitialParticlesConfig, WorldConfig
-from .state import CrateState, Scene, resolve_device, scene_from_numpy
+from .config import BODY_FIXED, BODY_MOTORED, Config, InitialParticlesConfig, WorldConfig
+from .state import CrateState, Params, Scene, resolve_device, scene_from_numpy
 
-# The JAX package's other backends, by the ROADMAP item that ports them.
-_NOT_PORTED = {
-    "gather": "ROADMAP queue 1 item 8",
-    "cellwise": "ROADMAP queue 1 item 8",
-}
+FORCES_MODES = ("pmajor", "pallas", "cellwise", "dense", "chunked", "gather")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,12 +61,26 @@ def auto_forces_mode(capacity: int) -> str:
     return "dense" if capacity <= 4096 else "pmajor"
 
 
+def build_all(
+    config: Config, *, seed: int = 0, capacity: int | None = None, device="cuda",
+    **scene_kwargs
+) -> tuple[Scene, CrateState, Params]:
+    """One-stop: parsed config -> (Scene, initial CrateState, Params) on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    world = config.world_config
+    scene = build_scene(world, capacity=capacity, device=device, **scene_kwargs)
+    state = init_state(world, scene, seed=seed)
+    params = Params.from_coefficients(world.coefficients, scene.segments0.device)
+    return scene, state, params
+
+
 def build_scene(
     world: WorldConfig,
     *,
     capacity: int | None = None,
     enable_spring: bool = False,
     forces_mode: str = "auto",
+    max_neighbors: int = 20,
     cell_capacity: int | None = None,
     chunk_halo: int | None = None,
     chunk_cs: int = 256,
@@ -81,12 +91,14 @@ def build_scene(
 ) -> Scene:
     """Build the immutable Scene from a parsed world config.
 
-    ``forces_mode``: "pmajor", "pallas" (the slot-grid backend), "dense",
-    "chunked", or "auto", which picks by capacity (:func:`auto_forces_mode`;
-    it never picks "pallas" or "chunked").  Every other JAX mode
-    raises NotImplementedError naming the ROADMAP item that ports it.
-    ``cell_capacity``: the pallas grid's slots per cell (default 16, as in
-    the JAX package).  ``chunk_halo`` / ``chunk_cs``: the chunked backend's
+    ``forces_mode``: one of :data:`FORCES_MODES` ("pallas" is the slot-grid
+    kernel backend, "cellwise" the cell grid in plain torch, "gather" the
+    fixed-K neighbor lists), or "auto", which picks by capacity
+    (:func:`auto_forces_mode`; it picks only "dense" or "pmajor").
+    ``max_neighbors``: the gather backend's K (default 20, the reference's
+    cap).  ``cell_capacity``: slots per cell of the pallas and cellwise
+    grids and of the gather cell table (default 16, as in the JAX
+    package).  ``chunk_halo`` / ``chunk_cs``: the chunked backend's
     halo (default: about two grid rows of the sorted slab, as in the JAX
     package) and self-chunk width.  ``device`` defaults to the card;
     without one it raises, and the caller asks for the CPU with
@@ -98,11 +110,7 @@ def build_scene(
     capacity = capacity or default_capacity(int(coeff["max_particles"]))
     if forces_mode == "auto":
         forces_mode = auto_forces_mode(capacity)
-    if forces_mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"forces_mode={forces_mode!r} is not ported yet ({_NOT_PORTED[forces_mode]})"
-        )
-    if forces_mode not in ("pmajor", "pallas", "dense", "chunked"):
+    if forces_mode not in FORCES_MODES:
         raise ValueError(f"unknown forces_mode {forces_mode!r}")
     if cell_capacity is None:
         cell_capacity = 16
@@ -215,6 +223,7 @@ def build_scene(
             max_spawn=max_spawn,
             enable_spring=enable_spring,
             forces_mode=forces_mode,
+            max_neighbors=int(max_neighbors),
             cell_capacity=int(cell_capacity),
             chunk_halo=int(chunk_halo),
             chunk_cs=int(chunk_cs),

@@ -87,10 +87,9 @@ class Scene:
 
     Tensor fields live on the crate's device; the trailing int/float/bool
     fields are host values the step branches on.  The JAX Scene's
-    TPU-tactic fields ``row_block``, ``max_neighbors``, ``pmajor_w``,
-    ``pmajor_cs`` and ``pmajor_split`` have no counterpart: the port's
-    p-major kernel visits every candidate, the grid kernels need no row
-    block, and the fixed-K gather backend is not ported yet.
+    TPU-tactic fields ``row_block``, ``pmajor_w``, ``pmajor_cs`` and
+    ``pmajor_split`` have no counterpart: the port's p-major kernel visits
+    every candidate and the grid kernels need no row block.
     """
 
     # --- rigid bodies (reference: rigid_body.py:36-40) ---------------------
@@ -123,14 +122,19 @@ class Scene:
     enable_spring: bool = False
     # Neighbor-force backend: "pmajor" (the grid-free sorted-slab pair
     # kernels, ops/pmajor.py), "pallas" (the padded slot grid,
-    # ops/pallas_forces.py), "dense" (masked all-pairs, cellwise.py) or
-    # "chunked" (fixed-halo windows of the sorted slab, ops/chunked.py);
-    # scene.build_scene rejects the JAX package's other modes until they
-    # are ported.
+    # ops/pallas_forces.py), "cellwise" (the cell grid in plain torch,
+    # cellwise.py), "dense" (masked all-pairs, cellwise.py), "chunked"
+    # (fixed-halo windows of the sorted slab, ops/chunked.py) or "gather"
+    # (fixed-K neighbor lists, neighbors.py and physics.py).
     forces_mode: str = "pmajor"
-    # Slots per grid cell of the "pallas" backend (M of the (F, NYP, M, NXP)
-    # grid).  It changes results: particles past rank M in a cell take
-    # their rank % M cellmate's sums and are counted in the overflow.
+    # Neighbors kept per particle by the "gather" backend (the reference's
+    # MAX_ALLOWED_NEIGHBORS, collision_detector.py:6): the nearest K.
+    max_neighbors: int = 20
+    # Slots per grid cell of the "pallas" and "cellwise" backends (M of the
+    # slot grid) and of the "gather" backend's cell table.  It changes
+    # results: particles past rank M in a cell take their rank % M
+    # cellmate's sums (gather: are no one's candidate) and are counted in
+    # the overflow.
     cell_capacity: int = 16
     # The "chunked" backend's candidate halo (sorted-slab positions on each
     # side of a self chunk; a pair further apart is lost and counted into
@@ -195,8 +199,9 @@ class Diagnostics(NamedTuple):
 
     force_dv: torch.Tensor  # (NUM_FORCES,) f32 — mean ||dv|| over alive
     particle_count: torch.Tensor  # () int32
-    # () int32 — pallas: particles past a cell's capacity; chunked: candidate
-    # slots past the halo and alive rows past the sweep bound; pmajor, dense: 0
+    # () int32 — pallas, cellwise, gather: particles past a cell's capacity;
+    # chunked: candidate slots past the halo and alive rows past the sweep
+    # bound; pmajor, dense: 0
     neighbor_overflow: torch.Tensor
     max_speed: torch.Tensor  # () f32
     non_finite: torch.Tensor  # () int32 — alive particles with NaN/inf

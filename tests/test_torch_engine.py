@@ -29,9 +29,9 @@ from sand_crate_tpu_torch.state import to_numpy
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
-# JAX Scene fields that tune TPU tactics or backends the port does not have
-# (as tests/test_torch_scene.py).
-TPU_ONLY = {"row_block", "max_neighbors", "pmajor_w", "pmajor_cs", "pmajor_split"}
+# JAX Scene fields that tune TPU tactics the port does not have (as
+# tests/test_torch_scene.py).
+TPU_ONLY = {"row_block", "pmajor_w", "pmajor_cs", "pmajor_split"}
 
 
 def _world(name="stirring_cup.yaml", max_particles=400):

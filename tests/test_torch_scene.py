@@ -33,9 +33,10 @@ from sand_crate_tpu_torch.state import (
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "sand_crate_tpu_torch"
 CONFIGS = sorted(p.name for p in (REPO / "configs").glob("*.yaml"))
-# JAX Scene fields that tune TPU tactics or backends the port does not have.
-TPU_ONLY = {"row_block", "max_neighbors", "pmajor_w", "pmajor_cs", "pmajor_split"}
+# JAX Scene fields that tune TPU tactics the port does not have.
+TPU_ONLY = {"row_block", "pmajor_w", "pmajor_cs", "pmajor_split"}
 
 
 def _jax_fields(tree):
@@ -108,12 +109,13 @@ def test_forces_modes():
     assert build_scene(world, device="cpu").forces_mode == "dense"  # "auto" at capacity 640
     scene = build_scene(world, forces_mode="pmajor", enable_spring=True, device="cpu")
     assert (scene.fold_pairs, scene.pmajor_symm) == (False, True)
-    for mode in ("dense", "chunked"):
+    for mode in ("dense", "chunked", "gather", "cellwise"):
         scene = build_scene(world, forces_mode=mode, device="cpu")
         assert (scene.forces_mode, scene.fold_pairs, scene.pmajor_symm) == (mode, False, False)
-    for mode in ("gather", "cellwise"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_scene(world, forces_mode=mode, device="cpu")
+    assert build_scene(world, forces_mode="gather", max_neighbors=7,
+                       device="cpu").max_neighbors == 7
+    with pytest.raises(ValueError, match="unknown forces_mode"):
+        build_scene(world, forces_mode="sparse", device="cpu")
     # The slot-grid backend resolves its options as the JAX build_scene does.
     jworld = jax_load_config(REPO / "configs" / "stirring_cup.yaml").world_config
     for kw in ({}, {"cell_capacity": 8}, {"enable_spring": True}):
@@ -205,23 +207,30 @@ def test_carry_over_defaults_to_the_card():
         assert getattr(conv(src, device="cpu"), field).device.type == "cpu"
 
 def test_port_imports_no_jax_nor_yaml():
+    """Importing every module of the port, and chip_smoke, loads neither JAX
+    nor the JAX package, nor the modules that a GPU host may lack
+    (PyYAML, pygame, cv2, PIL, tqdm): those are imported inside the
+    functions that use them."""
+    modules = sorted(
+        "sand_crate_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py")
+        if "_build" not in p.parts
+    )
+    modules = [m.removesuffix(".__init__") for m in modules]
+    for name in ("cli", "__main__", "playback", "render", "native", "neighbors", "cellwise",
+                 "sweep", "ops.chunked", "utils.pygame_draw"):
+        assert f"sand_crate_tpu_torch.{name}" in modules, name
     # Only modules that the imports below add count (an interpreter start-up
-    # hook may have loaded others before).
+    # hook, or torch itself, may have loaded others before).
     code = (
-        "import sys\n"
+        "import sys, importlib\n"
+        "import numpy, torch\n"
         "before = set(sys.modules)\n"
-        "import sand_crate_tpu_torch, sand_crate_tpu_torch.ops.pmajor\n"
-        "import sand_crate_tpu_torch.ops.pallas_forces, sand_crate_tpu_torch.ops.placement\n"
-        "import sand_crate_tpu_torch.ops.cuda_build, sand_crate_tpu_torch.ops.measure\n"
-        "import sand_crate_tpu_torch.ops.pmajor_cases\n"
-        "import sand_crate_tpu_torch.engine\n"
-        "import sand_crate_tpu_torch.bench, sand_crate_tpu_torch.instrument\n"
-        "import sand_crate_tpu_torch.recording, sand_crate_tpu_torch.probes\n"
-        "import sand_crate_tpu_torch.probes.bf16_probe, sand_crate_tpu_torch.probes.hybrid_probe\n"
-        "import sand_crate_tpu_torch.probes.pmajor_probe, sand_crate_tpu_torch.probes.passa_probe\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sand_crate_tpu', 'tools', 'yaml')]\n"
+        "('jax', 'jaxlib', 'sand_crate_tpu', 'tools', 'yaml', 'pygame', 'cv2', 'PIL', 'tqdm')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
