@@ -150,6 +150,34 @@ prints its wall time as "[phase] name: s"):
    p-major's p_i and counts on the over-full cells against a brute force
    (PILE_P_TOL); at the end each p-major runaway's speed, window width and
    neighbor count.
+(m) spatial bands (sand_crate_tpu_torch/spatial.py) on a LocalGroup of
+   BAND_SHARDS shards of the card: (m1) the 1M dam break settled
+   SETTLE_TICKS ticks, split into uniform bands of 384 rows; one band tick
+   with noise 0 against the single-device tick, positions matched by uid
+   (BAND_POS_RTOL / BAND_POS_ATOL), and K1/K2 on the spliced slabs of
+   bands 0 and 1 (sentinel halo entries included) bit for bit against
+   their plain versions; BAND_DEFAULT_TICKS ticks at the JAX default
+   mig_cap (printed: deferred movers, halo spill and the edge-row runs the
+   step sends; each shard's spill must be its runs past the halo cap);
+   BAND_TICKS ticks at BAND_MIG_CAP with noise: overflow (the halo spill)
+   and migration_dropped 0 every tick, non_finite 0, uids unique, the alive
+   set kept but for particles culled outside the box, K1/K2 launched once
+   per band per tick, the sent edge-row runs beside the halo cap; the
+   band and single-device steps timed in turns (steps/s, p50); the same
+   with rebalanced edges (the edges every BAND_EDGES_EVERY ticks,
+   shard_alive max/mean against the uniform split's).  (m2) the pallas
+   bands (16 slots): one tick against the single-device pallas tick, the
+   overflow equal to an independent count; K4+K5 and K8+K9 on band 1's
+   spliced slab bit for bit against their plain versions, and K4+K5 on
+   the same slab in band-local rows with the row offset lo - 1 equal to
+   both; BAND_GRID_TICKS more ticks (K4+K5 and K8+K9 once per band per
+   tick).  (m3) tests/test_spatial.py's scenes on the card (cellwise,
+   pallas, pmajor at its tick counts, pmajor and cellwise rebalanced, the
+   spawn budget, spawn truncation and the halo spill), the sentinel case
+   of tests/test_torch_spatial.py (K1/K2 == plain with the above-halo
+   sentinels inside the selves' ranges, neighbor counts == a brute
+   force), entry() and
+   dryrun_multichip(4).  (m4) a line on DistGroup's NCCL leg (two cards).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -166,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 from sand_crate_tpu_torch.ops.measure import bound, cuda_ms
@@ -255,6 +284,22 @@ RUNAWAY_VARIANTS = {"pmajor, noise 0": {}, "pmajor, one-sided": dict(pmajor_symm
 # (l): p-major's p_i on a pile against a float64 brute force: the JAX
 # suite's PairSums tolerance (tests/test_pmajor.py:53)
 PILE_P_TOL = 3e-3
+# (m): the spatial bands
+BAND_SHARDS = 4
+BAND_TICKS = 20  # ticks of each 1M band run
+BAND_TURN_TICKS = 10  # ticks of each timed turn (band, single, band, single)
+BAND_EDGES_EVERY = 5  # rebalanced run: ticks between two readings of the edges
+BAND_GRID_TICKS = 5  # pallas band ticks after the one compared with one device
+# Movers a band sends each way a tick in the 1M runs.  The JAX default,
+# min(1024, capacity // 16), assumes a few hundred movers; bench.py's
+# fixed-dt rescale moves a falling particle several cell rows a tick, so
+# ~10k cross each band edge and the rest would defer, binned at the edge
+# row, and spill its halo (printed by BAND_DEFAULT_TICKS ticks at the
+# default first).
+BAND_MIG_CAP = 32768
+BAND_DEFAULT_TICKS = 3
+BAND_POS_RTOL, BAND_POS_ATOL = 1e-4, 1e-5  # tests/test_spatial.py:83
+BAND_SMALL = {"cellwise": 25, "pallas": 10, "pmajor": 6}  # tests/test_spatial.py's ticks
 
 
 def check(ok: bool, what: str) -> None:
@@ -2014,6 +2059,520 @@ def pile_forensics(world, settled) -> None:
     check(worst <= PILE_P_TOL, f"pile p_i off by {worst} of a brute force")
 
 
+def band_world(max_particles: int, block: bool):
+    """tests/test_spatial.py's scenes on bench.STIRRING_CUP (no YAML on the
+    card): the block of 782 particles, no emitters, noise 0 (``block``), or
+    the cup's emitter with ``max_particles``."""
+    import copy
+
+    from sand_crate_tpu_torch import load_config_dict
+    from sand_crate_tpu_torch.bench import STIRRING_CUP
+    from sand_crate_tpu_torch.config import InitialParticlesConfig
+
+    w = load_config_dict(copy.deepcopy(STIRRING_CUP)).world_config
+    w.coefficients = dict(w.coefficients)
+    w.coefficients["max_particles"] = max_particles
+    if block:
+        w.coefficients["collider_noise_level"] = 0.0
+        w.particle_sources = []
+        w.initial_particles = [InitialParticlesConfig(x0=0.30, y0=0.15, x1=0.70, y1=0.75,
+                                                      spacing=0.018, jitter=0.0)]
+    return w
+
+
+def band_vs_single(label, single, merged):
+    """Positions matched by uid, the tests' tolerance; returns the max error."""
+    import torch
+
+    check(int(single.alive.sum()) == int(merged.alive.sum()) > 0,
+          f"{label}: alive {int(single.alive.sum())} != {int(merged.alive.sum())}")
+    uid = merged.uid[merged.alive].long()
+    check(bool(by_uid(single, single.alive)[uid].all()), f"{label}: other particles alive")
+    a = by_uid(single, single.pos)[uid]
+    b = merged.pos[merged.alive]
+    err = float((a - b).abs().max())
+    ok = bool(torch.allclose(b, a, rtol=BAND_POS_RTOL, atol=BAND_POS_ATOL))
+    print(f"  {label}: {int(single.alive.sum())} alive, max |pos - single-device pos| {err:.3e} "
+          f"(rtol {BAND_POS_RTOL}, atol {BAND_POS_ATOL})")
+    check(ok, f"{label}: band positions differ from the single-device step")
+    return err
+
+
+def band_run(step_fn, split, params, ticks, label, edges=None, overflow_ref=None):
+    """``ticks`` band ticks with the checks of a closed box: overflow 0 (or
+    ``overflow_ref(state before the tick)``, an independent count),
+    migration_dropped and non_finite 0 every tick; uids unique; the alive
+    set kept but for particles culled outside the box: a tick that loses
+    particles must have had each of them outside [-r, 1 + r]^2 before it
+    (the cull reads the last integrate's positions; the dead slot may take
+    an arrival in the same tick), at most RUNAWAY_SHARE of them, as
+    ``drive`` allows.  Returns (split, stats of the last tick, edges,
+    deferred over the run)."""
+    import torch
+
+    n0 = count = int(split.alive.sum())
+    deferred = culled = 0
+    r = params.particle_radius
+    for t in range(ticks):
+        before = split
+        if edges is None:
+            split, stats = step_fn(split, params)
+        else:
+            split, stats = step_fn(split, params, edges)
+            edges = stats["band_edges"]
+            if (t + 1) % BAND_EDGES_EVERY == 0:
+                print(f"  {label} tick {t + 1}: edges {edges.tolist()} shard_alive "
+                      f"{stats['shard_alive'].tolist()}")
+        vals = {k: int(stats[k]) for k in ("particle_count", "neighbor_overflow",
+                                           "migration_dropped", "migration_deferred",
+                                           "non_finite")}
+        deferred += vals["migration_deferred"]
+        want = 0 if overflow_ref is None else overflow_ref(before)
+        check(vals["neighbor_overflow"] == want, f"{label} tick {t + 1}: overflow {vals}, "
+                                                  f"independent count {want}")
+        check(vals["migration_dropped"] == 0, f"{label} tick {t + 1}: dropped {vals}")
+        check(vals["non_finite"] == 0, f"{label} tick {t + 1}: non-finite {vals}")
+        uid0, uid1 = before.uid[before.alive], split.uid[split.alive]
+        check(bool(torch.isin(uid1, uid0).all()), f"{label} tick {t + 1}: a particle came "
+                                                   "alive in a closed box")
+        if vals["particle_count"] != count:
+            gone = before.alive & ~torch.isin(before.uid, uid1)
+            frozen = before.pos[gone]
+            outside = ((frozen < -r) | (frozen > 1.0 + r)).any(dim=1)
+            print(f"  {label} tick {t + 1}: culled outside the box: {int(gone.sum())} (their "
+                  f"positions before the tick {frozen[:4].cpu().tolist()})")
+            check(int(gone.sum()) == count - vals["particle_count"], f"{label}: alive count")
+            check(bool(outside.all()), f"{label}: a lost particle was inside the box")
+            culled += int(gone.sum())
+            count = vals["particle_count"]
+    uids = split.uid[split.alive]
+    check(int(uids.unique().numel()) == int(uids.numel()), f"{label}: uids not unique")
+    check(culled <= RUNAWAY_SHARE * n0, f"{label}: {culled} particles lost")
+    return split, stats, edges, deferred
+
+
+def timed_ticks(run, ticks):
+    """(steps/s, p50 ms) of ``ticks`` calls of ``run()``, each closed by a
+    synchronize (host clock)."""
+    import torch
+
+    torch.cuda.synchronize()
+    times = []
+    t_all = time.perf_counter()
+    for _ in range(ticks):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return ticks / (time.perf_counter() - t_all), statistics.median(times)
+
+
+def spatial_bands(smi: str) -> dict:
+    """Phase (m): one crate split into BAND_SHARDS y-bands on a LocalGroup
+    of the card (one thread a shard).  Returns the band runs' launches of
+    K1/K2 and the slab-order grid kernels."""
+    import torch
+
+    from sand_crate_tpu_torch import Crate, entry
+    from sand_crate_tpu_torch.collectives import LocalGroup
+    from sand_crate_tpu_torch.physics import step
+    from sand_crate_tpu_torch.scene import build_scene
+    from sand_crate_tpu_torch.spatial import (
+        _halo_cap, initial_band_edges, make_spatial_step, merge_state, split_state,
+    )
+
+    D = BAND_SHARDS
+    launches = {}
+    world = dam_break_world(N_TARGET)
+    base = Crate(world, device="cuda")
+    base.run(SETTLE_TICKS)
+    settled, scene, params = clone_state(base.state), base.scene, base.params
+    gen_state = base.generator.get_state()
+    n0 = base.particle_count
+    del base
+    quiet = params._replace(collider_noise_level=torch.zeros_like(params.collider_noise_level))
+    group = LocalGroup(D, device="cuda")
+    bh = scene.grid_ny // D
+    print(f"spatial bands on {smi}: the 1M dam break ({n0} particles, grid {scene.grid_nx}x"
+          f"{scene.grid_ny}) settled {SETTLE_TICKS} ticks on pmajor, split into {D} bands of "
+          f"{bh} rows on a LocalGroup of the card; each shard keeps the full capacity "
+          f"{scene.capacity}; _halo_cap {_halo_cap(scene)}")
+    try:
+        # -- (m1) pmajor bands ---------------------------------------------------
+        gen = torch.Generator(device="cuda")
+        gen.set_state(gen_state)
+        single, _ = step(clone_state(settled), quiet, scene, gen)
+        band = make_spatial_step(group, scene)
+        split0 = split_state(settled, scene, D)
+        capture = [{} for _ in range(D)]
+        one, stats = band(split0, quiet, capture=capture)
+        band_vs_single("(m1) pmajor band tick vs one device, noise 0", single,
+                       merge_state(one, scene, D))
+        check(int(stats["neighbor_overflow"]) == 0, "(m1) one tick: overflow")
+        sent0 = stats["shard_sent"].tolist()
+        pmajor_band_kernels(capture, scene)
+        del capture
+        probe = split0
+        hc = _halo_cap(scene)
+        for t in range(BAND_DEFAULT_TICKS):
+            probe, stats = band(probe, params)
+            sent = stats["shard_sent"]
+            spill = torch.clamp(sent - hc, min=0).sum(dim=1)
+            check(torch.equal(spill, stats["shard_overflow"]),
+                  f"(m1) default mig_cap tick {t + 1}: shard_overflow "
+                  f"{stats['shard_overflow'].tolist()} is not the runs past the cap {hc}: "
+                  f"{sent.tolist()}")
+            print(f"  (m1) default mig_cap {band.mig_cap}, tick {t + 1}: migration_deferred "
+                  f"{int(stats['migration_deferred'])}, overflow (halo spill) "
+                  f"{int(stats['neighbor_overflow'])} = the sent runs past the cap {hc}; sent "
+                  f"edge-row runs (top, bottom) per shard {sent.tolist()} (not a gate)")
+        del probe
+        band = make_spatial_step(group, scene, mig_cap=BAND_MIG_CAP)
+        reset_kernel_counts()
+        split, stats, _, deferred = band_run(band, split0, params, BAND_TICKS,
+                                             f"(m1) uniform, mig_cap {BAND_MIG_CAP}")
+        counts = kernel_counts()
+        want = {k: 0 for k in counts}
+        want.update({"pmajor.a": D * BAND_TICKS, "pmajor.b": D * BAND_TICKS})
+        print(f"  (m1) uniform bands, {BAND_TICKS} ticks with noise: launches {counts}; "
+              f"overflow 0, migration_dropped 0, migration_deferred {deferred}, alive "
+              f"{int(stats['particle_count'])} of {n0}, uids unique, non_finite 0; "
+              f"shard_alive {stats['shard_alive'].tolist()}")
+        check(counts == want, f"(m1) launches {counts} != {want}")
+        launches["pm_pass_a"], launches["pm_pass_b"] = counts["pmajor.a"], counts["pmajor.b"]
+        print(f"  (m1) sent edge-row runs (top, bottom) per shard, first tick / last tick: "
+              f"{sent0} / {stats['shard_sent'].tolist()} (halo cap {hc})")
+        uniform_alive = stats["shard_alive"].float()
+
+        single = clone_state(settled)
+        for _ in range(BAND_TICKS):
+            single, _ = step(single, params, scene, gen)
+        box = {"band": split, "single": single}
+
+        def band_tick():
+            box["band"], _ = band(box["band"], params)
+
+        def single_tick():
+            box["single"], _ = step(box["single"], params, scene, gen)
+
+        rates = {"band": [], "single": []}
+        for name in ("band", "single", "band", "single"):
+            rates[name].append(timed_ticks(band_tick if name == "band" else single_tick,
+                                           BAND_TURN_TICKS))
+        print(f"  (m1) on {smi}, in turns of {BAND_TURN_TICKS} ticks (host clock, each tick "
+              f"closed by a synchronize): band step " + ", ".join(
+                  f"{r:.3f} steps/s p50 {p:.3f} ms" for r, p in rates["band"])
+              + "; single-device step " + ", ".join(
+                  f"{r:.3f} steps/s p50 {p:.3f} ms" for r, p in rates["single"]))
+        for name, tick in (("band step", band_tick), ("single-device step", single_tick)):
+            print(f"  (m1) {name}: " + profiled(lambda n, tick=tick: [tick() for _ in range(n)],
+                                                PROFILED_TICKS))
+        del box, split, single
+
+        edges0 = initial_band_edges(settled, scene, D)
+        rb = make_spatial_step(group, scene, mig_cap=BAND_MIG_CAP, rebalance=True)
+        rsplit = split_state(settled, scene, D, edges0)
+        print(f"  (m1) rebalanced: initial edges {edges0.tolist()}")
+        reset_kernel_counts()
+        rsplit, rstats, edges, deferred = band_run(rb, rsplit, params, BAND_TICKS,
+                                                   "(m1) rebalanced", edges0)
+        counts = kernel_counts()
+        check(counts == want, f"(m1) rebalanced launches {counts} != {want}")
+        launches["pm_pass_a"] += counts["pmajor.a"]
+        launches["pm_pass_b"] += counts["pmajor.b"]
+        per = rstats["shard_alive"].float()
+        print(f"  (m1) rebalanced, {BAND_TICKS} ticks: launches {counts}; migration_deferred "
+              f"{deferred}; edges {edges.tolist()}; shard_alive max/mean "
+              f"{float(per.max() / per.mean()):.4f} (uniform "
+              f"{float(uniform_alive.max() / uniform_alive.mean()):.4f}); sent edge-row runs "
+              f"{rstats['shard_sent'].tolist()}")
+        del rsplit
+
+        # -- (m2) pallas bands -----------------------------------------------------
+        gscene = build_scene(world, forces_mode="pallas", cell_capacity=GRID_SLOTS,
+                             device="cuda")
+        gen.set_state(gen_state)
+        single, _ = step(clone_state(settled), quiet, gscene, gen)
+        gband = make_spatial_step(group, gscene, mig_cap=BAND_MIG_CAP)
+        reset_kernel_counts()
+        capture = [{} for _ in range(D)]
+        one, gstats = gband(split0, quiet, capture=capture)
+        counts = kernel_counts()
+        check(counts["grid.pair_pass_a"] == D and counts["grid.pair_pass_b_emit"] == D
+              and sum(counts.values()) == 2 * D, f"(m2) one tick launches {counts}")
+        launches["pair_pass_a"] = counts["grid.pair_pass_a"]
+        launches["pair_pass_b_emit"] = counts["grid.pair_pass_b_emit"]
+        band_vs_single("(m2) pallas band tick vs one device, noise 0", single,
+                       merge_state(one, gscene, D))
+        over = over_capacity(types.SimpleNamespace(params=params, scene=gscene), GRID_SLOTS)
+        check(int(gstats["neighbor_overflow"]) == over(split0), "(m2) one tick: overflow")
+        print(f"  (m2) overflow (particles past {GRID_SLOTS} in a cell) "
+              f"{int(gstats['neighbor_overflow'])}, equal to an independent count")
+        del single
+        grid_band_kernels(capture[1], gscene, quiet, settled.tick)
+        del capture
+        reset_kernel_counts()
+        split, gstats, _, deferred = band_run(gband, one, params, BAND_GRID_TICKS,
+                                              "(m2) pallas", overflow_ref=over)
+        counts = kernel_counts()
+        want = {k: 0 for k in counts}
+        want.update({"grid.pair_pass_a": D * BAND_GRID_TICKS,
+                     "grid.pair_pass_b_emit": D * BAND_GRID_TICKS})
+        check(counts == want, f"(m2) launches {counts} != {want}")
+        launches["pair_pass_a"] += counts["grid.pair_pass_a"]
+        launches["pair_pass_b_emit"] += counts["grid.pair_pass_b_emit"]
+        print(f"  (m2) pallas bands, {BAND_GRID_TICKS} more ticks with noise: launches {counts}; "
+              f"migration_deferred {deferred}, overflow each tick equal to the independent count "
+              f"({int(gstats['neighbor_overflow'])} at the last), shard_alive "
+              f"{gstats['shard_alive'].tolist()}")
+        del split, one, split0, settled
+    finally:
+        group.close()
+
+    # -- (m3) the small legs: tests/test_spatial.py's scenes on the card -----------
+    small_legs()
+    print("  (m3) entry() and dryrun_multichip(4) on the card:")
+    fn, (state, params) = entry.entry()
+    pos, dv = fn(state, params)
+    check(bool(torch.isfinite(pos).all()) and dv.shape == (7,), "entry() step")
+    print(f"  entry OK: {tuple(pos.shape)} {tuple(dv.shape)}")
+    out = entry.dryrun_multichip(4)
+    check(all(out[k] > 0 for k in ("batched", "spatial", "spatial-pallas", "spatial-pmajor",
+                                   "spatial-rebalance")), f"dryrun_multichip(4): {out}")
+
+    # -- (m4) the NCCL leg -------------------------------------------------------------
+    print(f"  (m4) DistGroup's NCCL leg needs two cards (NCCL puts no two ranks on one "
+          f"device); this machine has {torch.cuda.device_count()}, so it is not run here")
+    return launches
+
+
+def pmajor_band_kernels(capture: list, scene, label="(m1)", bands=(0, 1)) -> dict:
+    """K1/K2 on the spliced slabs of ``bands`` (shard 0's above halo is all
+    sentinels, cid -1; shard 1 is interior) against their plain versions,
+    bit for bit, and against the step's own launches.  Prints how many
+    sentinel entries sit inside a self's candidate range, where only the
+    pair mask keeps them out; returns {band: (sentinel, covered) masks}."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import pmajor as pm
+
+    nx = scene.grid_nx
+    masks = {}
+    for d in bands:
+        cap = capture[d]
+        cid, ranges, coef, symm = cap["cid"], cap["ranges"], cap["coef"], cap["symm"]
+        hc, lo = cap["hc"], int(cap["lo"])
+        a = pm.pm_pass(cap["slab_a"], ranges, coef, "a", symm=symm)
+        exact(f"{label} band {d} pm_pass_a", a,
+              pm.pm_pass_plain(cap["slab_a"], ranges, coef, "a", symm=symm))
+        check(torch.equal(a, cap["out_a"]), f"{label} band {d} pass A differs from the step's")
+        kw = dict(fold=cap["fold"], spring=cap["spring"], symm=symm)
+        b = pm.pm_pass(cap["slab_b"], ranges, coef, "b", **kw)
+        exact(f"{label} band {d} pm_pass_b", b,
+              pm.pm_pass_plain(cap["slab_b"], ranges, coef, "b", **kw))
+        check(torch.equal(b, cap["out_b"]), f"{label} band {d} pass B differs from the step's")
+        # An unused above-halo entry: the sentinel cid and zero features (a
+        # real particle of column nx - 1 in row lo - 1 has that cid too).
+        sentinel = torch.zeros_like(cid, dtype=torch.bool)
+        sentinel[:hc] = (cid[:hc] == lo * nx - 1) & (cap["slab_a"][:hc, :6] == 0).all(dim=1)
+        check(int(sentinel.sum()) > 0, f"{label} band {d}: no sentinel entry in the above halo")
+        if d == 0:
+            check(bool(sentinel[:hc].all()) and lo == 0, f"{label} band 0: above halo not all "
+                                                          "cid -1")
+        # columns covered by some self's range: +1 at each start, -1 at each end
+        edge = torch.zeros(cid.numel() + 1, dtype=torch.int32, device=cid.device)
+        for q in range(3):
+            edge.index_add_(0, ranges[q].long(), torch.ones_like(ranges[q]))
+            edge.index_add_(0, ranges[3 + q].long(), -torch.ones_like(ranges[q]))
+        covered = torch.cumsum(edge, 0)[:-1] > 0
+        halo = hc - int(sentinel.sum())
+        masks[d] = (sentinel, covered)
+        print(f"  {label} band {d} (rows {lo}-{lo + scene.grid_ny // len(capture) - 1}): spliced "
+              f"slab of {cid.numel()} columns, {halo} above-halo particles, "
+              f"{int(sentinel.sum())} sentinel entries (cid {lo * nx - 1}, zero features), "
+              f"{int((sentinel & covered).sum())} of them inside a self's range; pm_pass_a "
+              f"and pm_pass_b == plain bit for bit == the step's launches (launches counted "
+              f"outside the band runs)")
+    return masks
+
+
+def sentinel_case(params) -> None:
+    """(m3): the layout of tests/test_torch_spatial.py's sentinel test on
+    the card: particles pressed against the right wall (x = 1 bins in
+    column nx - 2) in rows lo - 1 .. lo + 1 of band 1 of 2, so band 1's
+    above-halo sentinels (cid lo * nx - 1, zero features) lie inside its
+    selves' d = -1 ranges.  K1/K2 == plain bit for bit there, and each
+    self's pass-A neighbor count equals a brute force over the slab's real
+    entries."""
+    import torch
+
+    from sand_crate_tpu_torch.collectives import LocalGroup
+    from sand_crate_tpu_torch.scene import build_scene, init_state
+    from sand_crate_tpu_torch.spatial import make_spatial_step, split_state
+
+    w = band_world(256, block=True)
+    scene = build_scene(w, capacity=1024, forces_mode="pmajor", device="cuda")
+    nx, ny, cs = scene.grid_nx, scene.grid_ny, scene.cell_size
+    lo, n, P = ny // 2, 48, scene.capacity
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    pos = torch.zeros((P, 2), device="cuda")
+    x = 0.97 + 0.03 * torch.rand(n, device="cuda", generator=gen)
+    pos[:n, 0] = torch.where(torch.arange(n, device="cuda") % 2 == 0, 1.0, x)
+    pos[:n, 1] = (lo - 2 + 3.0 * torch.rand(n, device="cuda", generator=gen)) * cs
+    alive = torch.arange(P, device="cuda") < n
+    state = init_state(w, scene, seed=0)._replace(pos=pos, alive=alive)
+    capture = [{}, {}]
+    g2 = LocalGroup(2, device="cuda")
+    try:
+        make_spatial_step(g2, scene)(split_state(state, scene, 2), params, capture=capture)
+    finally:
+        g2.close()
+    sentinel, covered = pmajor_band_kernels(capture, scene, "(m3) sentinel case", (1,))[1]
+    check(int((sentinel & covered).sum()) > 0, "(m3) sentinel case: no sentinel in a range")
+    cap = capture[1]
+    cid, slab, ranges = cap["cid"], cap["slab_a"], cap["ranges"]
+    real = (cid < nx * ny) & (slab[:, :6] != 0).any(dim=1)
+    selves = torch.nonzero(ranges[3:].sum(dim=0) > ranges[:3].sum(dim=0)).flatten()
+    xy = slab[:, :2].double()
+    d2 = ((xy[selves, None] - xy[None, real]) ** 2).sum(dim=-1)
+    brute = (d2 <= float(params.diameter) ** 2).sum(dim=1) - 1  # less the self
+    got = cap["out_a"][3, selves]
+    check(int(brute.max()) > 0 and torch.equal(got, brute.to(got.dtype)),
+          f"(m3) sentinel case: neighbor counts {got.tolist()} != brute force {brute.tolist()}")
+    print(f"  (m3) sentinel case: {int((sentinel & covered).sum())} sentinels inside the ranges "
+          f"of {selves.numel()} selves; their neighbor counts == a brute force (max "
+          f"{int(brute.max())})")
+
+
+def grid_band_kernels(cap: dict, scene, params, tick) -> None:
+    """(m2): K4+K5 and K8+K9 on one band's spliced slab (its halo rows
+    included) against their plain versions, bit for bit; and K4+K5 on the
+    same slab in band-local rows with the noise row offset lo - 1, equal to
+    both its plain version and the global-row launch."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import pair_kernel as pk
+
+    M, nx = scene.cell_capacity, scene.grid_nx
+    slab, rs, ps, out = cap["slab"], cap["row_start"], cap["ps"], cap["out"]
+    lo, hi = int(cap["lo"]), int(cap["hi"])
+    amp = cap["noise_amp"]
+    pr = params
+    n = int(rs[-1])
+    coefs = (pr.diameter, pr.surface_smoothing, pr.target_pressure, pr.spring_overlap_balance,
+             pr.ignored_pressure, amp, tick)
+    a_kernel = pk.pair_pass_a(slab, rs, M, nx, pr.diameter, amp, tick)
+    exact("(m2) band pair_pass_a", a_kernel,
+          pk.pair_pass_a_slab_plain(slab, rs, M, nx, pr.diameter, amp, tick))
+    e_kernel = pk.pair_pass_b_emit(slab, ps, rs, M, nx, *coefs)
+    exact("(m2) band pair_pass_b_emit", e_kernel,
+          pk.pair_pass_b_emit_plain(slab, ps, rs, M, nx, *coefs))
+    check(torch.equal(e_kernel, out), "(m2) band emit differs from the step's launch")
+    local = slab.clone()
+    local[pk.ROW, :n] -= lo - 1
+    rs_local = rs[lo - 1:hi + 2].contiguous()
+    a_local = pk.pair_pass_a(local, rs_local, M, nx, pr.diameter, amp, tick, row_offset=lo - 1)
+    exact("(m2) band pair_pass_a, local rows", a_local,
+          pk.pair_pass_a_slab_plain(local, rs_local, M, nx, pr.diameter, amp, tick,
+                                    row_offset=lo - 1))
+    check(torch.equal(a_local, a_kernel), "(m2) local-row pass A differs from the global-row one")
+    halo = int((slab[pk.ROW, :n] == lo - 1).sum()) + int((slab[pk.ROW, :n] == hi).sum())
+    print(f"  (m2) band 1 (rows {lo}-{hi - 1}): spliced slab of {n} alive columns ({halo} halo "
+          f"columns in rows {lo - 1} and {hi}); pair_pass_a and pair_pass_b_emit == plain bit "
+          f"for bit; pair_pass_a in local rows {lo - 1}..{hi} with row offset {lo - 1} == plain "
+          f"== the global-row launch (launches counted outside the band runs)")
+
+
+def small_legs() -> None:
+    """(m3): tests/test_spatial.py's scenes on the card, bands on a
+    LocalGroup of 4 against the single-device step, at its tick counts."""
+    import dataclasses
+
+    import torch
+
+    from sand_crate_tpu_torch.collectives import LocalGroup
+    from sand_crate_tpu_torch.physics import step
+    from sand_crate_tpu_torch.scene import build_scene, init_state
+    from sand_crate_tpu_torch.spatial import (
+        _halo_cap, initial_band_edges, make_spatial_step, merge_state, split_state,
+    )
+    from sand_crate_tpu_torch.state import Params
+
+    w = band_world(256, block=True)
+    params = Params.from_coefficients(w.coefficients, "cuda")
+    group = LocalGroup(BAND_SHARDS, device="cuda")
+    try:
+        legs = [(m, t, False) for m, t in BAND_SMALL.items()]
+        legs += [("pmajor", BAND_SMALL["pmajor"], True), ("cellwise", BAND_SMALL["cellwise"], True)]
+        for mode, ticks, rebalance in legs:
+            scene = build_scene(w, capacity=1024, forces_mode=mode, device="cuda")
+            s0 = init_state(w, scene, seed=0)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            single = s0
+            for _ in range(ticks):
+                single, _ = step(single, params, scene, gen)
+            edges = initial_band_edges(s0, scene, BAND_SHARDS) if rebalance else None
+            split = split_state(s0, scene, BAND_SHARDS, edges)
+            band = make_spatial_step(group, scene, rebalance=rebalance)
+            for _ in range(ticks):
+                if rebalance:
+                    split, stats = band(split, params, edges)
+                    edges = stats["band_edges"]
+                else:
+                    split, stats = band(split, params)
+            check(int(stats["migration_dropped"]) == 0 and int(stats["neighbor_overflow"]) == 0,
+                  f"(m3) {mode}: {stats}")
+            band_vs_single(f"(m3) {mode}{' rebalanced' if rebalance else ''}, {ticks} ticks",
+                           single, merge_state(split, scene, BAND_SHARDS))
+
+        w = band_world(40, block=False)
+        scene = build_scene(w, capacity=256, forces_mode="cellwise", device="cuda")
+        p40 = Params.from_coefficients(w.coefficients, "cuda")
+        split = split_state(init_state(w, scene, seed=0), scene, BAND_SHARDS)
+        band = make_spatial_step(group, scene)
+        for _ in range(120):
+            split, stats = band(split, p40)
+        total = int(stats["particle_count"])
+        check(0 < total <= 40 + scene.max_spawn * scene.num_sources, f"(m3) spawn budget {total}")
+        w = band_world(200, block=False)
+        scene = build_scene(w, capacity=256, forces_mode="cellwise", device="cuda")
+        spike = dataclasses.replace(scene, max_spawn=2,
+                                    src_flow=torch.full_like(scene.src_flow, 5000.0))
+        _, stats = make_spatial_step(group, spike)(
+            split_state(init_state(w, spike, seed=0), spike, BAND_SHARDS),
+            Params.from_coefficients(w.coefficients, "cuda"))
+        trunc = int(stats["spawn_truncated"])
+        check(trunc > 0, "(m3) spawn truncation not counted")
+    finally:
+        group.close()
+
+    w = band_world(256, block=True)
+    scene = build_scene(w, capacity=1024, forces_mode="pmajor", device="cuda")
+    hc = _halo_cap(scene)
+    s0 = init_state(w, scene, seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    P, n = scene.capacity, 2 * hc
+    pos = torch.zeros((P, 2), device="cuda")
+    pos[:n, 0] = 0.1 + 0.8 * torch.rand(n, device="cuda", generator=gen)
+    pos[:n, 1] = (scene.grid_ny // 2 - 1.5) * scene.cell_size
+    alive = torch.arange(P, device="cuda") < n
+    g2 = LocalGroup(2, device="cuda")
+    try:
+        _, stats = make_spatial_step(g2, scene)(
+            split_state(s0._replace(pos=pos, alive=alive), scene, 2), params)
+    finally:
+        g2.close()
+    spill = int(stats["neighbor_overflow"])
+    check(spill >= hc, f"(m3) halo spill {spill} < {hc}")
+    print(f"  (m3) spawn budget: {total} alive after 120 ticks (cap 40 + one tick); spawn "
+          f"truncation counted {trunc}; halo spill: {n} particles in one edge row, overflow "
+          f"{spill} >= halo cap {hc}, sent runs {stats['shard_sent'].tolist()}")
+    sentinel_case(params)
+
+
 def main() -> int:
     import torch
 
@@ -2195,6 +2754,13 @@ def main() -> int:
     # -- (l) the runaway check: p-major, pallas and cellwise from one state ---------
     with phase("runaway check"):
         runaway_check(smi)
+
+    # -- (m) spatial bands: pmajor and pallas at 1M, the small legs, the entries ----
+    with phase("spatial bands"):
+        band_launches = spatial_bands(smi)
+        for r in rows + grid_rows:
+            if r["name"] in band_launches:
+                r["band_launches"] = band_launches[r["name"]]
 
     print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -135,7 +135,9 @@ def candidate_ranges(sorted_cid: torch.Tensor, alive: torch.Tensor, nx: int, ny:
     [cid + d*nx - 1, cid + d*nx + 2) for d = -1, 0, +1, clipped to the grid as
     in the JAX ``_windows``.  Dead selves get empty ranges."""
     NC = nx * ny
-    d = torch.tensor([-nx, 0, nx], dtype=torch.int32, device=sorted_cid.device)
+    # -nx, 0, nx made on the device: a list copied to the card would wait
+    # for its stream to drain.
+    d = torch.arange(-1, 2, dtype=torch.int32, device=sorted_cid.device) * nx
     base = sorted_cid[None, :] + d[:, None]  # (3, P)
     lo = torch.clamp(base - 1, 0, NC)
     hi = torch.clamp(base + 2, 0, NC)

@@ -218,7 +218,8 @@ def test_port_imports_no_jax_nor_yaml():
     )
     modules = [m.removesuffix(".__init__") for m in modules]
     for name in ("cli", "__main__", "playback", "render", "native", "neighbors", "cellwise",
-                 "sweep", "ops.chunked", "utils.pygame_draw"):
+                 "sweep", "ops.chunked", "utils.pygame_draw", "collectives", "spatial",
+                 "parallel", "entry"):
         assert f"sand_crate_tpu_torch.{name}" in modules, name
     # Only modules that the imports below add count (an interpreter start-up
     # hook, or torch itself, may have loaded others before).
