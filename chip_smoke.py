@@ -9,9 +9,9 @@ prints its wall time as "[phase] name: s"):
 2. build: compile the hand-written CUDA kernels (csrc/pmajor.cu with K1/K2
    and K10, csrc/grid_pair.cu with K3-K9, csrc/probes.cu; one nvcc each,
    started together) and print every kernel's ptxas registers and spills.
-3. world: the dam break (sand_crate_tpu_torch.bench.DAM_BREAK, equal to
-   configs/dam_break.yaml) rescaled as bench.py rescales it, to 1,000,000
-   target particles (1,001,700 alive).
+3. world: the dam break (configs/dam_break.yaml, read without PyYAML)
+   rescaled as bench.py rescales it (tools.perf_probe.dam_break_world), to
+   1,000,000 target particles (1,001,700 alive).
 4. pmajor kernels: after SETTLE_TICKS ticks, K1/K2 (pass A, and pass B
    folded and split) against their plain torch versions on the same device
    inputs, with two-sided and with one-sided noise: bit for bit (max abs
@@ -140,8 +140,9 @@ prints its wall time as "[phase] name: s"):
    counts exactly, below the 20-neighbor cap and the cell capacity.
 (l) the runaway check: the 1M dam break settled SETTLE_TICKS ticks on
    p-major, its state copied into crates on p-major, pallas and cellwise
-   (the cell grid in plain torch, 16 slots a cell), and on p-major without
-   noise and with one-sided noise, each run RUNAWAY_TICKS ticks; every
+   (the cell grid in plain torch, 16 slots a cell; RUNAWAY_CELLWISE_TICKS
+   ticks), and on p-major without noise and with one-sided noise, each run
+   RUNAWAY_TICKS ticks; every
    RUNAWAY_EVERY ticks each one's count of particles faster than
    RUNAWAY_SPEED, max speed, overflow, non-finite count and fullest cell,
    and its ms a tick and peak allocation; K1/K2 and the slab-order grid
@@ -178,6 +179,25 @@ prints its wall time as "[phase] name: s"):
    sentinels inside the selves' ranges, neighbor counts == a brute
    force), entry() and
    dryrun_multichip(4).  (m4) a line on DistGroup's NCCL leg (two cards).
+(n) the engine tools (sand_crate_tpu_torch/tools/, the twins of tools/),
+   called in-process with every kernel counter reset first; a non-zero
+   return or a broken gate fails the run: (n1) soak: the 1M dam break on
+   "auto" (p-major, K1/K2) for SOAK_TICKS ticks in chunks of SOAK_CHUNK,
+   the tool's line per chunk (steps/s, overflow, non_finite, max speed,
+   max cell occupancy, blob, duplicate uids) and beside it the alive
+   count, the alive particles over RUNAWAY_SPEED and the fullest cell;
+   the tool's verdict must be 0, K1/K2 launched once a tick; sustained
+   steps/s.  (n2) the same chunk loop on a wave_machine crate
+   (configs/wave_machine.yaml, read without PyYAML; dense) for
+   WAVE_SOAK_TICKS ticks: verdict 0 and the alive count level once the
+   source stops.  (n3) perf_probe at PROBE_SIZES.  (n4) occupancy_stats at
+   1M after OCC_TICKS ticks.  (n5) rebalance_midscale at 65,536 particles
+   on 8 LocalGroup shards of the card: all four gates.  (n6)
+   spatial_balance uniform and rebalanced, 8 shards, BALANCE_TICKS ticks:
+   max/mean at the last sample, no particle lost.  (n7) chunked_sweep
+   --fill at FILL_CRATES crates: overflow 0 in every chunk.  (n8)
+   small_n_probe at SMALL_N, cut to SMALL_N_CHUNKS chunks.  Each kernel
+   row gains "tools_launches", its launches over phase (n).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -276,6 +296,10 @@ SUMS_TOL = 1e-5
 # H100, and p-major's first runaways come ~23 ticks after the settle.
 RUNAWAY_TICKS = 40
 RUNAWAY_EVERY = 20  # (l): ticks between two readings
+# (l): the cell grid in plain torch runs only the first reading (cut from
+# RUNAWAY_TICKS to leave the script's time to phase (n): ~1.7 s a tick;
+# its tick-90 reading, 0 runaways, is in ROADMAP queue 3)
+RUNAWAY_CELLWISE_TICKS = 20
 RUNAWAY_MODES = {"pmajor": {}, "pallas": dict(forces_mode="pallas", cell_capacity=GRID_SLOTS),
                  "cellwise": dict(forces_mode="cellwise", cell_capacity=GRID_SLOTS)}
 # (l): p-major without collider noise and with one-sided noise: the runaways'
@@ -300,6 +324,20 @@ BAND_MIG_CAP = 32768
 BAND_DEFAULT_TICKS = 3
 BAND_POS_RTOL, BAND_POS_ATOL = 1e-4, 1e-5  # tests/test_spatial.py:83
 BAND_SMALL = {"cellwise": 25, "pallas": 10, "pmajor": 6}  # tests/test_spatial.py's ticks
+# (n): the engine tools (sand_crate_tpu_torch/tools/), at the JAX records'
+# settings: the 1M soak (never cut: it is the stability gate), the
+# wave_machine soak, perf_probe at the README's three sizes,
+# occupancy_stats, rebalance_midscale and spatial_balance at the tools'
+# defaults, the chunked fill at K = 64, small_n_probe cut to 2 chunks of 200
+# ticks (the tool's default is 20; its chunked row takes ~74 ms a tick)
+SOAK_TICKS, SOAK_CHUNK = 2000, 250
+WAVE_SOAK_TICKS, WAVE_SOURCE_TICKS = 3000, 500  # wave_machine.yaml: active_ticks 500
+PROBE_SIZES = (10_000, 100_000, 1_000_000)
+OCC_TICKS = (0, 100, 300, 600)
+MIDSCALE = dict(particles=65536, eq_ticks=40, settle_ticks=240, n_shards=8)
+BALANCE_SHARDS, BALANCE_TICKS = 8, 300
+FILL_CRATES = 64
+SMALL_N, SMALL_N_CHUNKS = 10_000, 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -1766,7 +1804,7 @@ def batched_crates(smi: str) -> None:
 def cli_path(smi: str, recording_dir) -> None:
     """Phase (k): the command line's main path on the card.  ``python -m
     sand_crate_tpu_torch run`` (cli.main) on configs/dam_break.yaml, given
-    as JSON (bench.DAM_BREAK: no PyYAML needed), headless
+    as JSON (bench.DAM_BREAK written out), headless
     without recording: Playback -> Crate.stream_frames -> p-major, K1/K2
     once a tick; its invariants and ticks/s.  The last frame rendered by
     the C rasterizer, equal pixel for pixel to the numpy one.  The replay of
@@ -1888,7 +1926,8 @@ def runaway_check(smi: str) -> None:
     state (and generator) copied into crates of the same world on p-major,
     the slot grid and the cell grid in plain torch (RUNAWAY_MODES), and on
     p-major without collider noise and with one-sided noise, each run
-    RUNAWAY_TICKS ticks; every RUNAWAY_EVERY ticks each one's count of
+    RUNAWAY_TICKS ticks (cellwise RUNAWAY_CELLWISE_TICKS); every
+    RUNAWAY_EVERY ticks each one's count of
     particles faster than RUNAWAY_SPEED, max speed, overflow, non-finite
     count and fullest cell (its population and corner); each one's ms a tick
     and peak allocation.  The launch counts of those runs are checked.  Then :func:`pile_forensics` from the same
@@ -1921,9 +1960,13 @@ def runaway_check(smi: str) -> None:
           f"{sc.grid_ny}x{sc.grid_nx}, {sc.cell_capacity} slots a cell)")
     reset_kernel_counts()
     wall = dict.fromkeys(crates, 0.0)
+    ran = dict.fromkeys(crates, 0)
     peak = dict.fromkeys(crates, 0)
     for t in range(RUNAWAY_EVERY, RUNAWAY_TICKS + 1, RUNAWAY_EVERY):
         for name, c in crates.items():
+            if name == "cellwise" and t > RUNAWAY_CELLWISE_TICKS:
+                continue
+            ran[name] += RUNAWAY_EVERY
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
@@ -1949,7 +1992,7 @@ def runaway_check(smi: str) -> None:
     want.update({"pmajor.a": pm_runs * RUNAWAY_TICKS, "pmajor.b": pm_runs * RUNAWAY_TICKS,
                  "grid.pair_pass_a": RUNAWAY_TICKS, "grid.pair_pass_b_emit": RUNAWAY_TICKS})
     print(f"  launches {counts}; wall (host clock + synchronize) and peak allocation beyond "
-          "what is held: " + ", ".join(f"{m} {wall[m] / RUNAWAY_TICKS * 1e3:.3f} ms/tick "
+          "what is held: " + ", ".join(f"{m} {wall[m] / ran[m] * 1e3:.3f} ms/tick "
                                       f"{peak[m] / 2**30:.2f} GiB" for m in crates))
     check(counts == want, f"runaway check launches {counts} != {want}")
 
@@ -2060,8 +2103,7 @@ def pile_forensics(world, settled) -> None:
 
 
 def band_world(max_particles: int, block: bool):
-    """tests/test_spatial.py's scenes on bench.STIRRING_CUP (no YAML on the
-    card): the block of 782 particles, no emitters, noise 0 (``block``), or
+    """tests/test_spatial.py's scenes on bench.STIRRING_CUP: the block of 782 particles, no emitters, noise 0 (``block``), or
     the cup's emitter with ``max_particles``."""
     import copy
 
@@ -2573,6 +2615,106 @@ def small_legs() -> None:
     sentinel_case(params)
 
 
+def soak_extras(crate) -> str:
+    """(n1): the alive count, the alive particles over RUNAWAY_SPEED and
+    the fullest cell at the crate's state."""
+    import torch
+
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+
+    st, sc = crate.state, crate.scene
+    speed = st.vel[st.alive].norm(dim=1)
+    cid = cell_ids_grid(st.pos, st.alive, sc).long()
+    counts = torch.bincount(cid, minlength=sc.grid_nx * sc.grid_ny + 1)[:-1]
+    cell = int(counts.argmax())
+    return (f"  alive {int(st.alive.sum())}, over speed {RUNAWAY_SPEED:g}: "
+            f"{int((speed > RUNAWAY_SPEED).sum())}, fullest cell (x {cell % sc.grid_nx}, "
+            f"y {cell // sc.grid_nx}) holding {int(counts[cell])}")
+
+
+def engine_tools(smi: str) -> dict:
+    """Phase (n): the engine tools of sand_crate_tpu_torch/tools/ called
+    in-process on the card; a non-zero return or a broken gate fails the
+    run.  Returns every kernel's launches over the phase."""
+    from sand_crate_tpu_torch import Crate
+    from sand_crate_tpu_torch.config import CONFIGS_DIR, load_config
+    from sand_crate_tpu_torch.ops import pmajor
+    from sand_crate_tpu_torch.tools import (
+        chunked_sweep, occupancy_stats, perf_probe, rebalance_midscale,
+        small_n_probe, soak, spatial_balance,
+    )
+
+    reset_kernel_counts()
+    print(f"engine tools on {smi}:")
+    with phase("(n1) soak, 1M dam break"):
+        crate = Crate(dam_break_world(N_TARGET), device="cuda")
+        n0, sc = crate.particle_count, crate.scene
+        print(f"(n1) soak: N={n0:,} cap={sc.capacity:,} mode={sc.forces_mode} grid="
+              f"{sc.grid_nx}x{sc.grid_ny} total={SOAK_TICKS} chunk={SOAK_CHUNK}", flush=True)
+        check(n0 == 1_001_700 and sc.forces_mode == "pmajor", "(n1) the 1M world on p-major")
+        records = []
+        for r in soak.soak_chunks(crate, SOAK_TICKS, SOAK_CHUNK):
+            records.append(r)
+            print(soak_extras(crate), flush=True)
+        launched = dict(pmajor.LAUNCHES)  # reset at the phase's start
+        wall = sum(r["seconds"] for r in records)
+        rc = soak.verdict(records, wall)
+        print(f"(n1) sustained {SOAK_TICKS / wall:.3f} steps/s over {SOAK_TICKS} ticks on {smi}; "
+              f"K1/K2 launches {launched}; the soak returns {rc}")
+        check(rc == 0, "(n1) the 1M soak broke an invariant")
+        check(launched == {"a": SOAK_TICKS, "b": SOAK_TICKS, "sub_a": 0, "sub_b": 0},
+              f"(n1) launches {launched}")
+        del crate
+
+    with phase("(n2) soak, wave_machine"):
+        crate = Crate(load_config(CONFIGS_DIR / "wave_machine.yaml").world_config, device="cuda")
+        print(f"(n2) wave_machine soak: capacity {crate.scene.capacity}, mode "
+              f"{crate.scene.forces_mode}, {WAVE_SOAK_TICKS} ticks in chunks of {SOAK_CHUNK}")
+        records = list(soak.soak_chunks(crate, WAVE_SOAK_TICKS, SOAK_CHUNK))
+        rc = soak.verdict(records, sum(r["seconds"] for r in records))
+        after = [(r["tick"], r["alive"]) for r in records if r["tick"] > WAVE_SOURCE_TICKS]
+        print(f"(n2) alive after the source stops: {after}; max speed per chunk "
+              f"{[round(r['max_speed'], 3) for r in records]}")
+        check(rc == 0, "(n2) the wave_machine soak broke an invariant")
+        check(len({a for _, a in after}) == 1, "(n2) the alive count moved after the source stopped")
+        del crate
+
+    with phase("(n3) perf_probe"):
+        for n in PROBE_SIZES:
+            rate = perf_probe.probe(n)
+            check(rate > 0, f"(n3) perf_probe at {n}")
+
+    with phase("(n4) occupancy_stats"):
+        stats = occupancy_stats.main(N_TARGET, OCC_TICKS)
+        check(all(s["occupied_cells"] > 0 for s in stats), "(n4) occupancy")
+
+    with phase("(n5) rebalance_midscale"):
+        t0 = time.perf_counter()
+        rc = rebalance_midscale.main(**MIDSCALE)
+        print(f"(n5) rebalance_midscale returns {rc} in {time.perf_counter() - t0:.2f} s")
+        check(rc == 0, "(n5) a gate of rebalance_midscale broke")
+
+    with phase("(n6) spatial_balance"):
+        for rebalance in (False, True):
+            samples = spatial_balance.main(BALANCE_SHARDS, BALANCE_TICKS, rebalance=rebalance)
+            t, shard = samples[-1]
+            print(f"(n6) {'rebalanced' if rebalance else 'uniform'}: tick {t} max/mean "
+                  f"{max(shard) / (sum(shard) / len(shard)):.4f}")
+            check(all(sum(s) == sum(samples[0][1]) for _, s in samples),
+                  "(n6) the bands lost a particle")
+
+    with phase("(n7) chunked_sweep --fill"):
+        hist = chunked_sweep.fill(FILL_CRATES)
+        check(hist == [0] * len(hist), f"(n7) chunked fill overflow {hist}")
+
+    with phase("(n8) small_n_probe"):
+        print(f"(n8) small_n_probe at {SMALL_N}: {SMALL_N_CHUNKS} chunks (the tool's default "
+              f"is 20)")
+        rows = small_n_probe.main(SMALL_N, SMALL_N_CHUNKS)
+        check(all(v > 0 for v in rows.values()), "(n8) small_n_probe")
+    return kernel_counts()
+
+
 def main() -> int:
     import torch
 
@@ -2761,6 +2903,14 @@ def main() -> int:
         for r in rows + grid_rows:
             if r["name"] in band_launches:
                 r["band_launches"] = band_launches[r["name"]]
+
+    # -- (n) the engine tools: soaks, probes, occupancy, the band tools ----------------
+    with phase("engine tools"):
+        tool_launches = engine_tools(smi)
+        for r in rows:
+            r["tools_launches"] = tool_launches["pmajor." + r["name"][-1]]
+        for r in grid_rows:
+            r["tools_launches"] = tool_launches["grid." + r["name"]]
 
     print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,8 +13,8 @@ batch (sweep.py):
     python -m sand_crate_tpu_torch bench --particles 100000
 
 Every command that steps a crate runs on the card unless ``--device cpu``
-asks for the CPU; without a card it raises.  A scene file is YAML (needs
-PyYAML) or JSON (config.load_config).  :func:`main` returns what the command
+asks for the CPU; without a card it raises.  A scene file is YAML (read
+without PyYAML where it is missing) or JSON (config.load_config).  :func:`main` returns what the command
 returns (``run``: its Playback; ``replay``: the frames).
 """
 

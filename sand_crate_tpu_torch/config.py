@@ -1,8 +1,8 @@
 """Scene/playback configuration for the PyTorch port (framework-free).
 
-The same schema and parser as ``sand_crate_tpu/config.py``; PyYAML is imported
-only by the functions that read or write YAML text, so a caller that builds
-its config from a dict (``load_config_dict``) needs no PyYAML.
+The same schema and parser as ``sand_crate_tpu/config.py``.  YAML text is read
+and written with PyYAML where it is installed and otherwise with
+``yaml_subset`` (the YAML of the scene files), so no host needs PyYAML.
 
 Loads the reference YAML schema verbatim (see config/*.yaml and
 load_config.py:29-46) and extends it:
@@ -41,6 +41,11 @@ from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
+
+from . import yaml_subset
+
+#: The repository's shipped scene files (``configs/*.yaml``).
+CONFIGS_DIR = Path(__file__).resolve().parents[1] / "configs"
 
 #: The 13 physics knobs of the reference, in its canonical order
 #: (config/stirring_cup.yaml:10-22).  ``gravity`` is a
@@ -536,24 +541,27 @@ def load_config_dict(raw: dict) -> Config:
 def load_config(config_file_path: str | Path) -> Config:
     """Load a scene file (reference schema; load_config.py:29-46 equivalent).
 
-    A ``.json`` file is read with ``json``: JSON is a subset of YAML, so the
-    dict is the one ``yaml.safe_load`` gives, and a host without PyYAML
-    reads it.  Any other file is YAML and needs PyYAML."""
+    A ``.json`` file is read with ``json`` (JSON is a subset of YAML, so the
+    dict is the one ``yaml.safe_load`` gives); any other file is YAML, read
+    with PyYAML where it is installed and otherwise with
+    :mod:`~sand_crate_tpu_torch.yaml_subset`, which gives the same dict for
+    the scene files' YAML."""
     path = Path(config_file_path)
-    with open(path) as f:
-        if path.suffix == ".json":
-            return load_config_dict(json.load(f))
-        try:
-            import yaml
-        except ImportError as e:
-            raise ImportError(
-                f"reading {path} needs PyYAML (pip install pyyaml); without it, "
-                "give the scene as a .json file") from e
-        return load_config_dict(yaml.safe_load(f))
+    text = path.read_text()
+    if path.suffix == ".json":
+        return load_config_dict(json.loads(text))
+    try:
+        import yaml
+    except ImportError:
+        return load_config_dict(yaml_subset.load(text))
+    return load_config_dict(yaml.safe_load(text))
 
 
 def dump_config(config: Config) -> str:
-    """Serialize the (possibly edited) config back to YAML for recordings."""
-    import yaml
-
+    """Serialize the (possibly edited) config back to YAML for recordings
+    (PyYAML where it is installed, else :func:`yaml_subset.dump`)."""
+    try:
+        import yaml
+    except ImportError:
+        return yaml_subset.dump(config.raw)
     return yaml.safe_dump(config.raw, sort_keys=False)

@@ -1,16 +1,19 @@
-"""Host-side observability: phase timer and force monitor.
+"""Host-side observability: phase timer, force monitor and profiler trace.
 
 The counterparts of ``sand_crate_tpu/diagnostics.py`` (reference timer.py:10-48
 and force_monitor.py:13-37): the wall-clock timer covers host-visible phases
-(dispatch, sync, render), and the per-force attribution comes from the
-``Diagnostics`` the step returns.  Reports are YAML-shaped text written
+(dispatch, sync, render), the per-force attribution comes from the
+``Diagnostics`` the step returns, and :func:`profile` traces a block with
+``torch.profiler``.  Reports are YAML-shaped text written
 without PyYAML, so the port runs where PyYAML is not installed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 
@@ -97,3 +100,21 @@ class ForceMonitor:
     def report(self) -> str:
         rounded = {k: float(f"{1000 * v:.1f}") for k, v in self._ema.items()}
         return yaml_block({"Forces": rounded})
+
+
+@contextlib.contextmanager
+def profile(log_dir):
+    """Trace a block with ``torch.profiler`` (host ops, and the card's
+    kernels when CUDA is available) and write it as a Chrome trace,
+    ``<log_dir>/trace.json`` (chrome://tracing or Perfetto); yields
+    ``log_dir``."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(str(out / "trace.json"))

@@ -12,23 +12,19 @@
   has fewer.
 
 Both run on the card unless the caller asks for the CPU (``device="cpu"``);
-without a card they raise.  The scene comes from ``bench.STIRRING_CUP``,
-equal to ``configs/stirring_cup.yaml``, so no YAML reader is needed.
+without a card they raise.  The scene is ``configs/stirring_cup.yaml``.
 """
 
 from __future__ import annotations
 
-import copy
-
 import torch
 
-from .bench import STIRRING_CUP
-from .config import InitialParticlesConfig, load_config_dict
+from .config import CONFIGS_DIR, InitialParticlesConfig, load_config
 from .state import resolve_device
 
 
 def _stirring_cup():
-    return load_config_dict(copy.deepcopy(STIRRING_CUP))
+    return load_config(CONFIGS_DIR / "stirring_cup.yaml")
 
 
 def entry(device="cuda"):

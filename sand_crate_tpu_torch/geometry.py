@@ -1,12 +1,14 @@
-"""Vectorized 2D geometry on tensors (the step's subset of
+"""Vectorized 2D geometry on tensors (the counterpart of
 ``sand_crate_tpu/geometry.py``).
 
 Functional equivalents of the reference's geometry_utils.py — 90-degree
-rotation (:176-179), segment inflation (:146-172), point/segment distance
-(:7-39) and the crossing tests with the CCD parameter (:141-143, :182-222) —
-with division guards, safe on padded (masked) inputs.  The point/segment
-functions use the SoA layout of the JAX package: (S, P) planes with the
-segment axis first and x/y as separate tensors.
+rotation (:176-179), the 2D cross product (:136-138), segment inflation
+(:146-172), point/segment distance (:7-39) and the crossing tests with the
+CCD parameter (:141-143, :182-222) — with division guards, safe on padded
+(masked) inputs.  ``points_to_segments``, ``segment_crossings`` and
+``crossing_parameter`` take (x, y) on the last axis, as the JAX package's;
+the step uses the ``_soa`` forms: (S, P) planes with the segment axis first
+and x/y as separate tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +21,68 @@ EPS = 1e-12
 def rot90_cw(v: torch.Tensor) -> torch.Tensor:
     """(x, y) -> (y, -x) on the last axis (geometry_utils.py:176-179)."""
     return torch.stack([v[..., 1], -v[..., 0]], dim=-1)
+
+
+def cross2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2D scalar cross product on the last axis (geometry_utils.py:136-138)."""
+    return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
+
+
+def points_to_segments(
+    points: torch.Tensor, segments: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest point on each segment and its distance, for every particle
+    (geometry_utils.py:7-39: the clamped projection, guarded for
+    zero-length segments).
+
+    Args:   points: (P, 2);  segments: (S, 2, 2)
+    Returns (nearest (P, S, 2), distance (P, S)).
+    """
+    a = segments[:, 0, :]  # (S, 2)
+    ab = segments[:, 1, :] - a
+    ap = points[:, None, :] - a[None]  # (P, S, 2)
+    denom = torch.clamp((ab * ab).sum(dim=-1), min=EPS)  # (S,)
+    t = torch.clamp((ap * ab[None]).sum(dim=-1) / denom[None], 0.0, 1.0)  # (P, S)
+    nearest = a[None] + ab[None] * t[..., None]
+    d = nearest - points[:, None, :]
+    dist = torch.sqrt(torch.clamp((d * d).sum(dim=-1), min=0.0))
+    return nearest, dist
+
+
+def _orient(p: torch.Tensor, q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Orientation sign of the triple (p, q, r), broadcast over points on
+    the last axis: sign((q - p) x (r - q)) (geometry_utils.py:212-222)."""
+    return torch.sign(cross2(q - p, r - q))
+
+
+def segment_crossings(move: torch.Tensor, walls: torch.Tensor) -> torch.Tensor:
+    """(P,) movement segments against (W,) wall segments -> (P, W) crossing
+    map, counting a crossing only when the movement opposes the wall's
+    clockwise normal (the approach-side filter, geometry_utils.py:182-209).
+
+    Args:   move: (P, 2, 2), [start, end] per particle;  walls: (W, 2, 2)
+    """
+    a = move[:, None, 0, :]  # (P, 1, 2)
+    b = move[:, None, 1, :]
+    c = walls[None, :, 0, :]  # (1, W, 2)
+    d = walls[None, :, 1, :]
+    approaching = (rot90_cw(d - c) * (b - a)).sum(dim=-1) < 0.0
+    straddle1 = _orient(a, b, c) != _orient(a, b, d)
+    straddle2 = _orient(c, d, a) != _orient(c, d, b)
+    return approaching & straddle1 & straddle2
+
+
+def crossing_parameter(
+    start: torch.Tensor, delta: torch.Tensor, wall_a: torch.Tensor, wall_ab: torch.Tensor
+) -> torch.Tensor:
+    """Parameter t along ``delta`` where the path crosses the wall line,
+    t = cross(start - wall_a, wall_ab) / cross(wall_ab, delta)
+    (geometry_utils.py:141-143), guarded against a parallel path (zero
+    denominator); broadcasts over leading dims."""
+    num = cross2(start - wall_a, wall_ab)
+    den = cross2(wall_ab, delta)
+    safe = torch.where(den.abs() > EPS, den, torch.where(den >= 0, EPS, -EPS))
+    return num / safe
 
 
 def safe_normalize(v: torch.Tensor, dim: int = -1) -> tuple[torch.Tensor, torch.Tensor]:

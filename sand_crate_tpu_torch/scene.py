@@ -43,6 +43,19 @@ def place_segments(
     return seg
 
 
+def row_block(grid_nx: int) -> int:
+    """The grid rows a JAX Pallas pass kernel takes at a time (the JAX
+    Scene's ``row_block``, sand_crate_tpu/scene.py:188-190): 8, halved
+    while a block of padded rows (nx + 2 rounded up to 128 lanes) exceeds
+    4608 cells.  The port keeps no such blocks; grid_ny is a multiple of it
+    so that both packages' cell ids agree."""
+    nxp = _round_up(grid_nx + 2, 128)
+    rb = 8
+    while rb > 1 and rb * nxp > 4608:
+        rb //= 2
+    return rb
+
+
 def default_capacity(max_particles: int) -> int:
     return max(128, _round_up(int(max_particles), 128))
 
@@ -181,11 +194,7 @@ def build_scene(
     # grid_ny is rounded up exactly as the JAX package rounds it (to its
     # Pallas row block), so both packages give every particle the same cell
     # id and the same dead sentinel nx * ny.
-    nxp = _round_up(grid_nx + 2, 128)
-    row_block = 8
-    while row_block > 1 and row_block * nxp > 4608:
-        row_block //= 2
-    grid_ny = _round_up(grid_nx, row_block)
+    grid_ny = _round_up(grid_nx, row_block(grid_nx))
 
     # ---- chunked-backend halo (JAX scene.py:194-206) ----
     if chunk_halo is None:

@@ -219,7 +219,9 @@ def test_port_imports_no_jax_nor_yaml():
     modules = [m.removesuffix(".__init__") for m in modules]
     for name in ("cli", "__main__", "playback", "render", "native", "neighbors", "cellwise",
                  "sweep", "ops.chunked", "utils.pygame_draw", "collectives", "spatial",
-                 "parallel", "entry"):
+                 "parallel", "entry", "yaml_subset", "tools.soak", "tools.perf_probe",
+                 "tools.occupancy_stats", "tools.small_n_probe", "tools.chunked_sweep",
+                 "tools.spatial_balance", "tools.rebalance_midscale"):
         assert f"sand_crate_tpu_torch.{name}" in modules, name
     # Only modules that the imports below add count (an interpreter start-up
     # hook, or torch itself, may have loaded others before).
