@@ -46,8 +46,9 @@ prints its wall time as "[phase] name: s"):
    (f) instrumented ticks (fold off, spring on) per schedule, in turns:
    the Collisions phase of K1/K2 two-sided, one-sided, and K10.
 6. trajectories: a ~10k-particle dam break for 20 ticks on the card, once
-   on the kernel path and once with the pair passes swapped for their plain
-   torch versions, compared uid-aligned at tests/test_pmajor.py:371-374's
+   on the kernel path (Crate.run) and once with the pair passes swapped for
+   their plain torch versions (an explicit eager loop of physics.step: the
+   plain versions read the host, which a graph capture refuses), compared uid-aligned at tests/test_pmajor.py:371-374's
    tolerance; on K1/K2 and on K10 (SAND_CRATE_PMSUB=1).
 7. grid kernels: the same 1M world on the slot-grid backend
    (forces_mode="pallas", cell_capacity 16), settled GRID_SETTLE_TICKS
@@ -198,6 +199,27 @@ prints its wall time as "[phase] name: s"):
    --fill at FILL_CRATES crates: overflow 0 in every chunk.  (n8)
    small_n_probe at SMALL_N, cut to SMALL_N_CHUNKS chunks.  Each kernel
    row gains "tools_launches", its launches over phase (n).
+(o) the compiled step loop (sand_crate_tpu_torch/graphs.py).  Every
+   Crate.run, physics_tick, stream_frames, physics.rollout, trajectory and
+   BatchedCrates.run above is a replay of a captured CUDA graph, and the
+   launch counters count replays (a capture's rise, added once a replay).
+   Here each gate holds GRAPH_TICKS replayed ticks against the explicit
+   eager loop of physics.step from the same state, coefficients and
+   generator state, bit for bit (state, last Diagnostics, generator
+   state), with a replay a tick and no capture: (o1) the 1M dam break on
+   p-major (default, SAND_CRATE_PMSUB=1, SAND_CRATE_PMAJOR_GATE=1) and
+   pallas after GRAPH_SETTLE ticks; (o2) stirring_cup and wave_machine on
+   dense, chunked and p-major after SMALL_TICKS ticks, with a viscosity
+   edit in the middle of the run (no new capture); (o3) BatchedCrates on
+   dense and chunked (the running max of the overflow too); (o4) a
+   checkpoint restored into a crate whose graph is captured; (o5)
+   stream_frames == physics.trajectory == the eager loop's frames.  Timing
+   turns, graph / eager / eager / graph, of GRAPH_TURN_TICKS ticks (steps/s,
+   step p50) and PROFILED_TICKS under the profiler (busy share, launches a
+   tick with cudaGraphLaunch counted): the 1M cells, perf_probe's 10,132
+   and 100,580, the single crates of (o2), run_datagen's 1024 stirring_cup
+   crates (GRAPH_BATCH_TURN_TICKS), and at 1M a frame of 2 ticks as one
+   replay of a 2-tick graph against two replays.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -284,6 +306,9 @@ DATAGEN_EVERY = 20
 WAVE_CRATES = 64  # (j)(d): the JAX package's measured batch (ops/chunked.py:80)
 WAVE_TICKS = 20
 PROFILED_TICKS = 5  # (j): ticks under torch.profiler for the device's busy share
+# the profiler's host calls that launch device work: kernels, and (graphs.py)
+# whole captured ticks
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
 CLI_TICKS = 200  # (k): the CLI run of configs/dam_break.yaml
 CLI_TICKS_PER_FRAME = 2
 WAVE_BACKEND_TICKS = 150  # (k): wave_machine ticks on dense, gather and cellwise
@@ -324,6 +349,22 @@ BAND_MIG_CAP = 32768
 BAND_DEFAULT_TICKS = 3
 BAND_POS_RTOL, BAND_POS_ATOL = 1e-4, 1e-5  # tests/test_spatial.py:83
 BAND_SMALL = {"cellwise": 25, "pallas": 10, "pmajor": 6}  # tests/test_spatial.py's ticks
+# (o): the compiled step loop (graphs.py): ticks before the gates, ticks each
+# gate holds against the eager loop, ticks of each timed turn (the batch of
+# 1024 crates: ~70 ms a tick eagerly)
+GRAPH_SETTLE = 20
+GRAPH_TICKS = 10
+GRAPH_TURN_TICKS = 20
+GRAPH_BATCH_TURN_TICKS = 6
+# (o1): label -> (Crate options, environment knob, kernel counters that rise
+# once a tick)
+GRAPH_1M = {
+    "pmajor": ({}, None, ("pmajor.a", "pmajor.b")),
+    "pmajor SAND_CRATE_PMSUB=1": ({}, "SAND_CRATE_PMSUB", ("pmajor.sub_a", "pmajor.sub_b")),
+    "pmajor SAND_CRATE_PMAJOR_GATE=1": ({}, "SAND_CRATE_PMAJOR_GATE", ("pmajor.a", "pmajor.b")),
+    "pallas": (dict(forces_mode="pallas", cell_capacity=GRID_SLOTS), None,
+               ("grid.pair_pass_a", "grid.pair_pass_b_emit")),
+}
 # (n): the engine tools (sand_crate_tpu_torch/tools/), at the JAX records'
 # settings: the 1M soak (never cut: it is the stability gate), the
 # wave_machine soak, perf_probe at the README's three sizes,
@@ -1045,7 +1086,7 @@ def drive(crate, ticks: int, label: str, counts: dict, expected: dict, overflow_
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     crate.run(ticks - 1)
-    before = crate.state
+    before = clone_state(crate.state)  # run advances the crate's state in place
     diag = crate.run(1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1146,12 +1187,16 @@ def uid_aligned(crate):
 
 def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict):
     """A ~10k-particle dam break for TRAJ_TICKS ticks on the card, on the
-    kernel path and with ``swaps`` ((module, name, plain), ...) in place;
-    the kernel run must launch the kernels as ``expected``, the plain run
-    none, and the two agree uid-aligned."""
+    kernel path (Crate.run: replays of the captured tick) and with ``swaps``
+    ((module, name, plain), ...) in place in an explicit eager loop of
+    physics.step (a graph keeps the launches it captured, and the plain
+    versions read the host, which a capture refuses); the kernel run must
+    launch the kernels as ``expected``, the plain run none, and the two
+    agree uid-aligned."""
     import torch
 
     from sand_crate_tpu_torch import Crate
+    from sand_crate_tpu_torch.physics import step
 
     world = dam_break_world(TRAJ_PARTICLES)
     with_kernels = Crate(world, device="cuda", forces_mode=forces_mode)
@@ -1163,7 +1208,10 @@ def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
     try:
-        with_plain.run(TRAJ_TICKS)
+        state = with_plain.state
+        for _ in range(TRAJ_TICKS):
+            state, _ = step(state, with_plain.params, with_plain.scene, with_plain.generator)
+        with_plain.state = state
     finally:
         for mod, name, fn in kept:
             setattr(mod, name, fn)
@@ -1551,7 +1599,7 @@ def profiled(run, ticks: int) -> str:
     events = prof.key_averages()
     kernel_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / ticks / 1e3
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
     return (f"profiled {ticks} ticks: wall {wall_ms:.3f} ms/tick (profiler on), kernels "
             f"{kernel_ms:.3f} ms/tick, busy share {kernel_ms / wall_ms:.3f}, "
             f"{launches / ticks:.0f} launches/tick")
@@ -1619,7 +1667,8 @@ def small_crate(name: str, raw: dict, mode: str, smi: str, profile: bool) -> flo
         kept = "; a source still emits"
     print(f"  {name} on {mode} ({smi}): capacity {crate.scene.capacity}, {n} particles at "
           f"tick {int(st.tick)}, {SMALL_TICKS / wall:.3f} steps/s ({wall / SMALL_TICKS * 1e3:.3f} "
-          f"ms/step, host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, "
+          f"ms/step, host clock + synchronize; replayed graphs), eager loop step p50 {p50:.3f} ms "
+          f"(CUDA events, "
           f"{P50_TICKS} ticks); launches {launches}{kept}")
     if profile:
         print(f"    {profiled(crate.run, PROFILED_TICKS)}")
@@ -2048,7 +2097,7 @@ def pile_forensics(world, settled) -> None:
     c = Crate(world, device="cuda")
     c.state = clone_state(settled)
     for _ in range(RUNAWAY_TICKS):
-        before = c.state
+        before = clone_state(c.state)  # run advances the crate's state in place
         c.run(1)
         fast_uid = c.state.uid[c.state.alive & (c.state.vel.norm(dim=1) > RUNAWAY_SPEED)]
         if fast_uid.numel():
@@ -2715,6 +2764,327 @@ def engine_tools(smi: str) -> dict:
     return kernel_counts()
 
 
+# --------------------------------------------------------------------------
+# (o) the compiled step loop: replayed CUDA graphs (sand_crate_tpu_torch/graphs.py)
+# --------------------------------------------------------------------------
+
+
+def same_bits(label: str, got, want) -> None:
+    """Every field of two CrateStates / Diagnostics equal bit for bit."""
+    import torch
+
+    for name, a, b in zip(got._fields, got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b),
+              f"{label}: replayed != eager in {name}")
+
+
+def eager_loop(state, params, scene, generator, ticks: int, live_rows=None, batched=False):
+    """The explicit eager loop of physics.step (or of the vmapped step) that
+    the graphs are held against; returns (state, last diag, largest
+    overflow over the ticks)."""
+    import torch
+
+    from sand_crate_tpu_torch.physics import step
+    from sand_crate_tpu_torch.sweep import batched_step
+
+    fn = batched_step if batched else step
+    worst = None
+    for _ in range(ticks):
+        state, diag = fn(state, params, scene, generator, live_rows)
+        over = diag.neighbor_overflow
+        worst = over if worst is None else torch.maximum(worst, over)
+    return state, diag, worst
+
+
+def replay_vs_eager(label: str, crate, ticks: int, edit=None, want_launches=None) -> None:
+    """``crate.run(ticks)`` (its tick already captured: every tick a replay),
+    with ``edit`` = (coefficient, value) set through Crate.__setattr__ after
+    half of them, against the eager loop of physics.step from the same state,
+    coefficients and generator state with the same edit: state, last
+    Diagnostics and generator state bit for bit.  The edit must not capture
+    anew, and each kernel counter must rise as ``want_launches`` says."""
+    import torch
+
+    from sand_crate_tpu_torch import graphs
+
+    s0, p0 = clone_state(crate.state), clone_state(crate.params)
+    g0 = crate.generator.get_state()
+    reset_kernel_counts()
+    reset(graphs.LAUNCHES)
+    half = ticks // 2
+    crate.run(half)
+    if edit is not None:
+        setattr(crate, *edit)
+    diag = crate.run(ticks - half)
+    launches, graph_calls = kernel_counts(), dict(graphs.LAUNCHES)
+    g_replayed = crate.generator.get_state()
+    crate.generator.set_state(g0)
+    st, _, _ = eager_loop(s0, p0, crate.scene, crate.generator, half)
+    if edit is not None:
+        name, value = edit
+        p0 = p0._replace(**{name: torch.full_like(getattr(p0, name), value)})
+    st, want_diag, _ = eager_loop(st, p0, crate.scene, crate.generator, ticks - half)
+    check(torch.equal(crate.generator.get_state(), g_replayed),
+          f"{label}: the generator advanced otherwise than eagerly")
+    same_bits(label, crate.state, st)
+    same_bits(label + " (diagnostics)", diag, want_diag)
+    check(graph_calls == {"replay": ticks, "capture": 0},
+          f"{label}: graph calls {graph_calls} (a replay a tick, no capture after the edit)")
+    want = dict.fromkeys(launches, 0)
+    want.update(want_launches or {})
+    check(launches == want, f"{label}: launches {launches} != {want}")
+    what = f", {edit[0]} set to {edit[1]} after {half}" if edit else ""
+    print(f"  {label}: {ticks} replayed ticks{what} == the eager loop bit for bit "
+          f"({crate.particle_count} particles at tick {crate.tick}); graph calls {graph_calls}; "
+          f"launches {({k: v for k, v in launches.items() if v}) or 'none'}")
+
+
+def turns(label: str, smi: str, graph_tick, eager_tick, ticks: int) -> dict:
+    """Graph / eager / eager / graph turns of ``ticks`` ticks each: steps/s
+    (host clock, closed by a synchronize) and step p50 (CUDA events between
+    ticks); then PROFILED_TICKS of each under the profiler (busy share,
+    launches a tick with cudaGraphLaunch counted)."""
+    import torch
+
+    out = {"graph": [], "eager": []}
+    for kind in ("graph", "eager", "eager", "graph"):
+        run = graph_tick if kind == "graph" else eager_tick
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(ticks + 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        for k in range(ticks):
+            run()
+            events[k + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        p50 = statistics.median(events[k].elapsed_time(events[k + 1]) for k in range(ticks))
+        out[kind].append((ticks / wall, p50))
+
+    def loop(fn):
+        def run(n):
+            for _ in range(n):
+                fn()
+        return run
+
+    prof = {kind: profiled(loop(fn), PROFILED_TICKS)
+            for kind, fn in (("graph", graph_tick), ("eager", eager_tick))}
+    print(f"  {label} ({smi}), turns of {ticks} ticks, graph / eager / eager / graph:")
+    for kind in ("graph", "eager"):
+        (r1, q1), (r2, q2) = out[kind]
+        print(f"    {kind}: {r1:.3f} / {r2:.3f} steps/s, step p50 {q1:.4f} / {q2:.4f} ms; "
+              f"{prof[kind]}")
+    return out
+
+
+def crate_turns(label: str, smi: str, crate, ticks: int = GRAPH_TURN_TICKS) -> dict:
+    """turns() of a Crate: its replayed tick against the eager step from a
+    copy of its state (the crate's state is not advanced by the eager turns)."""
+    from sand_crate_tpu_torch.physics import step
+
+    held = [clone_state(crate.state)]
+
+    def graph_tick():
+        crate.graph.step(crate.scene, crate.generator)
+
+    def eager_tick():
+        held[0], _ = step(held[0], crate.params, crate.scene, crate.generator)
+
+    return turns(label, smi, graph_tick, eager_tick, ticks)
+
+
+def graphs_1m(smi: str) -> None:
+    """(o1) the 1M dam break on p-major (default, SAND_CRATE_PMSUB=1,
+    SAND_CRATE_PMAJOR_GATE=1) and the slot grid: GRAPH_SETTLE ticks through
+    Crate.run, then GRAPH_TICKS replayed ticks == the eager loop, then the
+    timing turns; at the default one frame of 2 ticks as one replay of a
+    2-tick graph against two replays of the 1-tick graph."""
+    from sand_crate_tpu_torch import Crate
+
+    for label, (kw, knob_name, launches) in GRAPH_1M.items():
+        with knob(knob_name):
+            crate = Crate(dam_break_world(N_TARGET), device="cuda", **kw)
+            crate.run(GRAPH_SETTLE)
+            replay_vs_eager(f"1M {label}", crate, GRAPH_TICKS, want_launches={
+                k: GRAPH_TICKS for k in launches})
+            crate_turns(f"1M {label}", smi, crate)
+            if knob_name is None and not kw:
+                frame_graph_vs_tick_graphs(smi, crate)
+            del crate
+
+
+def frame_graph_vs_tick_graphs(smi: str, crate) -> None:
+    """A trajectory frame of 2 ticks: one replay of a 2-tick graph against
+    two replays of the 1-tick graph (the same bits), in turns."""
+    g, sc, gen = crate.graph, crate.scene, crate.generator
+
+    def two_tick_graph():
+        g.step(sc, gen, ticks=2)
+
+    def two_tick_replays():
+        g.step(sc, gen)
+        g.step(sc, gen)
+
+    two_tick_graph()
+    turns("a frame of 2 ticks at 1M: one replay of a 2-tick graph (as 'graph') vs two "
+          "replays of the 1-tick graph (as 'eager')", smi, two_tick_graph, two_tick_replays,
+          GRAPH_TURN_TICKS // 2)
+
+
+def graphs_small(smi: str) -> None:
+    """(o2) stirring_cup (an emitter, a motored cup) and wave_machine as one
+    crate on dense, chunked and p-major ((j)(a)'s single crates), each run
+    SMALL_TICKS ticks, then GRAPH_TICKS replayed ticks with a viscosity
+    edit in the middle == the eager loop; then the timing turns; and the
+    perf_probe sizes below 1M (10,132 and 100,580: p-major)."""
+    import copy
+
+    from sand_crate_tpu_torch import Crate, load_config_dict
+    from sand_crate_tpu_torch.bench import STIRRING_CUP, WAVE_MACHINE
+
+    for name, raw in (("stirring_cup", STIRRING_CUP), ("wave_machine", WAVE_MACHINE)):
+        world = load_config_dict(copy.deepcopy(raw)).world_config
+        for mode in ("dense", "chunked", "pmajor"):
+            crate = Crate(world, device="cuda", forces_mode=mode)
+            crate.run(SMALL_TICKS)
+            edit = ("viscosity", 1.5 * float(crate.viscosity))
+            want = {"pmajor.a": GRAPH_TICKS, "pmajor.b": GRAPH_TICKS} if mode == "pmajor" else {}
+            replay_vs_eager(f"{name} on {mode}", crate, GRAPH_TICKS, edit, want)
+            crate_turns(f"{name} on {mode}", smi, crate)
+    for n in PROBE_SIZES[:-1]:
+        crate = Crate(dam_break_world(n), device="cuda")
+        crate.run(GRAPH_SETTLE)
+        crate_turns(f"perf_probe dam break, {crate.particle_count} particles, "
+                    f"{crate.scene.forces_mode}", smi, crate)
+
+
+def graphs_batched(smi: str) -> None:
+    """(o3) BatchedCrates.run (replays of the captured vmapped tick, the
+    running max of the overflow in a static buffer) == the eager loop of
+    the vmapped step, on dense and chunked (VMAP_CRATES stirring_cup crates
+    with coefficients of their own, emitters on); then run_datagen's 1024
+    stirring_cup crates (dense) in timing turns."""
+    import copy
+
+    import torch
+
+    from sand_crate_tpu_torch import Params, graphs, load_config_dict
+    from sand_crate_tpu_torch.bench import STIRRING_CUP
+    from sand_crate_tpu_torch.sweep import (DEFAULT_RANDOM_RANGES, BatchedCrates, batched_step,
+                                            random_params)
+
+    config = load_config_dict(copy.deepcopy(STIRRING_CUP))
+    base = Params.from_coefficients(config.world_config.coefficients, "cuda")
+    for mode in ("dense", "chunked"):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(11)
+        b = BatchedCrates(config, random_params(gen, base, DEFAULT_RANDOM_RANGES, VMAP_CRATES),
+                          device="cuda", seed=11, forces_mode=mode)
+        b.run(GRAPH_SETTLE)
+        s0, p0, g0 = clone_state(b.state), clone_state(b.params), b.generator.get_state()
+        live = b.live_rows(GRAPH_TICKS)
+        reset_kernel_counts()
+        reset(graphs.LAUNCHES)
+        diag = b.run(GRAPH_TICKS)
+        calls = dict(graphs.LAUNCHES)
+        b.generator.set_state(g0)
+        st, want, worst = eager_loop(s0, p0, b.scene, b.generator, GRAPH_TICKS, live,
+                                     batched=True)
+        same_bits(f"BatchedCrates on {mode}", b.state, st)
+        same_bits(f"BatchedCrates on {mode} (diagnostics)", diag,
+                  want._replace(neighbor_overflow=worst))
+        check(sum(kernel_counts().values()) == 0, "a batched run launched a kernel")
+        check(calls["replay"] >= GRAPH_TICKS - 1, f"BatchedCrates on {mode}: graph calls {calls}")
+        print(f"  BatchedCrates on {mode}: {VMAP_CRATES} crates x {GRAPH_TICKS} ticks (sweep bound "
+              f"{live}), replayed == the eager vmapped loop bit for bit, overflow max "
+              f"{worst.tolist()}; graph calls {calls}")
+    gen = torch.Generator(device="cuda")
+    b = BatchedCrates(config, random_params(gen, base, DEFAULT_RANDOM_RANGES, DATAGEN_CRATES),
+                      device="cuda", seed=3)
+    b.run(DATAGEN_EVERY)
+    held = [clone_state(b.state)]
+
+    def graph_tick():
+        b.graph.step(b.scene, b.generator)
+
+    def eager_tick():
+        held[0], _ = batched_step(held[0], b.params, b.scene, b.generator)
+
+    turns(f"run_datagen's {DATAGEN_CRATES} stirring_cup crates on {b.scene.forces_mode}, "
+          f"{int(b.particle_counts().sum())} particles", smi, graph_tick, eager_tick,
+          GRAPH_BATCH_TURN_TICKS)
+
+
+def graphs_resume_and_frames() -> None:
+    """(o4) a checkpoint restored into a crate whose graph is already
+    captured runs on (replayed) as the uninterrupted crate does and as the
+    eager loop from the checkpoint does, bit for bit; (o5) stream_frames ==
+    physics.trajectory == the eager loop's frames, on stirring_cup."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sand_crate_tpu_torch import Crate, load_config_dict
+    from sand_crate_tpu_torch.bench import STIRRING_CUP
+    from sand_crate_tpu_torch.physics import step
+    from sand_crate_tpu_torch.physics import trajectory as physics_trajectory
+    from sand_crate_tpu_torch.recording import load_checkpoint
+
+    world = load_config_dict(copy.deepcopy(STIRRING_CUP)).world_config
+    with tempfile.TemporaryDirectory() as tmp:
+        a = Crate(world, device="cuda", seed=2)
+        a.run(CKPT_TICKS)
+        path = a.save_checkpoint(Path(tmp) / "ckpt.npz")
+        a.run(CKPT_TICKS)
+        b = Crate(world, device="cuda", seed=9)
+        b.run(3)  # its graph captured and replayed before the restore
+        b.restore_checkpoint(path)
+        b.run(CKPT_TICKS)
+        same_bits("resumed under replay vs uninterrupted", b.state, a.state)
+        st, _, gen_state = load_checkpoint(path, "cuda")
+        gen = torch.Generator(device="cuda")
+        gen.set_state(gen_state)
+        st, _, _ = eager_loop(st, a.params, a.scene, gen, CKPT_TICKS)
+        same_bits("resumed under replay vs the eager loop", b.state, st)
+    print(f"  checkpoint at tick {CKPT_TICKS} restored into a crate with a captured graph: "
+          f"{CKPT_TICKS} replayed ticks == the uninterrupted crate == the eager loop, bit for bit "
+          f"({a.particle_count} particles)")
+
+    streamed, traj, ref = (Crate(world, device="cuda", seed=4) for _ in range(3))
+    frames = list(streamed.stream_frames(STREAM_FRAMES, ticks_per_frame=2, chunk_frames=4))
+    final, want = physics_trajectory(traj.state, traj.params, traj.scene, STREAM_FRAMES,
+                                     traj.generator, 2)
+    state, eager = ref.state, {k: [] for k in want}
+    for _ in range(STREAM_FRAMES):
+        for _ in range(2):
+            state, diag = step(state, ref.params, ref.scene, ref.generator)
+        for k in want:
+            eager[k].append((diag.force_dv if k == "force_dv" else getattr(state, k)).cpu())
+    for key, value in want.items():
+        e = torch.stack(eager[key]).numpy()
+        check(np.array_equal(value.cpu().numpy(), e), f"trajectory != eager loop in {key}")
+        check(np.array_equal(np.stack([f[key] for f in frames]), e),
+              f"stream_frames != eager loop in {key}")
+    same_bits("stream_frames' final state", streamed.state, state)
+    same_bits("trajectory's final state", final, state)
+    print(f"  stream_frames ({STREAM_FRAMES} frames of 2 ticks, chunks of 4) == "
+          f"physics.trajectory == the eager loop's frames, bit for bit")
+
+
+def graphs_phase(smi: str) -> None:
+    """Phase (o)."""
+    print(f"(o1) the 1M dam break, replayed against eager ({smi}):")
+    graphs_1m(smi)
+    print("(o2) single crates and perf_probe's smaller sizes:")
+    graphs_small(smi)
+    print("(o3) batched crates:")
+    graphs_batched(smi)
+    print("(o4, o5) checkpoint resume and stream_frames under replay:")
+    graphs_resume_and_frames()
+
+
+
 def main() -> int:
     import torch
 
@@ -2778,7 +3148,8 @@ def main() -> int:
             {"a": MAIN_TICKS, "b": MAIN_TICKS, "sub_a": 0, "sub_b": 0})
         print(f"pmajor main path on {smi}: {n0} particles, {rate:.3f} steps/s "
               f"({wall / MAIN_TICKS * 1000:.3f} ms/step mean over {MAIN_TICKS} ticks, "
-              f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
+              f"host clock + synchronize; replayed graphs), eager loop step p50 {p50:.3f} ms (CUDA "
+              f"events, {P50_TICKS} ticks)")
         for r in rows:
             r["launches"] = launches[r["name"][-1]]
 
@@ -2793,7 +3164,8 @@ def main() -> int:
             {"a": 0, "b": 0, "sub_a": MAIN_TICKS, "sub_b": MAIN_TICKS}, allow_culls=True)
         print(f"PMSUB main path on {smi}: {n0} particles, {rate:.3f} steps/s "
               f"({wall / MAIN_TICKS * 1000:.3f} ms/step mean over {MAIN_TICKS} ticks, "
-              f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
+              f"host clock + synchronize; replayed graphs), eager loop step p50 {p50:.3f} ms (CUDA "
+              f"events, {P50_TICKS} ticks)")
         for r in k10_rows[:2]:
             r["launches"] = launches["sub_" + r["name"][-1]]
         del sub_crate
@@ -2846,7 +3218,8 @@ def main() -> int:
         )
         print(f"grid main path on {smi}: {n0} particles, {rate:.3f} steps/s "
               f"({wall / GRID_TICKS * 1000:.3f} ms/step mean over {GRID_TICKS} ticks, "
-              f"host clock + synchronize), step p50 {p50:.3f} ms (CUDA events, {P50_TICKS} ticks)")
+              f"host clock + synchronize; replayed graphs), eager loop step p50 {p50:.3f} ms (CUDA "
+              f"events, {P50_TICKS} ticks)")
         for r in grid_rows:  # placement and grid-mode pass B run on the provider path
             on_tick = r["name"] in ("pair_pass_a", "pair_pass_b_emit")
             r["launches"] = (launches if on_tick else provider)[r["name"]]
@@ -2911,6 +3284,10 @@ def main() -> int:
             r["tools_launches"] = tool_launches["pmajor." + r["name"][-1]]
         for r in grid_rows:
             r["tools_launches"] = tool_launches["grid." + r["name"]]
+
+    # -- (o) the compiled step loop: replayed graphs against the eager loop ------------
+    with phase("graphs"):
+        graphs_phase(smi)
 
     print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

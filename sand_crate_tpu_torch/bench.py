@@ -15,7 +15,9 @@ runs on the card (``device="cuda"``) unless the caller asks for the CPU,
 and has no fallback: a kernel that fails to build or launch fails the run.
 The pair schedule follows the environment as the library does
 (``SAND_CRATE_PMSUB=1``: K10; ``SAND_CRATE_PMAJOR_GATE=1``: K1/K2
-one-sided).
+one-sided).  The ticks run through ``physics.rollout``: on the card,
+replays of the tick captured as a CUDA graph (graphs.py), whose capture
+falls in the warm-up rollout, as the JAX bench's compile does.
 
 Usage: python -m sand_crate_tpu_torch.bench [--particles N] [--ticks T] [--json-only]
 """

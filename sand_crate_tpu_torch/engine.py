@@ -15,10 +15,21 @@ same device, seeded from ``seed``.
 
 Two execution modes, as in the JAX package:
 * ``physics_tick()`` — one step per call, for interactive playback; with
-  ``instrument=True`` it runs the phase-timed tick of ``instrument.py``.
+  ``instrument=True`` it runs the phase-timed tick of ``instrument.py``
+  (eagerly).
 * ``run()`` / ``stream_frames()`` — ticks queued on the device with no host
   read inside; ``stream_frames`` copies each chunk's frames to the host
   while the next chunk runs.
+
+The crate owns a :class:`~sand_crate_tpu_torch.graphs.StepGraph` whose
+static buffers are the crate's ``state`` and ``params`` (the counterpart of
+the JAX ``Crate._step_fn``, ``jax.jit(step, donate_argnums=(0,))``): on the
+card every tick of ``physics_tick``, ``run`` and ``stream_frames`` is a
+replay of a captured CUDA graph, and the state is advanced in place.  So a
+coefficient edit, an assignment to ``crate.state`` or ``crate.params`` and
+a checkpoint restore copy into those buffers (the captured graph reads
+them), and a reference to ``crate.state`` sees the next tick's values, as
+the JAX crate's donated state is gone after its next step.
 
 ``save_checkpoint`` / ``restore_checkpoint`` write and read one npz
 (``recording.py``): state, coefficients and the generator state, so a
@@ -37,7 +48,8 @@ import torch
 from .config import COEFFICIENT_NAMES, Config, WorldConfig
 from .diagnostics import ForceMonitor, PhaseTimer, yaml_block
 from .instrument import instrumented_tick
-from .physics import rollout, step, trajectory
+from .graphs import StepGraph, clone
+from .physics import step
 from .recording import load_checkpoint, save_checkpoint
 from .scene import build_scene, init_state
 from .state import FORCE_LABELS, Diagnostics, Params, resolve_device
@@ -58,6 +70,7 @@ class Crate:
         "debug_arrows",
         "velocity_arrows_every",
         "instrument",
+        "graph",
         "_coeff_overrides",
     }
 
@@ -95,11 +108,14 @@ class Crate:
         )
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
+        state = init_state(world_config, scene, seed=seed)
+        params = Params.from_coefficients(world_config.coefficients, device)
         for name, value in dict(
             world_config=world_config,
             scene=scene,
-            state=init_state(world_config, scene, seed=seed),
-            params=Params.from_coefficients(world_config.coefficients, device),
+            state=state,
+            params=params,
+            graph=StepGraph(state, params, step),
             generator=generator,
             debug_timer=PhaseTimer(),
             force_monitor=ForceMonitor(FORCE_LABELS),
@@ -129,10 +145,16 @@ class Crate:
         if name in COEFFICIENT_NAMES:
             if name == "particle_radius":
                 self._maybe_regrid(float(np.asarray(value)))
+            # Into the captured Params tensor (its identity kept): the next
+            # tick, replayed or eager, reads the new value; no new capture.
             old = getattr(self.params, name)
-            new = torch.as_tensor(np.asarray(value), dtype=old.dtype, device=old.device)
-            object.__setattr__(self, "params", self.params._replace(**{name: new}))
+            new = torch.as_tensor(np.asarray(value), dtype=old.dtype)
+            if new.shape != old.shape:
+                raise ValueError(f"{name}: shape {tuple(new.shape)} != {tuple(old.shape)}")
+            old.copy_(new)
             self._coeff_overrides[name] = value
+        elif name in ("state", "params"):
+            self.graph.load(**{name: value})  # into the static buffers
         elif name in self._ENGINE_ATTRS:
             object.__setattr__(self, name, value)
         else:
@@ -220,7 +242,7 @@ class Crate:
             force_dv = diag.force_dv.cpu().numpy()
         else:
             with self.debug_timer("Step"):
-                self.state, diag = step(self.state, self.params, self.scene, self.generator)
+                diag = self.graph.step(self.scene, self.generator)
             with self.debug_timer("Sync"):
                 force_dv = diag.force_dv.cpu().numpy()
         self.force_monitor.update(force_dv)
@@ -237,11 +259,13 @@ class Crate:
         object.__setattr__(self, "debug_arrows", list(zip(pts, vecs)))
 
     def run(self, num_ticks: int) -> Diagnostics:
-        """Advance ``num_ticks`` on the device; reads the last tick's
-        diagnostics back once, at the end, and returns them."""
-        self.state, diag = rollout(
-            self.state, self.params, self.scene, num_ticks, self.generator
-        )
+        """Advance ``num_ticks`` on the device (on the card, ``num_ticks``
+        replays of the crate's graph: one program, no host work between
+        ticks); reads the last tick's diagnostics back once, at the end,
+        and returns a copy of them."""
+        for _ in range(num_ticks):
+            diag = self.graph.step(self.scene, self.generator)
+        diag = clone(diag)
         self.force_monitor.update(diag.force_dv.cpu().numpy())
         self.set_debug_prints(diag)
         return diag
@@ -252,11 +276,15 @@ class Crate:
         """Yield render frames (dicts of numpy arrays: pos, alive, pressure,
         segments, force_dv) while stepping in chunks of ``chunk_frames``.
 
+        A frame is ``ticks_per_frame`` replays of the crate's graph; its
+        fields are copied out of the static state into the
+        chunk's own device tensors on the compute stream before the next
+        replay (graphs.StepGraph.frames), so no replay overwrites a frame.
         Double-buffered on a CUDA device: each chunk's frames are copied to
         pinned host memory on a side stream, behind an event recorded after
-        the chunk's ticks, and the next chunk is dispatched before the
-        previous one's frames are waited for and yielded, so recording
-        never stalls the step loop.  On the CPU it is a plain loop."""
+        the chunk's frame copies, and the next chunk is dispatched before
+        the previous one's frames are waited for and yielded, so recording
+        never stalls the step loop.  On the CPU the same ticks run eagerly."""
         cuda = self.state.pos.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.state.pos.device) if cuda else None
         pending = None  # (host frames, copy-done event, device frames) of a chunk
@@ -266,9 +294,7 @@ class Crate:
             if frames_left > 0:
                 n = min(chunk_frames, frames_left)
                 frames_left -= n
-                self.state, frames = trajectory(
-                    self.state, self.params, self.scene, n, self.generator, ticks_per_frame
-                )
+                frames = self.graph.frames(self.scene, self.generator, n, ticks_per_frame)
                 if cuda:
                     computed = torch.cuda.Event()
                     computed.record()
@@ -305,7 +331,9 @@ class Crate:
 
         The checkpoint's capacity must match this crate's scene: the scene
         comes from the config; only dynamic state, coefficients and the
-        generator are stored."""
+        generator are stored.  The state and coefficients are copied into
+        the crate's static buffers and the generator's state is set, which
+        the next replay reads: the graphs already captured stay valid."""
         device = self.state.pos.device
         state, params, gen_state = load_checkpoint(path, device)
         if state.pos.shape[0] != self.scene.capacity:
@@ -315,8 +343,7 @@ class Crate:
             )
         if gen_state is not None:
             self.generator.set_state(gen_state)
-        object.__setattr__(self, "state", state)
-        object.__setattr__(self, "params", params)
+        self.graph.load(state, params)
 
     # -- observability ---------------------------------------------------------
 

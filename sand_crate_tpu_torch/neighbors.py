@@ -49,7 +49,7 @@ def build_cell_table(cid: torch.Tensor, scene: Scene) -> tuple[torch.Tensor, tor
     table = torch.full(((NC + 1) * M,), P, dtype=torch.int32, device=cid.device)
     table[slot_sorted.long()] = order.to(torch.int32)  # slot NC * M: a dump, reset below
     table = table.reshape(NC + 1, M)
-    table[NC] = P
+    table[NC].fill_(P)
     return table, overflow
 
 
@@ -69,7 +69,7 @@ def neighbor_list(
     c = torch.floor(pos / scene.cell_size).to(torch.int32) + 1
     cx = torch.clamp(c[:, 0], 0, nx - 1)
     cy = torch.clamp(c[:, 1], 0, ny - 1)
-    offs = torch.tensor([-1, 0, 1], dtype=torch.int32, device=device)
+    offs = torch.arange(-1, 2, dtype=torch.int32, device=device)  # made on the device
     ncx = cx[:, None, None] + offs[None, :, None]  # (P, 3, 1)
     ncy = cy[:, None, None] + offs[None, None, :]  # (P, 1, 3)
     valid_cell = (ncx >= 0) & (ncx < nx) & (ncy >= 0) & (ncy < ny)

@@ -194,7 +194,9 @@ def chunk_windows(sorted_cid: torch.Tensor, alive: torch.Tensor, nx: int, ny: in
     live = end > off
     cidf = sorted_cid[torch.clamp(off, max=P - 1).long()]
     cidl = sorted_cid[torch.clamp(end - 1, min=0).long()]
-    d = torch.tensor([-nx, 0, nx], dtype=torch.int32, device=dev)[:, None]
+    # -nx, 0, nx made on the device: a list copied to the card would wait
+    # for its stream to drain (and a CUDA graph capture refuses the copy).
+    d = (torch.arange(-1, 2, dtype=torch.int32, device=dev) * nx)[:, None]
     ws = torch.searchsorted(sorted_cid, torch.clamp(cidf + d - 1, 0, NC), out_int32=True)
     we = torch.searchsorted(sorted_cid, torch.clamp(cidl + d + 2, 0, NC), out_int32=True)
     we = torch.where(live, we, ws)

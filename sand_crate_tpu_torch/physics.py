@@ -25,9 +25,10 @@ carries identity), as in the JAX package.  The dense, cellwise and gather
 backends draw their collider noise from the crate's generator (the JAX
 package from its tick key), so with noise on they match it in their
 invariants only.  Nothing here reads a tensor
-back to the host, so :func:`rollout` queues ticks on the device without
-waiting for them, and on the dense and chunked backends the step vmaps
-over a leading crate axis (``sweep.py``).
+back to the host, so on the card the tick is captured as a CUDA graph and
+replayed (graphs.py; :func:`rollout`, :func:`trajectory`), and on the
+dense and chunked backends the step vmaps over a leading crate axis
+(``sweep.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from . import geometry as geo
+from . import graphs
 from .cellwise import (
     PairSums,
     cell_ids_grid,
@@ -70,8 +72,12 @@ class _TorchNamespace:
 
         def call(*args):
             like = next((a for a in args if isinstance(a, torch.Tensor)), None)
-            kw = {} if like is None else dict(dtype=like.dtype, device=like.device)
-            return fn(*(torch.as_tensor(a, **kw) for a in args))
+            if like is None:
+                return fn(*(torch.as_tensor(a) for a in args))
+            # A number becomes a fill on the tensor's device, never a copy
+            # from the host (which a CUDA graph capture refuses).
+            return fn(*(a if isinstance(a, torch.Tensor) else like.new_full((), a)
+                        for a in args))
 
         return call
 
@@ -201,7 +207,7 @@ def spawn_particles(
         u_vel = torch.rand((ns, 2), generator=generator, device=device)
         pos[slots] = scene.src_position[z] + (u_pos - 0.5) * scene.src_radius[z]
         vel[slots] = scene.src_velocity[z] + (u_vel - 0.5) * scene.src_noise[z]
-        alive[slots] = True
+        alive[slots] = alive.new_ones(())  # a device value: a host one is copied in
         budget = budget - n
         offset = offset + n
     return (
@@ -246,7 +252,11 @@ def advance_bodies(state: CrateState, params: Params, scene: Scene) -> CrateStat
     if scene.motor_exprs:
         lin, ang = lin.clone(), ang.clone()
     for b, ch, fn in scene.motor_exprs:
-        val = torch.as_tensor(fn(t_new, xp=TORCH_XP), dtype=lin.dtype, device=lin.device)
+        val = fn(t_new, xp=TORCH_XP)
+        if isinstance(val, torch.Tensor) and val.device == lin.device:
+            val = val.to(lin.dtype)
+        else:  # a constant: a fill on the device, not a copy from the host
+            val = lin.new_full((), float(val))
         if ch == 2:
             ang[b] = val
         else:
@@ -640,13 +650,23 @@ def rollout(
     live_rows: int | None = None,
 ) -> tuple[CrateState, Diagnostics]:
     """Run ``num_ticks`` steps; returns the final state and the last tick's
-    diagnostics, both on the device.  No tensor is read back to the host
-    inside the loop, so on a GPU the ticks queue without waiting.
+    diagnostics, both on the device (the JAX package's jitted ``lax.scan``).
+
+    On a CUDA state the tick is a replayed CUDA graph (graphs.py): the
+    state and params are copied into its static buffers once, the graph is
+    replayed ``num_ticks`` times with no host work between ticks, and
+    fresh copies come back, so a returned state is never overwritten by a
+    later call.  On a CPU state it is a loop of :func:`step`.
     ``live_rows``: the chunked sweep bound, as in :func:`step`."""
-    diag = None
+    if state.pos.device.type != "cuda" or num_ticks < 1:
+        diag = None
+        for _ in range(num_ticks):
+            state, diag = step(state, params, scene, generator, live_rows)
+        return state, diag
+    g = graphs.rollout_graph(state, params, step)
     for _ in range(num_ticks):
-        state, diag = step(state, params, scene, generator, live_rows)
-    return state, diag
+        diag = g.step(scene, generator, live_rows)
+    return graphs.clone(g.state), graphs.clone(diag)
 
 
 def trajectory(
@@ -663,8 +683,15 @@ def trajectory(
     Returns (final_state, frames): frames is a dict of stacked device
     tensors pos (F, P, 2), alive (F, P), pressure (F, P), segments
     (F, S, 2, 2) and force_dv (F, NUM_FORCES), the last tick's of each
-    frame."""
-    keys = ("pos", "alive", "pressure", "segments", "force_dv")
+    frame.  On a CUDA state a frame is ``ticks_per_frame`` replays of the
+    captured tick, its fields copied out of the static state before the
+    next replay (graphs.StepGraph.frames); on a CPU state it is a loop of
+    :func:`rollout`."""
+    if state.pos.device.type == "cuda" and num_frames > 0:
+        g = graphs.rollout_graph(state, params, step)
+        frames = g.frames(scene, generator, num_frames, ticks_per_frame)
+        return graphs.clone(g.state), frames
+    keys = graphs.FRAME_FIELDS + ("force_dv",)
     frames = {k: [] for k in keys}
     for _ in range(num_frames):
         state, diag = rollout(state, params, scene, ticks_per_frame, generator)

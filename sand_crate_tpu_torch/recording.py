@@ -48,10 +48,11 @@ class TrajectoryWriter:
 
     def append(self, frame: dict) -> None:
         """Add one frame dict (pos (P,2), alive (P,), pressure (P,), segments)
-        of numpy arrays or tensors (copied to the host)."""
+        of numpy arrays or tensors (copied to the host: a tensor may be a
+        static buffer that the next tick overwrites)."""
         self._buffer.append({
-            k: (frame[k].cpu().numpy() if isinstance(frame[k], torch.Tensor)
-                else np.asarray(frame[k]))
+            k: (frame[k].detach().to("cpu", copy=True).numpy()
+                if isinstance(frame[k], torch.Tensor) else np.asarray(frame[k]))
             for k in FRAME_KEYS if k in frame
         })
         self._frames += 1

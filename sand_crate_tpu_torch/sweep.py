@@ -16,6 +16,10 @@ every crate.  The emitters and the dense collider noise draw from one
 numbers of its own.  The JAX package draws from ``jax.random``, so the two
 agree in their invariants and ranges, not in their draws.
 
+On the card the vmapped tick is captured once as a CUDA graph over static
+buffers and replayed (graphs.py), the counterpart of the JAX package's
+jitted ``vmap(scan(step))``; on the CPU the same body runs eagerly.
+
 Every entry point runs on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card it raises.
 """
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from .config import Config
+from .graphs import StepGraph, clone, rollout_graph
 from .physics import step
 from .recording import TrajectoryWriter
 from .scene import build_scene, default_capacity, init_state
@@ -84,9 +89,11 @@ class BatchedCrates:
     """N independent crates advanced in lockstep with a vmapped step.
 
     All crates share one Scene (geometry, capacity); params and state carry
-    a leading crate axis.  ``run`` queues its ticks on the device; crate i
-    starts from ``init_state(seed=seed + i)``, and the crates' random draws
-    come from one generator seeded with ``seed``."""
+    a leading crate axis.  ``run`` queues its ticks on the device (on the
+    card, replays of one captured vmapped tick over the batch's static
+    buffers ``state`` and ``params``, advanced in place); crate i starts
+    from ``init_state(seed=seed + i)``, and the crates' random draws come
+    from one generator seeded with ``seed``."""
 
     def __init__(
         self,
@@ -118,13 +125,31 @@ class BatchedCrates:
             )
         self.scene = scene
         device = scene.segments0.device
-        self.params = Params(*(x.to(device) for x in batched_params))
-        self.n = int(self.params.dt.shape[0])
-        self.state = stack_states(
-            [init_state(world, scene, seed=seed + i) for i in range(self.n)]
-        )
+        params = Params(*(x.to(device) for x in batched_params))
+        self.n = int(params.dt.shape[0])
+        state = stack_states([init_state(world, scene, seed=seed + i) for i in range(self.n)])
+        self.graph = StepGraph(state, params, batched_step, overflow_max=True)
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
+
+    @property
+    def state(self) -> CrateState:
+        """The batch's static state buffers, advanced in place by ``run``;
+        assigning a state copies it into them."""
+        return self.graph.state
+
+    @state.setter
+    def state(self, value: CrateState) -> None:
+        self.graph.load(state=value)
+
+    @property
+    def params(self) -> Params:
+        """The batch's static coefficient buffers; assigning copies into them."""
+        return self.graph.params
+
+    @params.setter
+    def params(self, value: Params) -> None:
+        self.graph.load(params=value)
 
     def live_rows(self, num_ticks: int) -> int | None:
         """The chunked sweep bound for the next ``num_ticks`` ticks (None on
@@ -143,12 +168,16 @@ class BatchedCrates:
     def run(self, num_ticks: int) -> Diagnostics:
         """Advance all crates ``num_ticks``; returns stacked Diagnostics of
         the last tick, but ``neighbor_overflow``, each crate's largest over
-        the call's ticks."""
-        self.state, diag = _batched_rollout(
-            self.state, self.params, self.scene, num_ticks, self.generator,
-            self.live_rows(num_ticks),
-        )
-        return diag
+        the call's ticks (a static running max, reset here).  The sweep
+        bound ``live_rows`` is computed once per call, and a new bound
+        captures the tick anew."""
+        if num_ticks < 1:
+            raise ValueError(f"num_ticks must be at least 1, got {num_ticks}")
+        live_rows = self.live_rows(num_ticks)
+        self.graph.reset_overflow()
+        for _ in range(num_ticks):
+            diag = self.graph.step(self.scene, self.generator, live_rows)
+        return clone(diag)
 
     def particle_counts(self) -> np.ndarray:
         return self.state.alive.sum(dim=1).cpu().numpy()
@@ -157,22 +186,29 @@ class BatchedCrates:
         return self.state.pos.cpu().numpy()
 
 
+def batched_step(state, params, scene, generator, live_rows=None):
+    """One tick of every crate: ``physics.step`` vmapped over the crate
+    axis, each crate drawing numbers of its own.  ``live_rows`` is a host
+    int, the same for every crate."""
+    def one(st, pr):
+        return step(st, pr, scene, generator, live_rows)
+
+    return torch.func.vmap(one, randomness="different")(state, params)
+
+
 def _batched_rollout(state, params, scene, num_ticks: int, generator, live_rows=None):
-    """vmap over the crate axis of ``num_ticks`` steps.  ``live_rows`` is a
-    host int, the same for every crate.  The overflow is reduced with a max
+    """``num_ticks`` batched steps, functional: on the card replays of
+    the captured :func:`batched_step` on static buffers that ``state`` and
+    ``params`` are copied into, fresh copies returned (graphs.rollout_graph);
+    on the CPU the same ticks eagerly.  The overflow is reduced with a max
     over the ticks: the last tick's alone would hide one in the middle."""
     if num_ticks < 1:
         raise ValueError(f"num_ticks must be at least 1, got {num_ticks}")
-
-    def one(st, pr):
-        worst = None
-        for _ in range(num_ticks):
-            st, diag = step(st, pr, scene, generator, live_rows)
-            over = diag.neighbor_overflow
-            worst = over if worst is None else torch.maximum(worst, over)
-        return st, diag._replace(neighbor_overflow=worst)
-
-    return torch.func.vmap(one, randomness="different")(state, params)
+    g = rollout_graph(state, params, batched_step, overflow_max=True)
+    g.reset_overflow()
+    for _ in range(num_ticks):
+        diag = g.step(scene, generator, live_rows)
+    return clone(g.state), clone(diag)
 
 
 # Default coefficient ranges for randomized datagen crates (spans around the

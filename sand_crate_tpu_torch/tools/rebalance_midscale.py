@@ -39,7 +39,7 @@ import torch
 
 from .. import spatial
 from ..collectives import LocalGroup
-from ..physics import step
+from ..physics import rollout
 from ..scene import build_scene, init_state
 from ..spatial import initial_band_edges, make_spatial_step, merge_state, split_state
 from ..state import Params
@@ -101,7 +101,7 @@ def main(particles: int = 65536, eq_ticks: int = 40, settle_ticks: int = 240,
         snaps = {}
         t0 = time.perf_counter()
         for t in range(1, eq_ticks + 1):
-            s, _ = step(s, params, scene, gen)
+            s, _ = rollout(s, params, scene, 1, gen)  # the JAX tool's jitted step
             if t in ticks_sampled:
                 snaps[t] = _by_uid(s)
         print(f"{label} {eq_ticks} ticks: {time.perf_counter() - t0:.1f}s", flush=True)
