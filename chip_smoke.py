@@ -44,7 +44,11 @@ prints its wall time as "[phase] name: s"):
    (d) GATE_TICKS ticks under SAND_CRATE_PMAJOR_GATE=1 (K1/K2 launch, K10
    none); the gate's pair sums equal K10's bit for bit (both one-sided).
    (f) instrumented ticks (fold off, spring on) per schedule, in turns:
-   the Collisions phase of K1/K2 two-sided, one-sided, and K10.
+   the Collisions phase of K1/K2 two-sided, one-sided, and K10.  Then
+   Crate(instrument=True) from the settled state: its phases replayed (one
+   captured graph a phase) against the eager instrumented_tick for
+   INSTRUMENT_TICKS ticks, bit for bit, both PhaseTimer tables side by
+   side, and the fused step with fold off replayed under the profiler.
 6. trajectories: a ~10k-particle dam break for 20 ticks on the card, once
    on the kernel path (Crate.run) and once with the pair passes swapped for
    their plain torch versions (an explicit eager loop of physics.step: the
@@ -81,8 +85,10 @@ prints its wall time as "[phase] name: s"):
 (e) bench entry: python -m sand_crate_tpu_torch.bench --particles 1000000
    --ticks BENCH_TICKS as a subprocess; its JSON line parses and its stderr
    line shows overflow 0.
-(f) instrument: Crate(instrument=True) on the 10k world equals a fused run
-   with fold off over INSTRUMENT_TICKS ticks, bit for bit; the PhaseTimer.
+(f) instrument: Crate(instrument=True) on the 10k world (its first tick
+   eager and captured, then one replayed graph a phase) equals a fused run
+   with fold off over INSTRUMENT_TICKS ticks, bit for bit; the PhaseTimer;
+   then the replayed and the eager phase tables, as at 1M.
 (g) stream_frames on the 10k world equals a synchronous trajectory.
 (h) probes (csrc/probes.cu, the ported kernels of tools/): P1 at phase 4's
    settled state and P2 at phase 7's settled grid, each variant against its
@@ -221,6 +227,20 @@ prints its wall time as "[phase] name: s"):
    crates (GRAPH_BATCH_TURN_TICKS), and at 1M a frame of 2 ticks as one
    replay of a 2-tick graph against two replays.
 
+(p) the band step as one graph a tick (spatial.SpatialStep over
+   graphs.BandGraph; every band call of (m) and (n) above replays it too,
+   the counters counting replays).  The 1M dam break of (m), settled
+   SETTLE_TICKS ticks, in BAND_SHARDS bands on a LocalGroup of the card at
+   BAND_MIG_CAP, for each cell of BAND_GRAPH_CELLS (uniform p-major,
+   rebalanced p-major, uniform pallas): the first call (eager, then the
+   capture) and its peak memory; GRAPH_TICKS replayed ticks == the explicit
+   eager band loop (spatial_step over group.run, eager_band_loop) from the
+   same state and shard generator states, bit for bit in state, every stat
+   and every generator, a replay a tick, no capture, the kernel counters
+   rising once a band a tick; then graph / eager / eager / graph turns of
+   GRAPH_TURN_TICKS (steps/s, step p50) and PROFILED_TICKS under the
+   profiler (busy share, launches a tick with cudaGraphLaunch counted).
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
 """
@@ -228,6 +248,7 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -364,6 +385,14 @@ GRAPH_1M = {
     "pmajor SAND_CRATE_PMAJOR_GATE=1": ({}, "SAND_CRATE_PMAJOR_GATE", ("pmajor.a", "pmajor.b")),
     "pallas": (dict(forces_mode="pallas", cell_capacity=GRID_SLOTS), None,
                ("grid.pair_pass_a", "grid.pair_pass_b_emit")),
+}
+# (p): the band step as one graph a tick: label -> (Scene options, rebalance,
+# kernel counters that rise once a band a tick)
+BAND_GRAPH_CELLS = {
+    "uniform p-major": (dict(forces_mode="pmajor"), False, ("pmajor.a", "pmajor.b")),
+    "rebalanced p-major": (dict(forces_mode="pmajor"), True, ("pmajor.a", "pmajor.b")),
+    "uniform pallas": (dict(forces_mode="pallas", cell_capacity=GRID_SLOTS), False,
+                       ("grid.pair_pass_a", "grid.pair_pass_b_emit")),
 }
 # (n): the engine tools (sand_crate_tpu_torch/tools/), at the JAX records'
 # settings: the 1M soak (never cut: it is the stability gate), the
@@ -791,10 +820,11 @@ def collisions_1m(crate):
     return k10
 
 
-def instrument_10k():
-    """Phase (f) at 10k: Crate(instrument=True) against a fused run whose
-    scene has fold_pairs=False, INSTRUMENT_TICKS ticks each: the same state,
-    bit for bit; prints the PhaseTimer table."""
+def instrument_10k(smi: str):
+    """Phase (f) at 10k: Crate(instrument=True) (one replayed graph a phase
+    after its first tick) against a fused run whose scene has
+    fold_pairs=False, INSTRUMENT_TICKS ticks each: the same state, bit for
+    bit; then the phase tables (phase_tables)."""
     import dataclasses
 
     import torch
@@ -811,9 +841,71 @@ def instrument_10k():
         fused.physics_tick()
     for name, a, b in zip(inst.state._fields, inst.state, fused.state):
         check(torch.equal(a, b), f"instrumented tick differs from the fused step in {name}")
-    print(f"instrument: {inst.particle_count} particles x {INSTRUMENT_TICKS} ticks, "
-          "state == fused step (fold off) bit for bit; PhaseTimer:")
+    print(f"instrument: {inst.particle_count} particles x {INSTRUMENT_TICKS} ticks (the first "
+          "eager and captured, then one replayed graph a phase), state == fused step (fold "
+          "off) bit for bit; PhaseTimer:")
     print("  " + inst.debug_timer.report().rstrip().replace("\n", "\n  "))
+    phase_tables(f"{inst.particle_count} particles", smi, inst)
+
+
+def instrument_1m(crate, smi: str) -> None:
+    """Phase (f) at 1M: Crate(instrument=True) (fold off) from the settled
+    p-major crate's state and generator state, its first tick eager and
+    captured, then phase_tables; beside it the fused step with fold off,
+    replayed, under the profiler (its kernel ms a tick)."""
+    import dataclasses
+
+    from sand_crate_tpu_torch import Crate
+
+    world = dam_break_world(N_TARGET)
+    inst = Crate(world, device="cuda", instrument=True)
+    inst.state = crate.state
+    inst.generator.set_state(crate.generator.get_state())
+    inst.physics_tick()
+    phase_tables(f"1M p-major ({inst.particle_count} particles, fold off)", smi, inst)
+    del inst
+    fused = Crate(world, device="cuda")
+    fused.scene = dataclasses.replace(fused.scene, fold_pairs=False)
+    fused.state = crate.state
+    fused.run(1)
+    print("  (f) the fused step at 1M, fold off, replayed: " + profiled(
+        lambda n: [fused.graph.step(fused.scene, fused.generator) for _ in range(n)],
+        PROFILED_TICKS))
+
+
+def phase_tables(label: str, smi: str, inst, ticks: int = INSTRUMENT_TICKS) -> None:
+    """Phase (f): the instrumented crate's phases replayed (its PhaseGraphs,
+    already captured: one graph a phase, each closed by a synchronize) and
+    run eagerly (instrument.instrumented_tick) from the same state and
+    generator state, ``ticks`` ticks each: the same state and generator
+    state bit for bit, a replay a phase and no capture; prints both
+    PhaseTimer tables (median ms a phase) side by side."""
+    import torch
+
+    from sand_crate_tpu_torch import graphs
+    from sand_crate_tpu_torch.instrument import instrumented_tick
+
+    s0, g0 = clone_state(inst.state), inst.generator.get_state()
+    replayed, eager = Phases(), Phases()
+    reset(graphs.LAUNCHES)
+    for _ in range(ticks):
+        inst.phases.step(inst.scene, inst.generator, replayed)
+    calls, g1 = dict(graphs.LAUNCHES), inst.generator.get_state()
+    inst.generator.set_state(g0)
+    state = s0
+    for _ in range(ticks):
+        state, _ = instrumented_tick(state, inst.params, inst.scene, inst.generator, eager)
+    same_bits(f"(f) {label}: replayed phases vs the eager instrumented_tick", inst.state, state)
+    check(torch.equal(inst.generator.get_state(), g1), f"(f) {label}: generator state")
+    check(calls == {"replay": len(replayed.times) * ticks, "capture": 0},
+          f"(f) {label}: graph calls {calls}")
+    print(f"  (f) {label} on {smi}: PhaseTimer medians over {ticks} ticks, replayed phases "
+          f"(one graph each) / eager instrumented_tick, ms; state == bit for bit, graph calls "
+          f"{calls}")
+    for name in replayed.times:
+        print(f"    {name:<22} {replayed.median_ms(name):9.4f} / {eager.median_ms(name):9.4f}")
+    total = [sum(rec.median_ms(k) for k in rec.times) for rec in (replayed, eager)]
+    print(f"    {'sum':<22} {total[0]:9.4f} / {total[1]:9.4f}")
 
 
 def stream_10k():
@@ -1599,10 +1691,12 @@ def profiled(run, ticks: int) -> str:
     events = prof.key_averages()
     kernel_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / ticks / 1e3
-    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+    calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
+    launches = sum(calls.values())
     return (f"profiled {ticks} ticks: wall {wall_ms:.3f} ms/tick (profiler on), kernels "
             f"{kernel_ms:.3f} ms/tick, busy share {kernel_ms / wall_ms:.3f}, "
-            f"{launches / ticks:.0f} launches/tick")
+            f"{launches / ticks:.0f} launches/tick "
+            f"({', '.join(f'{k} {v / ticks:g}' for k, v in sorted(calls.items()))})")
 
 
 def small_crate(name: str, raw: dict, mode: str, smi: str, profile: bool) -> float:
@@ -3084,6 +3178,137 @@ def graphs_phase(smi: str) -> None:
     graphs_resume_and_frames()
 
 
+# --------------------------------------------------------------------------
+# (p) the band step replayed: one CUDA graph a tick for every shard
+# --------------------------------------------------------------------------
+
+
+def eager_band_loop(band, split, params, edges, ticks: int):
+    """The explicit eager band loop that the band graphs are held against:
+    spatial.spatial_step over the group's shards (group.run), the shard
+    states joined by a cat, on the step's own shard generators, mig_cap and
+    bh_alloc; returns (state, last stats, edges)."""
+    import torch
+
+    from sand_crate_tpu_torch import spatial
+
+    D, P = band.n_shards, band.scene.capacity
+    stats = None
+    for _ in range(ticks):
+        outs = band.group.run(
+            lambda comm, st: spatial.spatial_step(st, params, band.scene, comm, band.mig_cap,
+                                                  band.generators[comm.rank], edges,
+                                                  band.bh_alloc),
+            [spatial.shard_slice(split, r, P) for r in range(D)])
+        split = outs[0][0]._replace(**{k: torch.cat([getattr(o[0], k) for o in outs])
+                                       for k in spatial.PARTICLE_LEAVES})
+        stats = outs[0][1]
+        if edges is not None:
+            edges = stats["band_edges"]
+    return split, stats, edges
+
+
+def band_graph_cell(label, smi, group, world, settled, params, kw, rebalance, counters):
+    """One cell of (p): the first call of a band step (eager, then the
+    capture: its peak memory), GRAPH_TICKS replayed ticks == the eager band
+    loop from the same state and shard generators bit for bit (state, every
+    stat, every generator), then graph / eager / eager / graph turns of
+    GRAPH_TURN_TICKS."""
+    import torch
+
+    from sand_crate_tpu_torch import graphs
+    from sand_crate_tpu_torch.scene import build_scene
+    from sand_crate_tpu_torch.spatial import initial_band_edges, make_spatial_step, split_state
+
+    D = BAND_SHARDS
+    scene = build_scene(world, device="cuda", **kw)
+    band = make_spatial_step(group, scene, mig_cap=BAND_MIG_CAP, rebalance=rebalance)
+    edges = initial_band_edges(settled, scene, D) if rebalance else None
+    split = split_state(settled, scene, D, edges)
+    args = (params,) if edges is None else (params, edges)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the pools of earlier cells' steps, freed
+    torch.cuda.reset_peak_memory_stats()
+    alloc0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    reset(graphs.LAUNCHES)
+    split, stats = band(split, *args)
+    torch.cuda.synchronize()
+    check(graphs.LAUNCHES == {"replay": 0, "capture": 1}, f"(p) {label}: first call "
+          f"{graphs.LAUNCHES}")
+    peak = (torch.cuda.max_memory_allocated() - alloc0) / 2**30
+    torch.cuda.empty_cache()  # a graph's private pool stays reserved
+    kept = (torch.cuda.memory_reserved() - reserved0) / 2**30
+    edges = stats.get("band_edges")
+
+    s0, e0 = split, edges
+    g0 = [g.get_state() for g in band.generators.values()]
+    reset_kernel_counts()
+    reset(graphs.LAUNCHES)
+    for _ in range(GRAPH_TICKS):
+        split, stats = band(split, params) if edges is None else band(split, params, edges)
+        edges = stats.get("band_edges")
+    calls, launches = dict(graphs.LAUNCHES), kernel_counts()
+    g_replayed = [g.get_state() for g in band.generators.values()]
+    for g, st in zip(band.generators.values(), g0):
+        g.set_state(st)
+    want, want_stats, _ = eager_band_loop(band, s0, params, e0, GRAPH_TICKS)
+    same_bits(f"(p) {label}", split, want)
+    for k, v in want_stats.items():
+        check(torch.equal(stats[k], v), f"(p) {label}: replayed != eager in stats[{k!r}]")
+    for g, st in zip(band.generators.values(), g_replayed):
+        check(torch.equal(g.get_state(), st), f"(p) {label}: a shard generator advanced "
+                                              "otherwise than eagerly")
+    check(calls == {"replay": GRAPH_TICKS, "capture": 0}, f"(p) {label}: graph calls {calls}")
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches.update({k: D * GRAPH_TICKS for k in counters})
+    check(launches == want_launches, f"(p) {label}: launches {launches} != {want_launches}")
+    print(f"  (p) {label}: {int(stats['particle_count'])} particles; the first call (eager, "
+          f"then the capture) peaks {peak:.3f} GiB above the {alloc0 / 2**30:.3f} GiB "
+          f"allocated before it and keeps {kept:.3f} GiB reserved after it (the graph's pool, "
+          f"the static buffers and the returned copies); {GRAPH_TICKS} replayed "
+          f"ticks == the eager band loop bit for bit (state, stats, {D} shard generators); "
+          f"graph calls {calls}; launches {({k: v for k, v in launches.items() if v})}")
+
+    box = {"graph": (split, edges), "eager": (clone_state(split), edges)}
+
+    def graph_tick():
+        st, e = box["graph"]
+        st, out = band(st, params) if e is None else band(st, params, e)
+        box["graph"] = (st, out.get("band_edges"))
+
+    def eager_tick():
+        st, e = box["eager"]
+        st, _, e = eager_band_loop(band, st, params, e, 1)
+        box["eager"] = (st, e)
+
+    turns(f"(p) 1M dam break in {D} bands, {label}", smi, graph_tick, eager_tick,
+          GRAPH_TURN_TICKS)
+
+
+def band_graphs(smi: str) -> None:
+    """Phase (p): the 1M dam break of (m), settled SETTLE_TICKS ticks on
+    p-major, in BAND_SHARDS bands on a LocalGroup of the card, each cell of
+    BAND_GRAPH_CELLS (band_graph_cell)."""
+    from sand_crate_tpu_torch import Crate
+    from sand_crate_tpu_torch.collectives import LocalGroup
+
+    world = dam_break_world(N_TARGET)
+    base = Crate(world, device="cuda")
+    base.run(SETTLE_TICKS)
+    settled, params = clone_state(base.state), base.params
+    print(f"(p) the band step as one replayed graph a tick on {smi}: the 1M dam break "
+          f"({base.particle_count} particles) settled {SETTLE_TICKS} ticks, {BAND_SHARDS} "
+          f"bands on a LocalGroup of the card, mig_cap {BAND_MIG_CAP}")
+    del base
+    group = LocalGroup(BAND_SHARDS, device="cuda")
+    try:
+        for label, (kw, rebalance, counters) in BAND_GRAPH_CELLS.items():
+            band_graph_cell(label, smi, group, world, settled, params, kw, rebalance, counters)
+    finally:
+        group.close()
+
+
 
 def main() -> int:
     import torch
@@ -3178,6 +3403,7 @@ def main() -> int:
     with phase("instrumented ticks at 1M"):
         print(f"instrumented ticks at 1M on {smi} (fold off, spring on):")
         k10_rows[2]["launches"] = collisions_1m(crate)["sub_b"]
+        instrument_1m(crate, smi)
     del crate
 
     # -- 6. pmajor trajectory: kernel path vs plain path, both on the card ------
@@ -3238,7 +3464,7 @@ def main() -> int:
     with phase("bench entry"):
         bench_entry()
     with phase("instrument 10k"):
-        instrument_10k()
+        instrument_10k(smi)
     with phase("stream_frames 10k"):
         stream_10k()
 
@@ -3288,6 +3514,10 @@ def main() -> int:
     # -- (o) the compiled step loop: replayed graphs against the eager loop ------------
     with phase("graphs"):
         graphs_phase(smi)
+
+    # -- (p) the band step replayed: one graph a tick for every shard ------------------
+    with phase("band graphs"):
+        band_graphs(smi)
 
     print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

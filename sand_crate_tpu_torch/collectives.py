@@ -22,9 +22,12 @@ step moves data or int32 counts, never a floating-point sum):
   exchanges meet in shared slots, a wait has a timeout, and a shard that
   raises aborts the others, so a failing shard fails the whole call
   instead of leaving the others waiting.  Tensors pass between the threads
-  by reference; on a GPU every thread enqueues on the device's current
-  (default) stream, so a tensor is produced before any thread that
-  received it enqueues a read.  The counterpart of JAX's virtual CPU mesh.
+  by reference; on a GPU every thread enqueues on the stream and device
+  that are current in the thread that called ``run`` (PyTorch's current
+  stream is per thread), so a tensor is produced before any thread that
+  received it enqueues a read, and a band step captured as a CUDA graph
+  records every shard's launches.  The counterpart of JAX's virtual CPU
+  mesh.
 * :class:`DistGroup`: one shard per process of an initialised
   ``torch.distributed`` group: ``batch_isend_irecv`` for the rings,
   ``all_reduce`` and ``all_gather_into_tensor``.  NCCL takes CUDA tensors,
@@ -34,6 +37,7 @@ step moves data or int32 counts, never a floating-point sum):
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -51,6 +55,21 @@ def shard_generator(seed: int, rank: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed) * 1_000_003 + int(rank))
     return g
+
+
+def _current_stream(device: torch.device):
+    """The calling thread's current stream on ``device`` (None off CUDA)."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+
+@contextlib.contextmanager
+def _on_stream(stream):
+    """Make ``stream`` (and its device) current in this thread."""
+    if stream is None:
+        yield
+        return
+    with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+        yield
 
 
 class GroupAborted(RuntimeError):
@@ -140,17 +159,20 @@ class LocalGroup:
 
     def run(self, fn, *per_shard_args) -> list:
         """``fn(member, *args)`` on every shard, one thread each, taking
-        turns; ``per_shard_args`` are sequences indexed by rank.  Returns
-        the results in rank order.  If a shard raises, the others raise
+        turns, each on the caller's current stream and device;
+        ``per_shard_args`` are sequences indexed by rank.  Returns the
+        results in rank order.  If a shard raises, the others raise
         :class:`GroupAborted` at their next turn and the first shard's own
         error is raised here."""
+        stream = _current_stream(self.device)
         with self._lock:  # one run at a time
             self._aborted = False
             for e in self._turn:
                 e.clear()
             self._turn[0].set()
             futures = [
-                self._pool.submit(self._shard, fn, m, *(a[m.rank] for a in per_shard_args))
+                self._pool.submit(self._shard, fn, m, stream,
+                                  *(a[m.rank] for a in per_shard_args))
                 for m in self.members()
             ]
             results, errors = [], []
@@ -165,10 +187,11 @@ class LocalGroup:
                 raise (real or errors)[0]
             return results
 
-    def _shard(self, fn, member, *args):
+    def _shard(self, fn, member, stream, *args):
         try:
             self._await_turn(member.rank)
-            out = fn(member, *args)
+            with _on_stream(stream):
+                out = fn(member, *args)
         except BaseException:
             self._abort()
             raise

@@ -16,7 +16,8 @@ same device, seeded from ``seed``.
 Two execution modes, as in the JAX package:
 * ``physics_tick()`` — one step per call, for interactive playback; with
   ``instrument=True`` it runs the phase-timed tick of ``instrument.py``
-  (eagerly).
+  (on the card one replayed graph a phase, ``instrument.PhaseGraphs``, as
+  the JAX package jits each phase).
 * ``run()`` / ``stream_frames()`` — ticks queued on the device with no host
   read inside; ``stream_frames`` copies each chunk's frames to the host
   while the next chunk runs.
@@ -47,8 +48,8 @@ import torch
 
 from .config import COEFFICIENT_NAMES, Config, WorldConfig
 from .diagnostics import ForceMonitor, PhaseTimer, yaml_block
-from .instrument import instrumented_tick
 from .graphs import StepGraph, clone
+from .instrument import PhaseGraphs
 from .physics import step
 from .recording import load_checkpoint, save_checkpoint
 from .scene import build_scene, init_state
@@ -71,6 +72,7 @@ class Crate:
         "velocity_arrows_every",
         "instrument",
         "graph",
+        "phases",
         "_coeff_overrides",
     }
 
@@ -116,6 +118,7 @@ class Crate:
             state=state,
             params=params,
             graph=StepGraph(state, params, step),
+            phases=PhaseGraphs(state, params),
             generator=generator,
             debug_timer=PhaseTimer(),
             force_monitor=ForceMonitor(FORCE_LABELS),
@@ -232,13 +235,12 @@ class Crate:
     def physics_tick(self) -> None:
         """Advance one tick (interactive path; reference crate.py:91-129).
 
-        With ``instrument=True`` the tick runs as timed phases, so
+        With ``instrument=True`` the tick runs as timed phases (on the
+        card a replay of each phase's graph over the crate's buffers), so
         ``debug_timer`` shows the reference-style per-phase breakdown
         (crate.py:97-124) in the overlay; the default is the whole step."""
         if self.instrument:
-            self.state, diag = instrumented_tick(
-                self.state, self.params, self.scene, self.generator, self.debug_timer
-            )
+            diag = self.phases.step(self.scene, self.generator, self.debug_timer)
             force_dv = diag.force_dv.cpu().numpy()
         else:
             with self.debug_timer("Step"):

@@ -8,8 +8,10 @@
   128, 2 crates a mesh row), then one crate split into y-bands
   (``spatial.py``, capacity 256): cellwise, pallas and pmajor bands, and
   cellwise over rebalanced bands.  The band legs run on a ``LocalGroup``
-  of one device (n threads); the mesh repeats that device when the host
-  has fewer.
+  of one device (n threads), two ticks each (on the card the first runs
+  eagerly and captures, the second replays, as the JAX dry run runs a
+  compiled program), and the particle count must hold between them; the
+  mesh repeats that device when the host has fewer.
 
 Both run on the card unless the caller asks for the CPU (``device="cpu"``);
 without a card they raise.  The scene is ``configs/stirring_cup.yaml``.
@@ -49,6 +51,26 @@ def _mesh_devices(n_devices: int, device: torch.device) -> list[torch.device]:
     if device.type == "cuda" and torch.cuda.device_count() >= n_devices:
         return [torch.device("cuda", i) for i in range(n_devices)]
     return [device] * n_devices
+
+
+def _band_tick(band, t: int, args):
+    """One call of a band step; prints which path it took (on the card the
+    first call of a step runs eagerly and captures, a later one replays)."""
+    from . import graphs
+
+    before = dict(graphs.LAUNCHES)
+    out = band(*args)
+    rose = {k: graphs.LAUNCHES[k] - before[k] for k in before}
+    path = ("eager + capture" if rose["capture"] else "replay" if rose["replay"]
+            else "eager")
+    print(f"  band tick {t + 1}: {path}")
+    return out
+
+
+def _same_count(name: str, counts: list) -> None:
+    if counts[0] != counts[1]:
+        raise RuntimeError(f"dryrun {name}: {counts[1]} particles after the second band "
+                           f"tick, {counts[0]} after the first")
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> dict:
@@ -104,17 +126,28 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         )
         for name, sc, what in legs:
             st = split_state(init_state(world, sc, seed=0), sc, n_space)
-            st, stats = make_spatial_step(group, sc)(st, sparams)
-            out[name] = int(stats["particle_count"])
+            band = make_spatial_step(group, sc)
+            counts = []
+            for t in range(2):
+                st, stats = _band_tick(band, t, (st, sparams))
+                counts.append(int(stats["particle_count"]))
+            _same_count(name, counts)
+            out[name] = counts[-1]
             print(f"dryrun {name} OK: shards={n_space} particles={out[name]} {what}")
 
         # Load-balanced bands: density-quantile edges, recomputed in the step.
         b0 = init_state(world, sscene, seed=0)
         edges = initial_band_edges(b0, sscene, n_space)
         bstate = split_state(b0, sscene, n_space, edges)
-        bstate, bstats = make_spatial_step(group, sscene, rebalance=True)(bstate, sparams, edges)
-        out["spatial-rebalance"] = int(bstats["particle_count"])
-        out["band_edges"] = [int(e) for e in bstats["band_edges"]]
+        band = make_spatial_step(group, sscene, rebalance=True)
+        counts = []
+        for t in range(2):
+            bstate, bstats = _band_tick(band, t, (bstate, sparams, edges))
+            edges = bstats["band_edges"]
+            counts.append(int(bstats["particle_count"]))
+        _same_count("spatial-rebalance", counts)
+        out["spatial-rebalance"] = counts[-1]
+        out["band_edges"] = [int(e) for e in edges]
         print(f"dryrun spatial-rebalance OK: shards={n_space} "
               f"particles={out['spatial-rebalance']} edges={out['band_edges']}")
     finally:

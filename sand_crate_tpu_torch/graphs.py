@@ -4,22 +4,32 @@ and replayed.
 The counterpart of the JAX package's compiled step: ``jax.jit(step,
 donate_argnums=(0,))`` in its ``Crate`` (sand_crate_tpu/engine.py:97), the
 jitted ``lax.scan`` of ``rollout`` and ``trajectory``
-(sand_crate_tpu/physics.py:864-914) and the jitted ``vmap(scan(step))`` of
-batched crates (sand_crate_tpu/sweep.py:141-152).  A :class:`StepGraph`
-holds the state and the coefficients in static buffers on the card:
+(sand_crate_tpu/physics.py:864-914), the jitted ``vmap(scan(step))`` of
+batched crates (sand_crate_tpu/sweep.py:141-152), the jitted band step
+(``jax.jit(shard_map(spatial_step))``, sand_crate_tpu/spatial.py:988-1057)
+and the jitted phase programs of the instrumented tick
+(sand_crate_tpu/instrument.py:27-66).  A :class:`GraphSet` holds the
+graphs captured on one set of static buffers on the card, by key:
 
-* warm-up: the first call of a key runs its ticks eagerly on a side stream
-  (they are the call's real ticks).  That call also builds and loads the
-  kernels (``ops/cuda_build.load``), whose nvcc and ``ctypes`` load must
-  never run inside a capture;
-* capture: ``torch.cuda.graph`` records the same ticks on the static
-  buffers, each followed by a ``copy_`` of the new state back into the
-  static state (the donation).  The call's ``torch.Generator`` is
-  registered with the graph, so the emitters' draws and the collider noise
-  advance on every replay as they do eagerly;
+* warm-up: the first call of a key runs its body eagerly on a side stream
+  (the call's real work).  That call also builds and loads the kernels
+  (``ops/cuda_build.load``), whose nvcc and ``ctypes`` load must never run
+  inside a capture;
+* capture: ``torch.cuda.graph`` records the same body on the static
+  buffers, the new state copied back into the static state (the
+  donation).  The call's generators are registered with the graph, so the
+  emitters' draws and the collider noise advance on every replay as they
+  do eagerly;
 * replay: the recorded launches, in the recorded order, on the same
-  buffers, so a replayed tick gives the eager tick's bits.  It returns the
-  graph's static Diagnostics, which the next replay overwrites.
+  buffers, so a replay gives the eager body's bits.  It returns the
+  graph's static outputs, which the next replay overwrites.
+
+Three kinds of owner: :class:`StepGraph` (a crate's or a batch's tick over
+its state and Params), :class:`BandGraph` (``spatial.SpatialStep`` on a
+LocalGroup: every shard's band tick in one graph over the split state,
+the Params and the input edges) and ``instrument.PhaseGraphs`` (the
+instrumented tick: one graph a phase, captured in tick order into one
+memory pool and replayed in that order).
 
 What is static to a capture makes up its key (:meth:`StepGraph.key`): the
 Scene object (a regrid builds a new one), the pair schedule the
@@ -34,8 +44,11 @@ the least recently replayed ones are dropped (their pools freed) and are
 captured again at their next call, and a graph superseded by a new
 ``live_rows`` of the same buffers goes at once.
 
-On the CPU the same body runs eagerly: the ticks, each copied back into
-the static buffers; nothing is captured.  A capture that fails raises.
+The band step and the phases have keys of their own (``BandKey``: the
+shard count, ``mig_cap``, ``rebalance``, ``bh_alloc``, the Scene, the
+schedule and the shard generators).  On the CPU the same body runs
+eagerly: the ticks, each copied back into the static buffers; nothing is
+captured.  A capture that fails raises.
 
 The kernel wrappers count a launch where they launch (``pmajor.LAUNCHES``,
 ``pair_kernel.LAUNCHES``).  A capture launches nothing, so each counter's
@@ -70,7 +83,7 @@ FRAME_FIELDS = ("pos", "alive", "pressure", "segments")
 # (state, params, scene, generator, live_rows) -> (new state, diagnostics)
 Tick = Callable[..., "tuple[CrateState, Diagnostics]"]
 
-# (id(owner), key) -> weakref to the owning StepGraph, least recently used first.
+# (id(owner), key) -> weakref to the owning GraphSet, least recently used first.
 _LIVE: collections.OrderedDict = collections.OrderedDict()
 # buffer signature -> StepGraph, the rollout / trajectory buffers.
 _ROLLOUT: collections.OrderedDict = collections.OrderedDict()
@@ -89,11 +102,26 @@ class GraphKey(NamedTuple):
     capacity: int
 
 
+class BandKey(NamedTuple):
+    """What a band step's capture is specific to (the Scene and the shard
+    generators by identity)."""
+
+    shards: int
+    mig_cap: int
+    rebalance: bool
+    bh_alloc: int | None
+    scene: int
+    schedule: str
+    generators: tuple
+    device: torch.device
+    capacity: int
+
+
 class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
-    diag: Diagnostics  # the graph's static outputs
+    out: object  # the body's static outputs
     rises: tuple  # per counter of COUNTERS: {name: launches per replay}
-    pins: tuple  # the scene and generator the key names by id
+    pins: tuple  # what the key names by id (the scene, the generators)
 
 
 def clone(tup):
@@ -101,7 +129,8 @@ def clone(tup):
     return type(tup)(*(x.clone() for x in tup))
 
 
-def _copy_into(dst, src) -> None:
+def copy_into(dst, src) -> None:
+    """Copy every leaf of ``src`` into the same-shaped leaf of ``dst``."""
     for name, d, s in zip(dst._fields, dst, src):
         if tuple(d.shape) != tuple(s.shape):
             raise ValueError(f"{name}: shape {tuple(s.shape)} != the static buffer's "
@@ -124,7 +153,104 @@ def _evict(keep: int) -> None:
             owner._graphs.pop(key, None)
 
 
-class StepGraph:
+def warm_up(device, body):
+    """``body()`` run eagerly on a side stream, the current stream waiting
+    for it: the call's real work, which also builds and loads the kernels
+    (nvcc and the ``ctypes`` load must never run inside a capture)."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = body()
+    current.wait_stream(side)
+    return out
+
+
+def record(device, body, generators=(), pins=(), pool=None) -> _Captured:
+    """Capture ``body()`` into a new CUDA graph (nothing runs), with each
+    of ``generators`` registered, in the memory pool ``pool`` (None: a
+    private one).  The counters' rise over the capture is taken back and
+    kept for the replays.  A capture that fails raises."""
+    before = _snapshot()
+    graph = torch.cuda.CUDAGraph()
+    for generator in generators:
+        graph.register_generator_state(generator)
+    try:
+        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool):
+            out = body()
+        after = _snapshot()
+    finally:
+        for counter, values in zip(COUNTERS, before):
+            counter.update(values)  # nothing ran during the capture
+    rises = tuple({k: a[k] - b[k] for k in a if a[k] != b[k]} for a, b in zip(after, before))
+    LAUNCHES["capture"] += 1
+    return _Captured(graph, out, rises, tuple(pins))
+
+
+def launch(cap: _Captured):
+    """One replay of a captured graph; the counters rise by its capture's
+    rise.  Returns its static outputs."""
+    cap.graph.replay()
+    for counter, rise in zip(COUNTERS, cap.rises):
+        for name, n in rise.items():
+            counter[name] += n
+    LAUNCHES["replay"] += 1
+    return cap.out
+
+
+class GraphSet:
+    """The graphs captured on one set of static buffers (on the owner's
+    ``device``), by key.  Each key holds one memory pool, and at most
+    MAX_GRAPHS keys live in the process (least recently used dropped
+    first, captured again at their next call)."""
+
+    def __init__(self) -> None:
+        self._graphs: dict = {}
+
+    def drop(self) -> None:
+        """Free every graph of these buffers; the next call captures anew."""
+        for key in list(self._graphs):
+            self._drop(key)
+
+    def _drop(self, key) -> None:
+        _LIVE.pop((id(self), key), None)
+        del self._graphs[key]
+
+    def _lookup(self, key):
+        """The key's captured graphs (marked most recently used), or None."""
+        caps = self._graphs.get(key)
+        if caps is not None:
+            _LIVE.move_to_end((id(self), key))
+        return caps
+
+    def _make_room(self) -> None:
+        """Drop least recently used graphs so that a capture keeps at most
+        MAX_GRAPHS live (torch.cuda.graph empties the cache of the pools
+        freed here)."""
+        _evict(MAX_GRAPHS - 1)
+
+    def _keep(self, key, caps) -> None:
+        self._graphs[key] = caps
+        _LIVE[(id(self), key)] = weakref.ref(self)
+
+    def run(self, key, body, generators=(), pins=()):
+        """``body()``, which reads and writes the static buffers on
+        ``self.device`` only and returns static outputs.  On the card: one
+        replay of ``key``'s graph, or on the key's first call the eager body
+        on a side stream (its result is returned) and then the capture.
+        Elsewhere: ``body()``."""
+        if self.device.type != "cuda":
+            return body()
+        cap = self._lookup(key)
+        if cap is not None:
+            return launch(cap)
+        self._make_room()
+        out = warm_up(self.device, body)
+        self._keep(key, record(self.device, body, generators, pins))
+        return out
+
+
+class StepGraph(GraphSet):
     """The static buffers of one crate (or one batch of crates) and the
     graphs captured on them.
 
@@ -137,12 +263,12 @@ class StepGraph:
 
     def __init__(self, state: CrateState, params: Params, tick: Tick, *,
                  overflow_max: bool = False) -> None:
+        super().__init__()
         self.state = state
         self.params = params
         self.tick = tick
         self.worst = (torch.zeros(state.tick.shape, dtype=torch.int32, device=state.tick.device)
                       if overflow_max else None)
-        self._graphs: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -160,26 +286,17 @@ class StepGraph:
         """Copy ``state`` and/or ``params`` into the static buffers (stream
         ordered: the next tick sees them; no capture is made anew)."""
         if state is not None:
-            _copy_into(self.state, state)
+            copy_into(self.state, state)
         if params is not None:
-            _copy_into(self.params, params)
+            copy_into(self.params, params)
 
     def reset_overflow(self) -> None:
         self.worst.zero_()
 
-    def drop(self) -> None:
-        """Free every graph of these buffers; the next call captures anew."""
-        for key in list(self._graphs):
-            self._drop(key)
-
-    def _drop(self, key) -> None:
-        _LIVE.pop((id(self), key), None)
-        del self._graphs[key]
-
     def _body(self, scene, generator, live_rows, ticks: int) -> Diagnostics:
         for _ in range(ticks):
             new, diag = self.tick(self.state, self.params, scene, generator, live_rows)
-            _copy_into(self.state, new)
+            copy_into(self.state, new)
             if self.worst is not None:
                 torch.maximum(self.worst, diag.neighbor_overflow, out=self.worst)
         if self.worst is not None:
@@ -192,50 +309,15 @@ class StepGraph:
         key's graph, or on its first call the eager ticks and the capture.
         Returns the last tick's Diagnostics (on CUDA, the graph's static
         ones: the next call overwrites them)."""
-        if self.device.type != "cuda":
-            return self._body(scene, generator, live_rows, ticks)
         key = self.key(scene, generator, live_rows, ticks)
-        cap = self._graphs.get(key)
-        if cap is None:
-            return self._capture(key, scene, generator, live_rows, ticks)
-        cap.graph.replay()
-        _LIVE.move_to_end((id(self), key))
-        for counter, rise in zip(COUNTERS, cap.rises):
-            for name, n in rise.items():
-                counter[name] += n
-        LAUNCHES["replay"] += 1
-        return cap.diag
-
-    def _capture(self, key, scene, generator, live_rows, ticks: int) -> Diagnostics:
-        # Room before the capture (torch.cuda.graph empties the cache of the
-        # pools freed here): a graph of these buffers that differs only in
-        # its live_rows is superseded (the bound moves once per run), then
-        # the least recently used graphs of the process.
-        bound_free = key._replace(live_rows=None)
-        for old in [k for k in self._graphs if k._replace(live_rows=None) == bound_free]:
-            self._drop(old)
-        _evict(MAX_GRAPHS - 1)
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            diag = self._body(scene, generator, live_rows, ticks)  # the warm-up: real ticks
-        current.wait_stream(side)
-        before = _snapshot()
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(generator)
-        try:
-            with torch.cuda.device(self.device), torch.cuda.graph(graph):
-                static = self._body(scene, generator, live_rows, ticks)
-            after = _snapshot()
-        finally:
-            for counter, values in zip(COUNTERS, before):
-                counter.update(values)  # nothing ran during the capture
-        rises = tuple({k: a[k] - b[k] for k in a if a[k] != b[k]} for a, b in zip(after, before))
-        self._graphs[key] = _Captured(graph, static, rises, (scene, generator))
-        _LIVE[(id(self), key)] = weakref.ref(self)
-        LAUNCHES["capture"] += 1
-        return diag
+        if self.device.type == "cuda" and key not in self._graphs:
+            # A graph of these buffers that differs only in its live_rows is
+            # superseded (the bound moves once per run).
+            bound_free = key._replace(live_rows=None)
+            for old in [k for k in self._graphs if k._replace(live_rows=None) == bound_free]:
+                self._drop(old)
+        return self.run(key, lambda: self._body(scene, generator, live_rows, ticks),
+                        (generator,), (scene, generator))
 
     def frames(self, scene, generator, num_frames: int, ticks_per_frame: int = 1) -> dict:
         """Advance ``num_frames * ticks_per_frame`` ticks, ``ticks_per_frame``
@@ -256,6 +338,49 @@ class StepGraph:
                     out[k] = v.new_empty((num_frames,) + tuple(v.shape))
                 out[k][f].copy_(v)
         return out
+
+
+class BandGraph(GraphSet):
+    """The static buffers of a band step on a
+    :class:`~sand_crate_tpu_torch.collectives.LocalGroup` and the graph
+    captured on them (``spatial.SpatialStep``): the split state of D x P
+    slots (each shard's slots a view of it), the Params and, for the
+    rebalanced step, the input edges, distinct from the output
+    ``band_edges`` that the graph writes.  They start as copies of the
+    first call's inputs; each later call copies its inputs in."""
+
+    def __init__(self, state: CrateState, params: Params, edges=None) -> None:
+        super().__init__()
+        self.state = clone(state)
+        self.params = clone(params)
+        self.edges = None if edges is None else edges.clone()
+
+    @property
+    def device(self) -> torch.device:
+        return self.state.pos.device
+
+    def load(self, state: CrateState, params: Params, edges=None) -> None:
+        """Copy the call's inputs into the static buffers (stream ordered)."""
+        copy_into(self.state, state)
+        copy_into(self.params, params)
+        if edges is not None:
+            if edges.shape != self.edges.shape:
+                raise ValueError(f"edges: shape {tuple(edges.shape)} != "
+                                 f"{tuple(self.edges.shape)}")
+            self.edges.copy_(edges)
+
+    def step(self, key: BandKey, tick, generators) -> dict:
+        """``tick(state, params, edges)`` over the static buffers: every
+        shard's band tick, its new state written back into the split
+        state; returns the stats (on the card the graph's static ones).
+        On the card one replay a call, or on the key's first call the
+        eager tick and the capture, with every shard generator
+        registered.  The shards' threads enqueue on the capture stream
+        while the calling thread waits for them, under the default
+        ``capture_error_mode`` ("global"), whose check their calls pass."""
+        generators = tuple(generators)
+        return self.run(key, lambda: tick(self.state, self.params, self.edges), generators,
+                        generators)
 
 
 def rollout_graph(state: CrateState, params: Params, tick: Tick, *,

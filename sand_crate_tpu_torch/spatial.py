@@ -16,7 +16,9 @@ band; every tick it
 The shards talk through a member of a group of ``collectives.py``:
 ``LocalGroup`` (every shard in this process, one thread each, on one
 device) or ``DistGroup`` (one shard per ``torch.distributed`` process).
-Both give the same bits.
+Both give the same bits.  On a LocalGroup of the card the step is
+compiled as the JAX one is jitted: one CUDA graph a tick holds every
+shard's band tick (:class:`SpatialStep`, ``graphs.BandGraph``).
 
 The tick (:func:`spatial_step`) keeps the JAX band order, which is not
 ``physics.step``'s: spawn (the sources inside the band, against the psum'd
@@ -65,6 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import graphs
 from .cellwise import (
     PairSums,
     pad_ps_grid,
@@ -294,8 +297,12 @@ def merge_state(state: CrateState, scene: Scene, n_shards: int) -> CrateState:
 
 def _set_dropped(buf: torch.Tensor, slots: torch.Tensor, value) -> torch.Tensor:
     """``buf.at[slots].set(value, mode="drop")``: slot P (one past the end)
-    is a dropped write, swallowed by a padding row that is sliced off."""
+    is a dropped write, swallowed by a padding row that is sliced off.  A
+    Python ``value`` is made on the device (a host value is copied in,
+    which a graph capture refuses)."""
     pad = torch.cat([buf, buf.new_zeros((1,) + tuple(buf.shape[1:]))])
+    if not isinstance(value, torch.Tensor):
+        value = buf.new_full((), value)
     pad[slots.long()] = value
     return pad[:-1]
 
@@ -675,7 +682,9 @@ def _local_grid(pos, vel, alive, noise, scene: Scene, comm, band: Band):
     flat[slot_sorted.long()] = packed[order]
     padded = F.pad(flat[:-1].reshape(bh, nx, M, 7), (0, 0, 0, 0, 0, 0, 1, 1))
     row_alive = padded[..., 6].sum(dim=(1, 2))
-    last = row_alive[-2] if band.last is None else row_alive[band.last.long()]
+    # A 0-d index tensor would be read back to the host (a capture refuses it).
+    last = (row_alive[-2] if band.last is None
+            else row_alive.index_select(0, band.last.reshape(1).long())[0])
     sent = torch.stack([row_alive[1], last]).to(I32)
     grid = _exchange_row_halo(padded, comm, axis=0, last_row=band.last)
     return F.pad(grid, (0, 0, 0, 0, 1, 1)), pslot, overflow, sent
@@ -820,15 +829,22 @@ def shard_slice(state: CrateState, rank: int, capacity: int) -> CrateState:
     return state._replace(**{k: getattr(state, k)[part] for k in PARTICLE_LEAVES})
 
 
-def join_shards(states: list[CrateState]) -> CrateState:
-    """The split state of every shard's state, in rank order (the
-    replicated leaves from shard 0)."""
-    return states[0]._replace(
-        **{k: torch.cat([getattr(s, k) for s in states]) for k in PARTICLE_LEAVES})
-
-
 class SpatialStep:
-    """A band step over a group (see :func:`make_spatial_step`)."""
+    """A band step over a group (see :func:`make_spatial_step`).
+
+    On a LocalGroup it keeps a :class:`~sand_crate_tpu_torch.graphs.BandGraph`
+    (static buffers: the split state, the Params, the input edges), made on
+    the first call.  A call copies its inputs in, runs every shard's tick
+    over the shard views of the split state (:meth:`_tick`) and returns
+    fresh copies of the new state and of the stats: the JAX step does not
+    donate, and callers keep a state or the stats across ticks.  On a CUDA
+    group the tick is one replay of a graph that holds every shard's band
+    tick in the order the turns enqueue it (the first call of a key runs
+    eagerly and captures; :meth:`key`).  Two calls stay eager on purpose:
+    one with ``capture=`` (its dicts receive live tensors), and any call
+    on a DistGroup (gloo cannot be captured; NCCL is one shard per process,
+    so no one process holds every shard's tick).  On the CPU the same body
+    runs eagerly."""
 
     def __init__(self, group, scene: Scene, mig_cap: int, rebalance: bool, seed: int) -> None:
         self.group = group
@@ -841,10 +857,39 @@ class SpatialStep:
             band_rows(scene, group.size)  # raises on an uneven split
         ranks = range(group.size) if isinstance(group, LocalGroup) else [group.rank]
         self.generators = {r: shard_generator(seed, r, group.device) for r in ranks}
+        self.graph: graphs.BandGraph | None = None
+
+    def key(self) -> graphs.BandKey:
+        """What the capture is specific to: the shard count, ``mig_cap``,
+        ``rebalance``, ``bh_alloc``, the Scene object, the pair schedule,
+        the shard generators (by identity), the device and the capacity."""
+        return graphs.BandKey(
+            self.n_shards, self.mig_cap, self.rebalance, self.bh_alloc, id(self.scene),
+            pm.schedule(), tuple(id(self.generators[r]) for r in sorted(self.generators)),
+            self.group.device, self.scene.capacity)
 
     def _one(self, comm, state, params, edges, capture):
         return spatial_step(state, params, self.scene, comm, self.mig_cap,
                             self.generators[comm.rank], edges, self.bh_alloc, capture)
+
+    def _tick(self, state: CrateState, params: Params, edges, capture=None) -> dict:
+        """Every shard's band tick on the split ``state`` (shard r's slots
+        are a view of it), the new state written back into it: the
+        particle leaves shard by shard, the replicated ones from shard 0.
+        Returns the stats."""
+        D, P = self.n_shards, self.scene.capacity
+        views = [shard_slice(state, r, P) for r in range(D)]
+        outs = self.group.run(
+            lambda comm, st, cap: self._one(comm, st, params, edges, cap),
+            views, capture if capture is not None else [None] * D,
+        )
+        for view, (new, _) in zip(views, outs):
+            for k in PARTICLE_LEAVES:
+                getattr(view, k).copy_(getattr(new, k))
+        for k in state._fields:
+            if k not in PARTICLE_LEAVES:
+                getattr(state, k).copy_(getattr(outs[0][0], k))
+        return outs[0][1]
 
     def __call__(self, state: CrateState, params: Params, edges=None, capture=None):
         """(state, params[, edges]) -> (state, stats).  On a LocalGroup the
@@ -859,12 +904,16 @@ class SpatialStep:
         D, P = self.n_shards, self.scene.capacity
         if state.pos.shape[0] != D * P:
             raise ValueError(f"expected a split state of {D} x {P} slots, got {state.pos.shape[0]}")
-        shards = [shard_slice(state, r, P) for r in range(D)]
-        outs = self.group.run(
-            lambda comm, st, cap: self._one(comm, st, params, edges, cap),
-            shards, capture if capture is not None else [None] * D,
-        )
-        return join_shards([o[0] for o in outs]), outs[0][1]
+        g = self.graph
+        if g is None:
+            g = self.graph = graphs.BandGraph(state, params, edges)
+        else:
+            g.load(state, params, edges)
+        if capture is not None:
+            stats = self._tick(g.state, g.params, g.edges, capture)
+        else:
+            stats = g.step(self.key(), self._tick, self.generators.values())
+        return graphs.clone(g.state), {k: v.clone() for k, v in stats.items()}
 
 
 def make_spatial_step(
@@ -886,7 +935,9 @@ def make_spatial_step(
     :func:`split_state`), then thread ``stats["band_edges"]`` back in each
     tick.  ``mig_cap`` defaults to the JAX rule, min(1024, max(64,
     capacity // 16)) movers per direction a tick.  Shard r draws from
-    ``collectives.shard_generator(seed, r)``."""
+    ``collectives.shard_generator(seed, r)``.  On a LocalGroup of the card
+    every call replays one captured CUDA graph (:class:`SpatialStep`):
+    hold one step across a loop, since a new step captures anew."""
     if isinstance(group, int):
         group = LocalGroup(group, device=device)
     if scene.segments0.device.type != group.device.type:
