@@ -7,8 +7,9 @@ prints its wall time as "[phase] name: s"):
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi).
 2. build: compile the hand-written CUDA kernels (csrc/pmajor.cu with K1/K2
-   and K10, csrc/grid_pair.cu with K3-K9, csrc/probes.cu; one nvcc each,
-   started together) and print every kernel's ptxas registers and spills.
+   and K10, csrc/grid_pair.cu with K3-K9, csrc/probes.cu, csrc/boundary.cu
+   with B1 and B2; one nvcc each, started together) and print every
+   kernel's ptxas registers and spills.
 3. world: the dam break (configs/dam_break.yaml, read without PyYAML)
    rescaled as bench.py rescales it (tools.perf_probe.dam_break_world), to
    1,000,000 target particles (1,001,700 alive).
@@ -35,7 +36,8 @@ prints its wall time as "[phase] name: s"):
    candidates its warps stage and its selves walk, median times of K10 and
    K1/K2 one-sided, the bound.
 5. pmajor main path: Crate.run for MAIN_TICKS ticks; the kernel launch
-   counters must rise by one per pass per tick; no non-finite values, no
+   counters must rise by one per pass per tick (the boundary kernels: the
+   ghost pass twice a tick, the CCD once; so in every drive below); no non-finite values, no
    overflow, the alive count conserved (closed box, no sources), uids a
    permutation, and no blow-up (speed bounds below).  Prints steps/s and
    the step p50 with the card name.
@@ -50,10 +52,12 @@ prints its wall time as "[phase] name: s"):
    INSTRUMENT_TICKS ticks, bit for bit, both PhaseTimer tables side by
    side, and the fused step with fold off replayed under the profiler.
 6. trajectories: a ~10k-particle dam break for 20 ticks on the card, once
-   on the kernel path (Crate.run) and once with the pair passes swapped for
-   their plain torch versions (an explicit eager loop of physics.step: the
-   plain versions read the host, which a graph capture refuses), compared uid-aligned at tests/test_pmajor.py:371-374's
-   tolerance; on K1/K2 and on K10 (SAND_CRATE_PMSUB=1).
+   on the kernel path (Crate.run) and once with the pair passes and both
+   boundary wrappers swapped for their plain torch versions (an explicit
+   eager loop of physics.step: the plain versions read the host, which a
+   graph capture refuses), compared uid-aligned at
+   tests/test_pmajor.py:371-374's tolerance; on K1/K2 and on K10
+   (SAND_CRATE_PMSUB=1).
 7. grid kernels: the same 1M world on the slot-grid backend
    (forces_mode="pallas", cell_capacity 16), settled GRID_SETTLE_TICKS
    ticks; at that state the tick's slab-order kernels, pair_pass_a (K4+K5)
@@ -81,7 +85,8 @@ prints its wall time as "[phase] name: s"):
    allocation, below the dense grids G and PS that the tick no longer
    builds.
 9. grid trajectory: as phase 6 on the slot-grid backend, the two
-   slab-order passes swapped for their plain versions.
+   slab-order passes and both boundary wrappers swapped for their plain
+   versions.
 (e) bench entry: python -m sand_crate_tpu_torch.bench --particles 1000000
    --ticks BENCH_TICKS as a subprocess; its JSON line parses and its stderr
    line shows overflow 0.
@@ -116,8 +121,11 @@ prints its wall time as "[phase] name: s"):
    the frames back; a checkpoint saved at tick T and restored into a fresh
    Crate runs on as the uninterrupted crate does, held against two
    uninterrupted runs from one seed (bit for bit where those agree).
-(j) batched crates and the small- and mid-crate backends (plain torch, no
-   kernel of their own; every kernel count stays 0 on their paths): (a)
+(j) batched crates and the small- and mid-crate backends (no pair kernel
+   of their own: the pair and probe counters stay 0 on their paths, and the
+   boundary counters rise by exactly their per-tick counts, the ghost pass
+   once a tick on dense and twice on chunked, the CCD once; a vmapped batch
+   launches each once a tick for all its crates): (a)
    stirring_cup and wave_machine (bench.STIRRING_CUP, bench.WAVE_MACHINE)
    as one crate on dense, chunked and pmajor for SMALL_TICKS ticks each,
    dense and pmajor twice in turns, steps/s and step p50 per backend, the
@@ -240,6 +248,28 @@ prints its wall time as "[phase] name: s"):
    rising once a band a tick; then graph / eager / eager / graph turns of
    GRAPH_TURN_TICKS (steps/s, step p50) and PROFILED_TICKS under the
    profiler (busy share, launches a tick with cudaGraphLaunch counted).
+   The boundary counters rise once a band a tick (the band step runs the
+   ghost pass once).
+(q) the boundary chain (csrc/boundary.cu, ops/boundary.py), after (b) at
+   phase 4's settled 1M state: the tick's inputs in slot order and in its
+   sorted order; ghost_pass (B1) and continuous_collision (B2) against
+   their plain torch versions, every output, bit for bit (NaN in the same
+   places, the bits of signed zeros and NaN payloads too); torch.sign on
+   the card printed; both kernels' median times, plain times and bounds
+   (the rows of the kernels line, their launches from phase 5); every case
+   of ops/boundary_cases.py (each checked to hold what it claims) bit for
+   bit, the three-crate case through the crate-axis operators; and
+   torch.func.vmap of both wrappers over BOUNDARY_CRATES crates (the case's
+   and the 1M state's with radii and steps of their own), one launch each,
+   against each crate alone, kernel and plain.  The boundary counters of
+   (f), (j), (o) and (p) rise by their per-tick counts.
+(q2) queue 3's open check, after (f): the 1M dam break of (n1) for
+   ESCAPE_TICKS ticks, a replay a tick; each tick that leaves an alive
+   particle outside [-r, 1 + r] is run again eagerly from the state before
+   it (bit for bit the replay) with the ghost pass's and the CCD's inputs
+   kept, and each escaping particle's row (pre-fix and fixed position,
+   velocity into and out of the clamp, the segments, r, dt) is printed as
+   JSON (tests/test_torch_boundary.py holds such rows on the CPU).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -400,6 +430,29 @@ BAND_GRAPH_CELLS = {
 # occupancy_stats, rebalance_midscale and spatial_balance at the tools'
 # defaults, the chunked fill at K = 64, small_n_probe cut to 2 chunks of 200
 # ticks (the tool's default is 20; its chunked row takes ~74 ms a tick)
+# (q): the boundary kernels (csrc/boundary.cu).  What each moves a particle
+# slot (ghost pass: prepos 8, alive 1, pos 8, g_cnt 4, gsum 8, gvel_sum 8
+# bytes; CCD: pos 8, vel 8, alive 1, the new velocity 8) and the f32
+# operations of their plain chains (ops/boundary.py), counted per particle
+# and segment (ghost pass: the nearest point 18, the mask and mirror
+# offsets 8, the contact velocity 6, the hard-wall ratio and correction
+# 15, the sums 9), per particle and padded wall (CCD: approach 4, the four
+# signs 28, the crossing 6, num 5, den 3, the guarded t 6, the minimum 2)
+# and per particle (ghost pass: the fixed position 4; CCD: the move 4, the
+# clamp 3).  The data sets no early exit: every term is computed.
+BOUNDARY_SOURCE = "sand_crate_tpu_torch/csrc/boundary.cu"
+BOUNDARY_REPLACES = {"ghost_pass": "sand_crate_tpu/physics.py:331",
+                     "continuous_collision": "sand_crate_tpu/physics.py:738"}
+GHOST_BYTES, GHOST_OPS, GHOST_PARTICLE_OPS = 37, 56, 4
+CCD_BYTES, CCD_OPS, CCD_PARTICLE_OPS = 25, 54, 7
+BOUNDARY_CRATES = 3  # (q): the vmapped batches
+# ghost passes a tick per backend: the sorted backends run it again on the
+# sorted order; the band step (spatial.py) runs it once on every backend
+GHOSTS_A_TICK = {"pmajor": 2, "pallas": 2, "chunked": 2, "dense": 1, "band": 1}
+# (q2): ticks of the 1M dam break searched for particles that leave the box
+# (the first ESCAPE_TICKS of (n1)'s soak), and the rows printed
+ESCAPE_TICKS = 1000
+ESCAPE_PRINT = 40
 SOAK_TICKS, SOAK_CHUNK = 2000, 250
 WAVE_SOAK_TICKS, WAVE_SOURCE_TICKS = 3000, 500  # wave_machine.yaml: active_ticks 500
 PROBE_SIZES = (10_000, 100_000, 1_000_000)
@@ -888,9 +941,11 @@ def phase_tables(label: str, smi: str, inst, ticks: int = INSTRUMENT_TICKS) -> N
     s0, g0 = clone_state(inst.state), inst.generator.get_state()
     replayed, eager = Phases(), Phases()
     reset(graphs.LAUNCHES)
+    reset_boundary()
     for _ in range(ticks):
         inst.phases.step(inst.scene, inst.generator, replayed)
     calls, g1 = dict(graphs.LAUNCHES), inst.generator.get_state()
+    bounds = check_boundary(f"(f) {label}", boundary_want(ticks, inst.scene.forces_mode))
     inst.generator.set_state(g0)
     state = s0
     for _ in range(ticks):
@@ -901,7 +956,7 @@ def phase_tables(label: str, smi: str, inst, ticks: int = INSTRUMENT_TICKS) -> N
           f"(f) {label}: graph calls {calls}")
     print(f"  (f) {label} on {smi}: PhaseTimer medians over {ticks} ticks, replayed phases "
           f"(one graph each) / eager instrumented_tick, ms; state == bit for bit, graph calls "
-          f"{calls}")
+          f"{calls}, launches {bounds}")
     for name in replayed.times:
         print(f"    {name:<22} {replayed.median_ms(name):9.4f} / {eager.median_ms(name):9.4f}")
     total = [sum(rec.median_ms(k) for k in rec.times) for rec in (replayed, eager)]
@@ -1175,6 +1230,7 @@ def drive(crate, ticks: int, label: str, counts: dict, expected: dict, overflow_
     n0 = crate.particle_count
     alive0 = by_uid(crate.state, crate.state.alive)
     reset(counts)
+    reset_boundary()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     crate.run(ticks - 1)
@@ -1183,8 +1239,10 @@ def drive(crate, ticks: int, label: str, counts: dict, expected: dict, overflow_
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(counts)
-    print(f"{label}: Crate.run({ticks}) launches {launches}")
+    print(f"{label}: Crate.run({ticks}) launches {launches}, "
+          f"{boundary_counts()}")
     check(launches == expected, f"{label}: launches {launches} != {expected}")
+    launches.update(check_boundary(label, boundary_want(ticks, crate.scene.forces_mode)))
     check(int(diag.non_finite) == 0, f"non_finite {int(diag.non_finite)}")
     want = 0 if overflow_ref is None else overflow_ref(before)
     print(f"  overflow {int(diag.neighbor_overflow)} (independent count {want})")
@@ -1290,12 +1348,18 @@ def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict
     from sand_crate_tpu_torch import Crate
     from sand_crate_tpu_torch.physics import step
 
+    from sand_crate_tpu_torch.ops import boundary
+
     world = dam_break_world(TRAJ_PARTICLES)
     with_kernels = Crate(world, device="cuda", forces_mode=forces_mode)
     with_plain = Crate(world, device="cuda", forces_mode=forces_mode)
+    swaps = list(swaps) + [(boundary, "ghost_pass", boundary.ghost_pass_plain),
+                           (boundary, "continuous_collision", boundary.continuous_collision_plain)]
     reset(counts)
+    reset_boundary()
     with_kernels.run(TRAJ_TICKS)
     after_kernels = dict(counts)
+    check_boundary(f"{label}: the kernel run", boundary_want(TRAJ_TICKS, forces_mode))
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -1309,6 +1373,7 @@ def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict
             setattr(mod, name, fn)
     check(after_kernels == expected and counts == after_kernels,
           f"{label}: the kernel run must launch the kernels once a tick and the plain run none")
+    check_boundary(f"{label}: the plain run (none)", boundary_want(TRAJ_TICKS, forces_mode))
     pk, vk, ak = uid_aligned(with_kernels)
     pp, vp, ap = uid_aligned(with_plain)
     check(torch.equal(ak, ap), f"{label}: alive masks differ")
@@ -1660,18 +1725,32 @@ def recording_and_checkpoints(traj_dir):
 
 
 def kernel_counts():
-    """Every kernel launch counter of the port, as one dict."""
+    """The pair and probe kernels' launch counters, as one dict (the
+    boundary kernels, which run on every path, count apart:
+    boundary_counts)."""
+    from sand_crate_tpu_torch import probes
     from sand_crate_tpu_torch.ops import pair_kernel, pmajor
 
     return {**{f"pmajor.{k}": v for k, v in pmajor.LAUNCHES.items()},
-            **{f"grid.{k}": v for k, v in pair_kernel.LAUNCHES.items()}}
+            **{f"grid.{k}": v for k, v in pair_kernel.LAUNCHES.items()},
+            **{f"probes.{k}": v for k, v in probes.LAUNCHES.items()}}
+
+
+def reset_boundary() -> None:
+    from sand_crate_tpu_torch.ops import boundary
+
+    reset(boundary.LAUNCHES)
 
 
 def reset_kernel_counts() -> None:
+    """Every kernel launch counter of the port to 0, the boundary's too."""
+    from sand_crate_tpu_torch import probes
     from sand_crate_tpu_torch.ops import pair_kernel, pmajor
 
     reset(pmajor.LAUNCHES)
     reset(pair_kernel.LAUNCHES)
+    reset(probes.LAUNCHES)
+    reset_boundary()
 
 
 def profiled(run, ticks: int) -> str:
@@ -1726,6 +1805,8 @@ def small_crate(name: str, raw: dict, mode: str, smi: str, profile: bool) -> flo
     check(launches["pmajor.a"] == launches["pmajor.b"] == want
           and sum(launches.values()) == 2 * want,
           f"{name} on {mode}: kernel launches {launches} (pmajor: K1/K2 once a tick; else none)")
+    launches = {k: v for k, v in launches.items() if v}
+    launches.update(check_boundary(f"{name} on {mode}", boundary_want(SMALL_TICKS, mode)))
     events = [torch.cuda.Event(enable_timing=True) for _ in range(P50_TICKS + 1)]
     state = crate.state
     events[0].record()
@@ -1794,7 +1875,8 @@ def vmapped_vs_solo(mode: str) -> None:
     check(crates.scene.forces_mode == mode, f"BatchedCrates picked {crates.scene.forces_mode}")
     crates.run(VMAP_TICKS // 2)
     crates.run(VMAP_TICKS - VMAP_TICKS // 2)
-    check(sum(kernel_counts().values()) == 0, "a batched run launched a kernel")
+    check(sum(kernel_counts().values()) == 0, "a batched run launched a pair or probe kernel")
+    check_boundary(f"vmapped {mode}", boundary_want(VMAP_TICKS, mode))
     worst = 0.0
     for i in range(VMAP_CRATES):
         pr = Params(*(x[i] for x in batched))
@@ -1841,7 +1923,8 @@ def datagen_1024(smi: str, mode: str) -> float:
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         frames = list(load_trajectory(tmp))
-    check(sum(kernel_counts().values()) == 0, "datagen launched a kernel")
+    check(sum(kernel_counts().values()) == 0, "datagen launched a pair or probe kernel")
+    check_boundary(f"run_datagen on {mode}", boundary_want(DATAGEN_TICKS, mode))
     check(out["frames"] == len(frames) == DATAGEN_TICKS // DATAGEN_EVERY, "datagen frames")
     check(out["overflow"] == 0 and out["non_finite"] == 0,
           f"datagen overflow {out['overflow']}, non_finite {out['non_finite']}")
@@ -1901,7 +1984,8 @@ def wave_64(smi: str, mode: str) -> float:
         check(int(diag.non_finite.max()) == 0, "wave crates: non-finite particles")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check(sum(kernel_counts().values()) == 0, "a batched run launched a kernel")
+    check(sum(kernel_counts().values()) == 0, "a batched run launched a pair or probe kernel")
+    check_boundary(f"{WAVE_CRATES} wave_machine crates on {mode}", boundary_want(WAVE_TICKS, mode))
     check(worst == 0, f"wave crates: overflow {worst}")
     print(f"  {WAVE_CRATES} wave_machine crates on {mode} ({smi}): {WAVE_TICKS} ticks in two "
           f"runs (sweep bounds {bounds} of capacity {crates.scene.capacity}), {wall:.3f} s, "
@@ -2859,6 +2943,246 @@ def engine_tools(smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# (q) the boundary chain: the ghost pass and the CCD clamp (csrc/boundary.cu)
+# --------------------------------------------------------------------------
+
+
+def boundary_counts() -> dict:
+    """The boundary kernels' launch counters (ops/boundary.py)."""
+    from sand_crate_tpu_torch.ops import boundary
+
+    return {f"boundary.{k}": v for k, v in boundary.LAUNCHES.items()}
+
+
+def boundary_want(ticks: int, mode: str, calls: int = 1) -> dict:
+    """The boundary counters' rise over ``ticks`` ticks of ``calls`` crates
+    or bands on backend ``mode``: the ghost pass GHOSTS_A_TICK[mode] times a
+    tick, the CCD once."""
+    return {"boundary.ghost": GHOSTS_A_TICK[mode] * ticks * calls,
+            "boundary.ccd": ticks * calls}
+
+
+def check_boundary(label: str, want: dict) -> dict:
+    got = boundary_counts()
+    check(got == want, f"{label}: boundary launches {got} != {want}")
+    return got
+
+
+def same_values(label: str, got, want) -> float:
+    """Kernel outputs against their plain versions' (a tensor or a tuple):
+    the same shape and dtype, NaN in the same places, every other value
+    equal (max abs error 0) and the same bits (signed zeros and NaN
+    payloads too).  Returns the max abs error."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    worst, bits = 0.0, 0
+    for k, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{label}[{k}]: shape or dtype differs")
+        nan = torch.isnan(a)
+        check(torch.equal(nan, torch.isnan(b)), f"{label}[{k}]: NaN in other places")
+        a0, b0 = torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)
+        err = float((a0 - b0).abs().nan_to_num(nan=math.inf).max()) if a.numel() else 0.0
+        check(torch.equal(a0, b0), f"{label}[{k}]: kernel differs from its plain version "
+                                   f"(max abs err {err})")
+        bits += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        worst = max(worst, err)
+    check(bits == 0, f"{label}: {bits} elements differ in their bits")
+    return worst
+
+
+def boundary_rows(crate, smi: str) -> list:
+    """Phase (q): both boundary kernels against their plain versions at the
+    crate's (settled 1M) state, in slot order and in the tick's sorted
+    order, on every case of ops/boundary_cases.py and in vmapped batches of
+    BOUNDARY_CRATES crates against each crate alone; their times and bounds.
+    Returns the two kernels' rows."""
+    import torch
+
+    from sand_crate_tpu_torch import physics
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+    from sand_crate_tpu_torch.ops import boundary, boundary_cases
+
+    pr, sc = crate.params, crate.scene
+    s = physics.advance_bodies(physics.cull_particles(crate.state, pr), pr, sc)
+    shared = (sc.seg_valid, sc.seg_body, sc.body_center)
+
+    def ghost_args(prepos, alive):
+        return (prepos, alive, s.segments, s.body_lin_vel, s.body_ang_vel, pr.particle_radius,
+                *shared)
+
+    slot = ghost_args(s.pos, s.alive)
+    cid, order = torch.sort(cell_ids_grid(boundary.ghost_pass_plain(*slot)[0], s.alive, sc),
+                            stable=True)
+    sorted_ = ghost_args(s.pos[order], cid < sc.num_cells)
+    P, S = s.pos.shape[0], sc.num_segments
+    probe = torch.tensor([math.nan, -0.0, 0.0, 1.0, -math.inf], device="cuda")
+    print(f"  torch.sign on the card of (nan, -0, 0, 1, -inf): {torch.sign(probe).tolist()}")
+    errs, timed = {"ghost_pass": 0.0, "continuous_collision": 0.0}, {}
+    for label, args, vel in (("slot order", slot, s.vel), ("sorted order", sorted_, s.vel[order])):
+        got = boundary.ghost_pass(*args)
+        errs["ghost_pass"] = max(errs["ghost_pass"], same_values(
+            f"ghost_pass, 1M {label}", got, boundary.ghost_pass_plain(*args)))
+        ccd = (got[0], vel, args[1], s.segments, pr.particle_radius, pr.dt, sc.seg_valid)
+        new_vel = boundary.continuous_collision(*ccd)
+        errs["continuous_collision"] = max(errs["continuous_collision"], same_values(
+            f"continuous_collision, 1M {label}", new_vel,
+            boundary.continuous_collision_plain(*ccd)))
+        clamped = int(((new_vel != vel).any(dim=1) & args[1]).sum())
+        print(f"  1M {label}: ghost_pass and continuous_collision == plain "
+              f"(max abs err 0, bits equal); {int(args[1].sum())} alive of {P}, ghost contacts "
+              f"{int(got[1].sum())}, particles clamped {clamped}")
+        timed = {"ghost_pass": (lambda a=args: boundary.ghost_pass(*a),
+                                lambda a=args: boundary.ghost_pass_plain(*a)),
+                 "continuous_collision": (lambda a=ccd: boundary.continuous_collision(*a),
+                                          lambda a=ccd: boundary.continuous_collision_plain(*a))}
+    # sorted order is the order of the tick's second ghost pass and of its CCD
+    work = {"ghost_pass": (GHOST_BYTES * P, P * (S * GHOST_OPS + GHOST_PARTICLE_OPS)),
+            "continuous_collision": (CCD_BYTES * P, P * (2 * S * CCD_OPS + CCD_PARTICLE_OPS))}
+    rows = []
+    for name, (run, plain) in timed.items():
+        n_bytes, n_ops = work[name]
+        rows.append(kernel_row(name, BOUNDARY_SOURCE, BOUNDARY_REPLACES[name], errs[name],
+                               cuda_ms(run, 20), cuda_ms(plain, 5), n_bytes, n_ops))
+        r = rows[-1]
+        print(f"  {name} at 1M ({smi}, sorted order): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+              f"(median, CUDA events)")
+
+    print("  the hard inputs of ops/boundary_cases.py:")
+    for case, (_, _, claim) in boundary_cases.CASES.items():
+        facts = boundary_cases.facts(case, "cuda")
+        check(facts["holds"], f"boundary case {case}: does not hold what it claims ({facts})")
+        c = boundary_cases.inputs(case, "cuda")
+        g, v = boundary_cases.ghost_args(c), boundary_cases.ccd_args(c)
+        if case == "batch":
+            per = [boundary_cases.crate(c, b) for b in range(c["r"].shape[0])]
+            ghost_out = torch.ops.sand_crate.ghost_pass(*g)
+            ccd_out = torch.ops.sand_crate.ccd(*v)
+            for b, one in enumerate(per):
+                same_values(f"ghost_pass, case batch crate {b}", tuple(o[b] for o in ghost_out),
+                            boundary.ghost_pass_plain(*boundary_cases.ghost_args(one)))
+                same_values(f"continuous_collision, case batch crate {b}", ccd_out[b],
+                            boundary.continuous_collision_plain(*boundary_cases.ccd_args(one)))
+            vmapped_vs_alone("case batch", g, v)
+        else:
+            same_values(f"ghost_pass, case {case}", boundary.ghost_pass(*g),
+                        boundary.ghost_pass_plain(*g))
+            same_values(f"continuous_collision, case {case}", boundary.continuous_collision(*v),
+                        boundary.continuous_collision_plain(*v))
+        shown = {k: x for k, x in facts.items() if x and k != "holds"}
+        print(f"    {case} ({claim}): == plain; {shown}")
+
+    # a vmapped batch at 1M: the sorted-order crate with radii and steps of
+    # its own in each of BOUNDARY_CRATES crates
+    scale = torch.linspace(0.9, 1.1, BOUNDARY_CRATES, device="cuda")
+    stack = lambda x: torch.stack([x] * BOUNDARY_CRATES)  # noqa: E731
+    g = tuple(stack(x) for x in sorted_[:5]) + (pr.particle_radius * scale,) + shared
+    fixed = boundary.ghost_pass_plain(*sorted_)[0]
+    v = tuple(stack(x) for x in (fixed, s.vel[order], sorted_[1], s.segments)) + (
+        pr.particle_radius * scale, pr.dt * scale.flip(0), sc.seg_valid)
+    vmapped_vs_alone("1M sorted order", g, v)
+    return rows
+
+
+def vmapped_vs_alone(label: str, g, v) -> None:
+    """(q): both wrappers under torch.func.vmap over a crate axis (one
+    launch each for all crates) against each crate alone, kernel and plain,
+    bit for bit; ``g`` and ``v`` are the batched arguments (crate axis
+    first, the scene's tensors unbatched)."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import boundary
+
+    n = g[0].shape[0]
+    before = boundary_counts()
+    ghost = torch.func.vmap(boundary.ghost_pass, in_dims=(0,) * 6 + (None,) * 3,
+                            randomness="different")(*g)
+    ccd = torch.func.vmap(boundary.continuous_collision, in_dims=(0,) * 6 + (None,),
+                          randomness="different")(*v)
+    rise = {k: boundary_counts()[k] - before[k] for k in before}
+    check(rise == {"boundary.ghost": 1, "boundary.ccd": 1},
+          f"{label}: the vmapped wrappers launched {rise} (one each for all crates)")
+    for b in range(n):
+        one_g = tuple(x[b] for x in g[:6]) + g[6:]
+        one_v = tuple(x[b] for x in v[:6]) + v[6:]
+        for what, ref in (("alone", boundary.ghost_pass(*one_g)),
+                          ("plain", boundary.ghost_pass_plain(*one_g))):
+            same_values(f"vmapped ghost_pass, {label}, crate {b} vs {what}",
+                        tuple(o[b] for o in ghost), ref)
+        for what, ref in (("alone", boundary.continuous_collision(*one_v)),
+                          ("plain", boundary.continuous_collision_plain(*one_v))):
+            same_values(f"vmapped continuous_collision, {label}, crate {b} vs {what}", ccd[b],
+                        ref)
+    print(f"    vmapped, {label}: {n} crates, one launch of each kernel, == each crate alone "
+          f"(kernel and plain)")
+
+
+def escape_check(smi: str) -> None:
+    """(q2) Queue 3's open check: the 1M dam break of (n1)'s soak (fresh, on
+    auto: p-major) for ESCAPE_TICKS ticks, one replay at a time.  After each
+    tick the alive particles outside [-r, 1 + r] (the next tick culls them)
+    are found; that tick is run again eagerly from the state before it (the
+    same bits) with the ghost pass's and the CCD's inputs kept, and each
+    escaping particle's row is printed as JSON: its pre-fix and fixed
+    position, its velocity into and out of the clamp, the segments, r and
+    dt; tests/test_torch_boundary.py holds them on the CPU."""
+    import torch
+
+    from sand_crate_tpu_torch import Crate, physics
+    from sand_crate_tpu_torch.ops import boundary
+
+    crate = Crate(dam_break_world(N_TARGET), device="cuda", forces_mode="auto")
+    r = crate.params.particle_radius
+    kept, found, t0 = {}, [], time.perf_counter()
+
+    def keep(name, fn):
+        def run(*args):
+            out = fn(*args)
+            kept[name] = (args, out)
+            return out
+        return run
+
+    for tick in range(ESCAPE_TICKS):
+        before, g0 = clone_state(crate.state), crate.generator.get_state()
+        crate.run(1)
+        st = crate.state
+        out = ((st.pos < -r) | (st.pos > 1.0 + r)).any(dim=1) & st.alive
+        if not bool(out.any()):
+            continue
+        after_gen = crate.generator.get_state()
+        gen = torch.Generator(device="cuda")
+        gen.set_state(g0)
+        real = (boundary.ghost_pass, boundary.continuous_collision)
+        boundary.ghost_pass = keep("ghost", real[0])
+        boundary.continuous_collision = keep("ccd", real[1])
+        try:
+            eager, _ = physics.step(before, crate.params, crate.scene, gen)
+        finally:
+            boundary.ghost_pass, boundary.continuous_collision = real
+        same_bits(f"(q2) tick {tick}: eager re-run vs the replay", eager, st)
+        check(torch.equal(gen.get_state(), after_gen), f"(q2) tick {tick}: generator")
+        (prepos, _, segments, *_), (fixed, g_cnt, _, _) = kept["ghost"]
+        (pos, vel, alive, _, rad, dt, _), new_vel = kept["ccd"]
+        end = pos + dt * new_vel
+        escaped = (((end < -r) | (end > 1.0 + r)).any(dim=1) & alive).nonzero().flatten()
+        for i in escaped.tolist():
+            row = dict(tick=tick, prepos=prepos[i].tolist(), pos=pos[i].tolist(),
+                       vel=vel[i].tolist(), new_vel=new_vel[i].tolist(), end=end[i].tolist(),
+                       g_cnt=float(g_cnt[i]), r=float(rad), dt=float(dt),
+                       segments=segments.tolist())
+            found.append(row)
+            if len(found) <= ESCAPE_PRINT:
+                print(f"  escape row: {json.dumps(row)}")
+    wall = time.perf_counter() - t0
+    print(f"  (q2) {crate.particle_count} alive after {ESCAPE_TICKS} ticks ({smi}, {wall:.1f} s): "
+          f"{len(found)} particles left [-r, 1 + r] (rows printed: "
+          f"{min(len(found), ESCAPE_PRINT)}); through the CCD's start already outside: "
+          f"{sum(1 for f in found if not all(-f['r'] <= x <= 1 + f['r'] for x in f['pos']))}")
+
+
+# --------------------------------------------------------------------------
 # (o) the compiled step loop: replayed CUDA graphs (sand_crate_tpu_torch/graphs.py)
 # --------------------------------------------------------------------------
 
@@ -2911,6 +3235,7 @@ def replay_vs_eager(label: str, crate, ticks: int, edit=None, want_launches=None
         setattr(crate, *edit)
     diag = crate.run(ticks - half)
     launches, graph_calls = kernel_counts(), dict(graphs.LAUNCHES)
+    bounds = check_boundary(label, boundary_want(ticks, crate.scene.forces_mode))
     g_replayed = crate.generator.get_state()
     crate.generator.set_state(g0)
     st, _, _ = eager_loop(s0, p0, crate.scene, crate.generator, half)
@@ -2930,7 +3255,7 @@ def replay_vs_eager(label: str, crate, ticks: int, edit=None, want_launches=None
     what = f", {edit[0]} set to {edit[1]} after {half}" if edit else ""
     print(f"  {label}: {ticks} replayed ticks{what} == the eager loop bit for bit "
           f"({crate.particle_count} particles at tick {crate.tick}); graph calls {graph_calls}; "
-          f"launches {({k: v for k, v in launches.items() if v}) or 'none'}")
+          f"launches {({k: v for k, v in launches.items() if v}) or 'none'}, {bounds}")
 
 
 def turns(label: str, smi: str, graph_tick, eager_tick, ticks: int) -> dict:
@@ -3081,17 +3406,18 @@ def graphs_batched(smi: str) -> None:
         reset(graphs.LAUNCHES)
         diag = b.run(GRAPH_TICKS)
         calls = dict(graphs.LAUNCHES)
+        bounds = check_boundary(f"BatchedCrates on {mode}", boundary_want(GRAPH_TICKS, mode))
         b.generator.set_state(g0)
         st, want, worst = eager_loop(s0, p0, b.scene, b.generator, GRAPH_TICKS, live,
                                      batched=True)
         same_bits(f"BatchedCrates on {mode}", b.state, st)
         same_bits(f"BatchedCrates on {mode} (diagnostics)", diag,
                   want._replace(neighbor_overflow=worst))
-        check(sum(kernel_counts().values()) == 0, "a batched run launched a kernel")
+        check(sum(kernel_counts().values()) == 0, "a batched run launched a pair or probe kernel")
         check(calls["replay"] >= GRAPH_TICKS - 1, f"BatchedCrates on {mode}: graph calls {calls}")
         print(f"  BatchedCrates on {mode}: {VMAP_CRATES} crates x {GRAPH_TICKS} ticks (sweep bound "
               f"{live}), replayed == the eager vmapped loop bit for bit, overflow max "
-              f"{worst.tolist()}; graph calls {calls}")
+              f"{worst.tolist()}; graph calls {calls}; launches {bounds}")
     gen = torch.Generator(device="cuda")
     b = BatchedCrates(config, random_params(gen, base, DEFAULT_RANDOM_RANGES, DATAGEN_CRATES),
                       device="cuda", seed=3)
@@ -3249,6 +3575,7 @@ def band_graph_cell(label, smi, group, world, settled, params, kw, rebalance, co
         split, stats = band(split, params) if edges is None else band(split, params, edges)
         edges = stats.get("band_edges")
     calls, launches = dict(graphs.LAUNCHES), kernel_counts()
+    launches.update(check_boundary(f"(p) {label}", boundary_want(GRAPH_TICKS, "band", D)))
     g_replayed = [g.get_state() for g in band.generators.values()]
     for g, st in zip(band.generators.values(), g0):
         g.set_state(st)
@@ -3262,6 +3589,7 @@ def band_graph_cell(label, smi, group, world, settled, params, kw, rebalance, co
     check(calls == {"replay": GRAPH_TICKS, "capture": 0}, f"(p) {label}: graph calls {calls}")
     want_launches = dict.fromkeys(launches, 0)
     want_launches.update({k: D * GRAPH_TICKS for k in counters})
+    want_launches.update(boundary_want(GRAPH_TICKS, "band", D))
     check(launches == want_launches, f"(p) {label}: launches {launches} != {want_launches}")
     print(f"  (p) {label}: {int(stats['particle_count'])} particles; the first call (eager, "
           f"then the capture) peaks {peak:.3f} GiB above the {alloc0 / 2**30:.3f} GiB "
@@ -3332,10 +3660,10 @@ def main() -> int:
 
     # -- 2. build (a) ------------------------------------------------------------
     with phase("build"):
-        cuda_build.build("pmajor", "grid_pair", "probes")
-        print("build: pmajor.cu (K1/K2, K10), grid_pair.cu (K3-K9) and probes.cu (P1-P4), "
-              "one nvcc each, in parallel")
-        print_ptxas(("pmajor", "grid_pair", "probes"))
+        cuda_build.build("pmajor", "grid_pair", "probes", "boundary")
+        print("build: pmajor.cu (K1/K2, K10), grid_pair.cu (K3-K9), probes.cu (P1-P4) and "
+              "boundary.cu (B1, B2), one nvcc each, in parallel")
+        print_ptxas(("pmajor", "grid_pair", "probes", "boundary"))
 
     # -- 3. world --------------------------------------------------------------
     with phase("world"):
@@ -3361,6 +3689,12 @@ def main() -> int:
               f"chunk {pmajor.PMS_CHUNK}:")
         k10_rows = k10_vs_plain(crate)
 
+    # -- (q) the boundary kernels against their plain versions ---------------------
+    with phase("boundary kernels"):
+        print("boundary kernels (csrc/boundary.cu) vs their plain versions at the settled 1M "
+              "state, on the hard inputs (ops/boundary_cases.py) and vmapped:")
+        b_rows = boundary_rows(crate, smi)
+
     # -- (h) P1 at the settled state: vs its plain version, then its main ---------
     with phase("P1 probe"):
         print("P1 (tools/pmajor_probe.py) vs its plain version at the settled 1M state:")
@@ -3377,6 +3711,8 @@ def main() -> int:
               f"events, {P50_TICKS} ticks)")
         for r in rows:
             r["launches"] = launches[r["name"][-1]]
+        b_rows[0]["launches"] = launches["boundary.ghost"]
+        b_rows[1]["launches"] = launches["boundary.ccd"]
 
     # -- (c) the PMSUB main path (K10) ---------------------------------------------
     with phase("PMSUB main path"), knob("SAND_CRATE_PMSUB"):
@@ -3405,6 +3741,12 @@ def main() -> int:
         k10_rows[2]["launches"] = collisions_1m(crate)["sub_b"]
         instrument_1m(crate, smi)
     del crate
+
+    # -- (q2) queue 3's open check: the particles that leave the box, and how ----------
+    with phase("escape check"):
+        print(f"escape check: the 1M dam break of (n1), {ESCAPE_TICKS} ticks, each particle "
+              "that leaves [-r, 1 + r] with its ghost-pass and CCD inputs:")
+        escape_check(smi)
 
     # -- 6. pmajor trajectory: kernel path vs plain path, both on the card ------
     with phase("pmajor trajectory"):
@@ -3519,7 +3861,7 @@ def main() -> int:
     with phase("band graphs"):
         band_graphs(smi)
 
-    print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows}))
+    print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows + b_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

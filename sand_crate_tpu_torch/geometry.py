@@ -49,10 +49,17 @@ def points_to_segments(
     return nearest, dist
 
 
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """The sign of ``x`` as numpy and jnp.sign give it: NaN stays NaN
+    (torch.sign gives 0 there), so a NaN orientation never equals another
+    and the crossing tests below count it as the reference does."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
 def _orient(p: torch.Tensor, q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Orientation sign of the triple (p, q, r), broadcast over points on
     the last axis: sign((q - p) x (r - q)) (geometry_utils.py:212-222)."""
-    return torch.sign(cross2(q - p, r - q))
+    return sign(cross2(q - p, r - q))
 
 
 def segment_crossings(move: torch.Tensor, walls: torch.Tensor) -> torch.Tensor:
@@ -156,10 +163,10 @@ def segment_crossings_soa(
     approaching = (wy * mvx[None] - wx * mvy[None]) < 0.0
     # orient(a, b, c) vs orient(a, b, d): sign((b-a) x (c-b)) etc.
     abx_, aby_ = mvx[None], mvy[None]
-    o1 = torch.sign(abx_ * (cy - by_) - aby_ * (cx - bx_))
-    o2 = torch.sign(abx_ * (cy + wy - by_) - aby_ * (cx + wx - bx_))
-    o3 = torch.sign(wx * (ay_ - cy - wy) - wy * (ax_ - cx - wx))
-    o4 = torch.sign(wx * (by_ - cy - wy) - wy * (bx_ - cx - wx))
+    o1 = sign(abx_ * (cy - by_) - aby_ * (cx - bx_))
+    o2 = sign(abx_ * (cy + wy - by_) - aby_ * (cx + wx - bx_))
+    o3 = sign(wx * (ay_ - cy - wy) - wy * (ax_ - cx - wx))
+    o4 = sign(wx * (by_ - cy - wy) - wy * (bx_ - cx - wx))
     crossing = approaching & (o1 != o2) & (o3 != o4)
 
     num = (ax_ - cx) * wy - (ay_ - cy) * wx  # cross(start - wall_a, wall_ab)

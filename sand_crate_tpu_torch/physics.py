@@ -47,6 +47,7 @@ from .cellwise import (
 )
 from .config import BODY_FIXED, BODY_FREE, BODY_MOTORED
 from .neighbors import neighbor_list
+from .ops import boundary
 from .ops.chunked import neighbor_forces_chunked_sorted
 from .ops.pallas_forces import neighbor_forces_pallas_sorted
 from .ops.pmajor import neighbor_forces_pmajor_sorted
@@ -295,68 +296,31 @@ class GhostInfo(NamedTuple):
     gvel_sum: torch.Tensor  # (P, 2) sum of ghost contact velocities
 
 
-def _ghost_geom(prepos, alive, segments, params: Params, scene: Scene):
-    """Ghost-contact geometry on pre-fix positions (crate.py:202-243), as
-    (S, P) planes."""
-    r = params.particle_radius
-    px, py = prepos[:, 0], prepos[:, 1]
-    nx_, ny_, seg_dist = geo.points_to_segments_soa(px, py, segments)
-    gmask = (seg_dist <= r * 1.2) & scene.seg_valid[:, None] & alive[None]
-    gm = gmask.to(prepos.dtype)  # (S, P)
-    gvx = 2.0 * (px[None] - nx_)  # mirror ghost offsets (S, P)
-    gvy = 2.0 * (py[None] - ny_)
-    return nx_, ny_, gm, gvx, gvy
-
-
-def _ghost_vel(nx_, ny_, body_lin_vel, body_ang_vel, scene: Scene):
-    """Ghost velocity from the owning body's point-velocity field at contact:
-    v = lin + ang * rot90_cw(contact - center) (rigid_body.py:28-34)."""
-    b_lin = body_lin_vel[scene.seg_body]  # (S, 2)
-    b_ang = body_ang_vel[scene.seg_body][:, None]  # (S, 1)
-    b_cx = scene.body_center[scene.seg_body, 0][:, None]
-    b_cy = scene.body_center[scene.seg_body, 1][:, None]
-    gvelx = b_lin[:, 0][:, None] + b_ang * (ny_ - b_cy)
-    gvely = b_lin[:, 1][:, None] - b_ang * (nx_ - b_cx)
-    return gvelx, gvely
-
-
-def _ghost_reductions(gm, gvx, gvy, gvelx, gvely):
-    g_cnt = gm.sum(dim=0)
-    gsum = torch.stack([(gm * gvx).sum(dim=0), (gm * gvy).sum(dim=0)], -1)
-    gvel_sum = torch.stack([(gm * gvelx).sum(dim=0), (gm * gvely).sum(dim=0)], -1)
-    return g_cnt, gsum, gvel_sum
-
-
 def ghost_sums(prepos, alive, segments, body_lin_vel, body_ang_vel, params, scene):
-    """The (g_cnt, gsum, gvel_sum) reductions of ghost_phase, standalone."""
-    nx_, ny_, gm, gvx, gvy = _ghost_geom(prepos, alive, segments, params, scene)
-    gvelx, gvely = _ghost_vel(nx_, ny_, body_lin_vel, body_ang_vel, scene)
-    return _ghost_reductions(gm, gvx, gvy, gvelx, gvely)
+    """The (g_cnt, gsum, gvel_sum) reductions of ghost_phase, standalone
+    (plain torch: no tick calls it)."""
+    nx_, ny_, gm, gvx, gvy = boundary.ghost_geom(prepos, alive, segments,
+                                                 params.particle_radius, scene.seg_valid)
+    gvelx, gvely = boundary.ghost_vel(nx_, ny_, body_lin_vel, body_ang_vel, scene.seg_body,
+                                      scene.body_center)
+    return boundary.ghost_reductions(gm, gvx, gvy, gvelx, gvely)
 
 
 def _ghost_core(
     prepos, alive, segments, body_lin_vel, body_ang_vel, params, scene
 ) -> GhostInfo:
     """Hard-wall-corrected position plus the three ghost reductions
-    (crate.py:97-99, 202-243).
+    (crate.py:97-99, 202-243): ``ops/boundary.ghost_pass`` (on the card the
+    ghost kernel of ``csrc/boundary.cu``).
 
     A pure per-particle function of the PRE-fix position (the S-axis
     reduction order is fixed), so re-running it on a permutation of prepos
     gives the permuted outputs: the sort carries only prepos and this is
     recomputed after it."""
-    r = params.particle_radius
-    nx_, ny_, gm, gvx, gvy = _ghost_geom(prepos, alive, segments, params, scene)
-    gvelx, gvely = _ghost_vel(nx_, ny_, body_lin_vel, body_ang_vel, scene)
-
-    # -- hard wall projection (crate.py:202-211) ----------------------------
-    gnorm = torch.sqrt(torch.clamp(gvx * gvx + gvy * gvy, min=0.0))  # (S, P)
-    vrd = torch.clamp(r / torch.clamp(gnorm, min=EPS), min=0.5) - 0.5
-    correction = torch.stack(
-        [(gm * gvx * vrd).sum(dim=0), (gm * gvy * vrd).sum(dim=0)], dim=-1
-    )
-    pos = torch.where(alive[:, None], prepos + correction, prepos)
-    g_cnt, gsum, gvel_sum = _ghost_reductions(gm, gvx, gvy, gvelx, gvely)
-    return GhostInfo(pos=pos, g_cnt=g_cnt, gsum=gsum, gvel_sum=gvel_sum)
+    return GhostInfo(*boundary.ghost_pass(
+        prepos, alive, segments, body_lin_vel, body_ang_vel, params.particle_radius,
+        scene.seg_valid, scene.seg_body, scene.body_center,
+    ))
 
 
 def ghost_phase(state: CrateState, params: Params, scene: Scene) -> GhostInfo:
@@ -526,16 +490,12 @@ def apply_wall_bounce(vel, alive, ghost: GhostInfo, params: Params):
 
 
 def apply_continuous_collision(pos, vel, alive, segments, params: Params, scene: Scene):
-    """Continuous collision velocity clamp (crate.py:177-200)."""
-    walls = geo.pad_segments(segments, params.particle_radius)  # (2S,2,2)
-    wall_valid = torch.cat([scene.seg_valid, scene.seg_valid])
-    crossing, t_hit = geo.segment_crossings_soa(
-        pos[:, 0], pos[:, 1], vel[:, 0] * params.dt, vel[:, 1] * params.dt, walls
-    )  # (2S, P)
-    crossing = crossing & wall_valid[:, None] & alive[None]
-    factor = torch.where(crossing, t_hit, torch.inf).amin(dim=0)
-    fix = torch.clamp(factor, max=1.0)  # 1 where no crossing
-    new_vel = vel * fix[:, None]
+    """Continuous collision velocity clamp (crate.py:177-200):
+    ``ops/boundary.continuous_collision`` (on the card the CCD kernel of
+    ``csrc/boundary.cu``); the force_dv entry is the mean |dv| over alive."""
+    new_vel = boundary.continuous_collision(
+        pos, vel, alive, segments, params.particle_radius, params.dt, scene.seg_valid
+    )
     return new_vel, _alive_mean_dv(new_vel - vel, alive)
 
 
