@@ -8,8 +8,9 @@ prints its wall time as "[phase] name: s"):
 1. card: require CUDA; print the card's name and power limit (nvidia-smi).
 2. build: compile the hand-written CUDA kernels (csrc/pmajor.cu with K1/K2
    and K10, csrc/grid_pair.cu with K3-K9, csrc/probes.cu, csrc/boundary.cu
-   with B1 and B2; one nvcc each, started together) and print every
-   kernel's ptxas registers and spills.
+   with B1 (full and positions-only), csrc/kick.cu with B2 (the velocity
+   update); one nvcc each, started together) and print every kernel's
+   ptxas registers and spills.
 3. world: the dam break (configs/dam_break.yaml, read without PyYAML)
    rescaled as bench.py rescales it (tools.perf_probe.dam_break_world), to
    1,000,000 target particles (1,001,700 alive).
@@ -37,7 +38,8 @@ prints its wall time as "[phase] name: s"):
    K1/K2 one-sided, the bound.
 5. pmajor main path: Crate.run for MAIN_TICKS ticks; the kernel launch
    counters must rise by one per pass per tick (the boundary kernels: the
-   ghost pass twice a tick, the CCD once; so in every drive below); no non-finite values, no
+   positions-only and the full ghost pass once a tick each, the velocity
+   update once; so in every drive below); no non-finite values, no
    overflow, the alive count conserved (closed box, no sources), uids a
    permutation, and no blow-up (speed bounds below).  Prints steps/s and
    the step p50 with the card name.
@@ -123,9 +125,10 @@ prints its wall time as "[phase] name: s"):
    uninterrupted runs from one seed (bit for bit where those agree).
 (j) batched crates and the small- and mid-crate backends (no pair kernel
    of their own: the pair and probe counters stay 0 on their paths, and the
-   boundary counters rise by exactly their per-tick counts, the ghost pass
-   once a tick on dense and twice on chunked, the CCD once; a vmapped batch
-   launches each once a tick for all its crates): (a)
+   boundary counters rise by exactly their per-tick counts, the full ghost
+   pass once a tick, the positions-only pass once on chunked, the velocity
+   update once; a vmapped batch launches each once a tick for all its
+   crates): (a)
    stirring_cup and wave_machine (bench.STIRRING_CUP, bench.WAVE_MACHINE)
    as one crate on dense, chunked and pmajor for SMALL_TICKS ticks each,
    dense and pmajor twice in turns, steps/s and step p50 per backend, the
@@ -249,25 +252,35 @@ prints its wall time as "[phase] name: s"):
    GRAPH_TURN_TICKS (steps/s, step p50) and PROFILED_TICKS under the
    profiler (busy share, launches a tick with cudaGraphLaunch counted).
    The boundary counters rise once a band a tick (the band step runs the
-   ghost pass once).
-(q) the boundary chain (csrc/boundary.cu, ops/boundary.py), after (b) at
-   phase 4's settled 1M state: the tick's inputs in slot order and in its
-   sorted order; ghost_pass (B1) and continuous_collision (B2) against
-   their plain torch versions, every output, bit for bit (NaN in the same
-   places, the bits of signed zeros and NaN payloads too); torch.sign on
-   the card printed; both kernels' median times, plain times and bounds
-   (the rows of the kernels line, their launches from phase 5); every case
-   of ops/boundary_cases.py (each checked to hold what it claims) bit for
-   bit, the three-crate case through the crate-axis operators; and
-   torch.func.vmap of both wrappers over BOUNDARY_CRATES crates (the case's
-   and the 1M state's with radii and steps of their own), one launch each,
-   against each crate alone, kernel and plain.  The boundary counters of
-   (f), (j), (o) and (p) rise by their per-tick counts.
+   full ghost pass and the velocity update once).
+(q) the boundary chain (csrc/boundary.cu, ops/boundary.py) and the
+   velocity update (csrc/kick.cu, ops/kick.py), after (b) at phase 4's
+   settled 1M state: the tick's inputs in slot order and in its sorted
+   order; ghost_pass (B1) and ghost_pos (B1 positions-only) against their
+   plain torch versions, every output, bit for bit (NaN in the same places,
+   the bits of signed zeros and NaN payloads too), ghost_pos equal to
+   ghost_pass's position; the tick's velocity update (B2) on the sorted
+   operands and p-major pair sums of that state (transposed views, the
+   folded sums' expanded zero plane), fused and a stage a launch, each bit
+   for bit its plain version, staged equal to fused (force_dv too), and its
+   CCD stage alone; torch.sign on the card printed; the median times, plain
+   times and bounds of B1 full (sorted order), B1 positions-only (slot
+   order), the update fused, a stage a launch (the sum) and the clamp
+   alone (the rows of the kernels line, their launches from phase 5); every
+   case of ops/boundary_cases.py and ops/kick_cases.py (each checked to
+   hold what it claims) bit for bit, the three-crate cases through the
+   crate-axis operators (one launch); and torch.func.vmap of the wrappers
+   over BOUNDARY_CRATES crates (the case's and the 1M state's with radii,
+   steps and viscosities of their own), one launch each, against each
+   crate alone, kernel and plain.  The boundary counters of (f), (j), (o)
+   and (p) rise by their per-tick counts (the instrumented tick: the update
+   once a kick phase and once to integrate).
 (q2) queue 3's open check, after (f): the 1M dam break of (n1) for
    ESCAPE_TICKS ticks, a replay a tick; each tick that leaves an alive
    particle outside [-r, 1 + r] is run again eagerly from the state before
-   it (bit for bit the replay) with the ghost pass's and the CCD's inputs
-   kept, and each escaping particle's row (pre-fix and fixed position,
+   it (bit for bit the replay) with the ghost pass's and the velocity
+   update's inputs kept (the velocity into the clamp from the plain stages
+   before it), and each escaping particle's row (pre-fix and fixed position,
    velocity into and out of the clamp, the segments, r, dt) is printed as
    JSON (tests/test_torch_boundary.py holds such rows on the CPU).
 
@@ -407,6 +420,10 @@ GRAPH_SETTLE = 20
 GRAPH_TICKS = 10
 GRAPH_TURN_TICKS = 20
 GRAPH_BATCH_TURN_TICKS = 6
+# (o): the 1M p-major replay's step p50 when its kicks, clamp and integrate
+# ran as separate passes (torch kicks, a clamp kernel), the figure the fused
+# velocity update is read against (PERF.md section 6)
+SEPARATE_KICKS_P50 = 1.878
 # (o1): label -> (Crate options, environment knob, kernel counters that rise
 # once a tick)
 GRAPH_1M = {
@@ -430,25 +447,43 @@ BAND_GRAPH_CELLS = {
 # occupancy_stats, rebalance_midscale and spatial_balance at the tools'
 # defaults, the chunked fill at K = 64, small_n_probe cut to 2 chunks of 200
 # ticks (the tool's default is 20; its chunked row takes ~74 ms a tick)
-# (q): the boundary kernels (csrc/boundary.cu).  What each moves a particle
-# slot (ghost pass: prepos 8, alive 1, pos 8, g_cnt 4, gsum 8, gvel_sum 8
-# bytes; CCD: pos 8, vel 8, alive 1, the new velocity 8) and the f32
-# operations of their plain chains (ops/boundary.py), counted per particle
-# and segment (ghost pass: the nearest point 18, the mask and mirror
-# offsets 8, the contact velocity 6, the hard-wall ratio and correction
-# 15, the sums 9), per particle and padded wall (CCD: approach 4, the four
-# signs 28, the crossing 6, num 5, den 3, the guarded t 6, the minimum 2)
-# and per particle (ghost pass: the fixed position 4; CCD: the move 4, the
-# clamp 3).  The data sets no early exit: every term is computed.
+# (q): the boundary kernels (csrc/boundary.cu: B1, full and positions-only)
+# and the velocity update (csrc/kick.cu: B2).  What each moves a slot (the
+# ghost pass: prepos 8, alive 1, pos 8, g_cnt 4, gsum 8, gvel_sum 8 bytes;
+# positions-only: prepos 8, alive 1, pos 8; the update: each operand its
+# stages read, once (an expanded zero plane is one element), and the
+# velocity 8, with the integrate the position 8 and pressure 4, and 4 a
+# norm row, written: kick_bytes) and the f32 operations of their plain
+# chains, counted per slot and segment (ghost pass: the nearest point 18,
+# the mask and mirror offsets 8, the contact velocity 6, the hard-wall
+# ratio and correction 15, the sums 9; positions-only without the contact
+# velocity and the sums) and per slot (the fixed position 4; the update:
+# KICK_OPS a stage, the kick and its masked norm, and per padded wall the
+# approach test for an alive slot and, for a wall the move approaches,
+# counted from this run's data, the four signs 28, num 5, den 3, the
+# guarded t 6 and the minimum 2).  The ghost passes' operations are counted
+# as if every slot-segment pair took the exact path (an upper count: their
+# bound is their bytes either way).
 BOUNDARY_SOURCE = "sand_crate_tpu_torch/csrc/boundary.cu"
+KICK_SOURCE = "sand_crate_tpu_torch/csrc/kick.cu"
 BOUNDARY_REPLACES = {"ghost_pass": "sand_crate_tpu/physics.py:331",
+                     "ghost_pos": "sand_crate_tpu/physics.py:331",
+                     "velocity_update": "sand_crate_tpu/physics.py:680",
+                     "velocity_update_staged": "sand_crate_tpu/physics.py:680",
                      "continuous_collision": "sand_crate_tpu/physics.py:738"}
 GHOST_BYTES, GHOST_OPS, GHOST_PARTICLE_OPS = 37, 56, 4
-CCD_BYTES, CCD_OPS, CCD_PARTICLE_OPS = 25, 54, 7
+GHOST_POS_BYTES, GHOST_POS_OPS = 17, 41
+# the update's operations a slot per stage bit (ops/kick.py): tension,
+# gravity, pressure, spring, viscosity, wall bounce, the clamp's move, fix
+# and norm, the integrate and speed^2
+KICK_OPS = {1: 8, 2: 8, 4: 12, 8: 16, 16: 12, 32: 29, 64: 16, 128: 7}
+CCD_WALL_OPS, CCD_CROSS_OPS = 3, 44
 BOUNDARY_CRATES = 3  # (q): the vmapped batches
-# ghost passes a tick per backend: the sorted backends run it again on the
-# sorted order; the band step (spatial.py) runs it once on every backend
-GHOSTS_A_TICK = {"pmajor": 2, "pallas": 2, "chunked": 2, "dense": 1, "band": 1}
+# the ghost passes a tick per backend, (full, positions-only): the sorted
+# backends fix the positions alone before the sort and run the full pass on
+# the sorted order; the band step (spatial.py) runs the full pass once
+GHOSTS_A_TICK = {"pmajor": (1, 1), "pallas": (1, 1), "chunked": (1, 1), "dense": (1, 0),
+                 "band": (1, 0)}
 # (q2): ticks of the 1M dam break searched for particles that leave the box
 # (the first ESCAPE_TICKS of (n1)'s soak), and the rows printed
 ESCAPE_TICKS = 1000
@@ -901,11 +936,12 @@ def instrument_10k(smi: str):
     phase_tables(f"{inst.particle_count} particles", smi, inst)
 
 
-def instrument_1m(crate, smi: str) -> None:
+def instrument_1m(crate, smi: str) -> dict:
     """Phase (f) at 1M: Crate(instrument=True) (fold off) from the settled
     p-major crate's state and generator state, its first tick eager and
     captured, then phase_tables; beside it the fused step with fold off,
-    replayed, under the profiler (its kernel ms a tick)."""
+    replayed, under the profiler (its kernel ms a tick).  Returns
+    phase_tables' boundary counts."""
     import dataclasses
 
     from sand_crate_tpu_torch import Crate
@@ -915,7 +951,7 @@ def instrument_1m(crate, smi: str) -> None:
     inst.state = crate.state
     inst.generator.set_state(crate.generator.get_state())
     inst.physics_tick()
-    phase_tables(f"1M p-major ({inst.particle_count} particles, fold off)", smi, inst)
+    launches = phase_tables(f"1M p-major ({inst.particle_count} particles, fold off)", smi, inst)
     del inst
     fused = Crate(world, device="cuda")
     fused.scene = dataclasses.replace(fused.scene, fold_pairs=False)
@@ -924,19 +960,22 @@ def instrument_1m(crate, smi: str) -> None:
     print("  (f) the fused step at 1M, fold off, replayed: " + profiled(
         lambda n: [fused.graph.step(fused.scene, fused.generator) for _ in range(n)],
         PROFILED_TICKS))
+    return launches
 
 
-def phase_tables(label: str, smi: str, inst, ticks: int = INSTRUMENT_TICKS) -> None:
+def phase_tables(label: str, smi: str, inst, ticks: int = INSTRUMENT_TICKS) -> dict:
     """Phase (f): the instrumented crate's phases replayed (its PhaseGraphs,
     already captured: one graph a phase, each closed by a synchronize) and
     run eagerly (instrument.instrumented_tick) from the same state and
     generator state, ``ticks`` ticks each: the same state and generator
     state bit for bit, a replay a phase and no capture; prints both
-    PhaseTimer tables (median ms a phase) side by side."""
+    PhaseTimer tables (median ms a phase) side by side.  Returns the
+    boundary counters' rise over the replays (reset just before, read just
+    after)."""
     import torch
 
     from sand_crate_tpu_torch import graphs
-    from sand_crate_tpu_torch.instrument import instrumented_tick
+    from sand_crate_tpu_torch.instrument import KICKS, instrumented_tick
 
     s0, g0 = clone_state(inst.state), inst.generator.get_state()
     replayed, eager = Phases(), Phases()
@@ -945,7 +984,10 @@ def phase_tables(label: str, smi: str, inst, ticks: int = INSTRUMENT_TICKS) -> N
     for _ in range(ticks):
         inst.phases.step(inst.scene, inst.generator, replayed)
     calls, g1 = dict(graphs.LAUNCHES), inst.generator.get_state()
-    bounds = check_boundary(f"(f) {label}", boundary_want(ticks, inst.scene.forces_mode))
+    # the instrumented tick launches the update once a kick phase and once to integrate
+    kicks = len([k for k in replayed.times if k in KICKS])
+    bounds = check_boundary(f"(f) {label}", boundary_want(ticks, inst.scene.forces_mode,
+                                                          staged=kicks))
     inst.generator.set_state(g0)
     state = s0
     for _ in range(ticks):
@@ -961,6 +1003,7 @@ def phase_tables(label: str, smi: str, inst, ticks: int = INSTRUMENT_TICKS) -> N
         print(f"    {name:<22} {replayed.median_ms(name):9.4f} / {eager.median_ms(name):9.4f}")
     total = [sum(rec.median_ms(k) for k in rec.times) for rec in (replayed, eager)]
     print(f"    {'sum':<22} {total[0]:9.4f} / {total[1]:9.4f}")
+    return bounds
 
 
 def stream_10k():
@@ -1348,13 +1391,14 @@ def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict
     from sand_crate_tpu_torch import Crate
     from sand_crate_tpu_torch.physics import step
 
-    from sand_crate_tpu_torch.ops import boundary
+    from sand_crate_tpu_torch.ops import boundary, kick
 
     world = dam_break_world(TRAJ_PARTICLES)
     with_kernels = Crate(world, device="cuda", forces_mode=forces_mode)
     with_plain = Crate(world, device="cuda", forces_mode=forces_mode)
     swaps = list(swaps) + [(boundary, "ghost_pass", boundary.ghost_pass_plain),
-                           (boundary, "continuous_collision", boundary.continuous_collision_plain)]
+                           (boundary, "ghost_pos", boundary.ghost_pos_plain),
+                           (kick, "update", kick.update_plain)]
     reset(counts)
     reset_boundary()
     with_kernels.run(TRAJ_TICKS)
@@ -1737,9 +1781,10 @@ def kernel_counts():
 
 
 def reset_boundary() -> None:
-    from sand_crate_tpu_torch.ops import boundary
+    from sand_crate_tpu_torch.ops import boundary, kick
 
     reset(boundary.LAUNCHES)
+    reset(kick.LAUNCHES)
 
 
 def reset_kernel_counts() -> None:
@@ -2948,18 +2993,26 @@ def engine_tools(smi: str) -> dict:
 
 
 def boundary_counts() -> dict:
-    """The boundary kernels' launch counters (ops/boundary.py)."""
-    from sand_crate_tpu_torch.ops import boundary
+    """The boundary kernels' and the velocity update's launch counters
+    (ops/boundary.py, ops/kick.py)."""
+    from sand_crate_tpu_torch.ops import boundary, kick
 
-    return {f"boundary.{k}": v for k, v in boundary.LAUNCHES.items()}
+    return {**{f"boundary.{k}": v for k, v in boundary.LAUNCHES.items()},
+            **{f"kick.{k}": v for k, v in kick.LAUNCHES.items()}}
 
 
-def boundary_want(ticks: int, mode: str, calls: int = 1) -> dict:
+def boundary_want(ticks: int, mode: str, calls: int = 1, staged: int = 0) -> dict:
     """The boundary counters' rise over ``ticks`` ticks of ``calls`` crates
-    or bands on backend ``mode``: the ghost pass GHOSTS_A_TICK[mode] times a
-    tick, the CCD once."""
-    return {"boundary.ghost": GHOSTS_A_TICK[mode] * ticks * calls,
-            "boundary.ccd": ticks * calls}
+    or bands on backend ``mode``: the full and the positions-only ghost pass
+    GHOSTS_A_TICK[mode] times a tick; the velocity update once a tick, all
+    stages in one launch, or (the instrumented tick, ``staged`` its kick
+    phases) one launch a stage: the kicks but the clamp and the integrate
+    counted as single stages, the clamp as ``ccd``."""
+    full, pos_only = GHOSTS_A_TICK[mode]
+    n = ticks * calls
+    return {"boundary.ghost": full * n, "boundary.ghost_pos": pos_only * n,
+            "kick.velocity_update": 0 if staged else n,
+            "kick.velocity_update_stage": staged * n, "kick.ccd": n if staged else 0}
 
 
 def check_boundary(label: str, want: dict) -> dict:
@@ -2979,7 +3032,13 @@ def same_values(label: str, got, want) -> float:
         got, want = (got,), (want,)
     worst, bits = 0.0, 0
     for k, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            check(a is None and b is None, f"{label}[{k}]: one output is missing")
+            continue
         check(a.shape == b.shape and a.dtype == b.dtype, f"{label}[{k}]: shape or dtype differs")
+        if not a.is_floating_point():
+            check(torch.equal(a, b), f"{label}[{k}]: kernel differs from its plain version")
+            continue
         nan = torch.isnan(a)
         check(torch.equal(nan, torch.isnan(b)), f"{label}[{k}]: NaN in other places")
         a0, b0 = torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)
@@ -2992,17 +3051,90 @@ def same_values(label: str, got, want) -> float:
     return worst
 
 
+def kick_bytes(stages: int, operands) -> int:
+    """The bytes a launch of the update over ``stages`` must move: each
+    operand it reads, once (an expanded plane: its one element), and its
+    outputs written once."""
+    from sand_crate_tpu_torch.ops import kick
+
+    named = dict(zip(kick.PER_CRATE + ("seg_valid",), operands))
+    P = named["vel"].shape[-2]
+    n = 0
+    for name in kick._needs(stages):
+        t = named[name]
+        n += t.element_size() * (1 if 0 in t.stride() and t.dim() > 1 else t.numel())
+    return n + P * (8 + 4 * kick.norm_rows(stages) + (12 if stages & kick.INTEGRATE else 0))
+
+
+def kick_ops(stages: int, operands) -> int:
+    """The f32 operations of the update over ``stages`` on these operands:
+    KICK_OPS a slot per stage, and the clamp's walls as this run's moves
+    need them (the velocity into the clamp from the plain stages before it)."""
+    from sand_crate_tpu_torch import geometry as geo
+    from sand_crate_tpu_torch.ops import kick
+
+    named = dict(zip(kick.PER_CRATE + ("seg_valid",), operands))
+    alive = named["alive"]
+    n = sum(KICK_OPS[bit] for bit in KICK_OPS if stages & bit) * alive.shape[-1]
+    if stages & kick.CCD:
+        vin = kick.update_plain(stages & kick.KICK_MASK & ~kick.CCD, *operands).vel
+        walls = geo.pad_segments(named["segments"], named["particle_radius"])
+        wx = walls[:, 1, 0] - walls[:, 0, 0]
+        wy = walls[:, 1, 1] - walls[:, 0, 1]
+        mv = vin * named["dt"]
+        valid = named["seg_valid"].repeat(2)
+        ahead = (wy[:, None] * mv[:, 0] - wx[:, None] * mv[:, 1]) < 0.0
+        n += CCD_WALL_OPS * walls.shape[0] * int(alive.sum())
+        n += CCD_CROSS_OPS * int((ahead & valid[:, None] & alive[None]).sum())
+    return n
+
+
+def staged_update(stages: int, operands, update):
+    """The update a stage a launch, as the instrumented tick runs it: each
+    kick in ``stages`` with its norm row, the rows stacked, then the
+    integrate."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import kick
+
+    vel, rows = operands[0], []
+    for stage in kick.KICKS:
+        if stages & stage:
+            out = update(stage | kick.NORMS, vel, *operands[1:])
+            vel, rows = out.vel, rows + [out.norms]
+    out = update(kick.INTEGRATE, vel, *operands[1:])
+    return out._replace(norms=torch.cat(rows))
+
+
+def update_vs_plain(label: str, stages: int, operands) -> float:
+    """The update's kernel, fused and a stage at a time, against its plain
+    version, and staged against fused, bit for bit.  Returns the max abs
+    error."""
+    from sand_crate_tpu_torch.ops import kick
+
+    fused = kick.update(stages, *operands)
+    err = same_values(f"velocity_update fused, {label}", tuple(fused),
+                      tuple(kick.update_plain(stages, *operands)))
+    staged = staged_update(stages, operands, kick.update)
+    err = max(err, same_values(f"velocity_update staged, {label}", tuple(staged),
+                               tuple(staged_update(stages, operands, kick.update_plain))))
+    same_values(f"velocity_update staged vs fused, {label}", tuple(staged), tuple(fused))
+    same_values(f"force_dv staged vs fused, {label}", kick.force_dv(staged.norms, staged.cnt),
+                kick.force_dv(fused.norms, fused.cnt))
+    return err
+
+
 def boundary_rows(crate, smi: str) -> list:
-    """Phase (q): both boundary kernels against their plain versions at the
-    crate's (settled 1M) state, in slot order and in the tick's sorted
-    order, on every case of ops/boundary_cases.py and in vmapped batches of
-    BOUNDARY_CRATES crates against each crate alone; their times and bounds.
-    Returns the two kernels' rows."""
+    """Phase (q): the ghost pass (full and positions-only) and the velocity
+    update (fused, a stage a launch, the clamp alone) against their plain
+    versions at the crate's (settled 1M) state, in slot and in the tick's
+    sorted order, on every case of ops/boundary_cases.py and
+    ops/kick_cases.py, and in vmapped batches of BOUNDARY_CRATES crates
+    against each crate alone; their times and bounds.  Returns the rows."""
     import torch
 
     from sand_crate_tpu_torch import physics
-    from sand_crate_tpu_torch.cellwise import cell_ids_grid
-    from sand_crate_tpu_torch.ops import boundary, boundary_cases
+    from sand_crate_tpu_torch.ops import boundary, boundary_cases, kick, kick_cases
 
     pr, sc = crate.params, crate.scene
     s = physics.advance_bodies(physics.cull_particles(crate.state, pr), pr, sc)
@@ -3012,43 +3144,94 @@ def boundary_rows(crate, smi: str) -> list:
         return (prepos, alive, s.segments, s.body_lin_vel, s.body_ang_vel, pr.particle_radius,
                 *shared)
 
+    def pos_args(prepos, alive):
+        return (prepos, alive, s.segments, pr.particle_radius, sc.seg_valid)
+
     slot = ghost_args(s.pos, s.alive)
-    cid, order = torch.sort(cell_ids_grid(boundary.ghost_pass_plain(*slot)[0], s.alive, sc),
-                            stable=True)
+    cid, order = torch.sort(physics.cell_ids_grid(boundary.ghost_pos_plain(*pos_args(
+        s.pos, s.alive)), s.alive, sc), stable=True)
     sorted_ = ghost_args(s.pos[order], cid < sc.num_cells)
     P, S = s.pos.shape[0], sc.num_segments
     probe = torch.tensor([math.nan, -0.0, 0.0, 1.0, -math.inf], device="cuda")
     print(f"  torch.sign on the card of (nan, -0, 0, 1, -inf): {torch.sign(probe).tolist()}")
-    errs, timed = {"ghost_pass": 0.0, "continuous_collision": 0.0}, {}
-    for label, args, vel in (("slot order", slot, s.vel), ("sorted order", sorted_, s.vel[order])):
+    errs = dict.fromkeys(BOUNDARY_REPLACES, 0.0)
+    for label, args in (("slot order", slot), ("sorted order", sorted_)):
         got = boundary.ghost_pass(*args)
         errs["ghost_pass"] = max(errs["ghost_pass"], same_values(
             f"ghost_pass, 1M {label}", got, boundary.ghost_pass_plain(*args)))
-        ccd = (got[0], vel, args[1], s.segments, pr.particle_radius, pr.dt, sc.seg_valid)
-        new_vel = boundary.continuous_collision(*ccd)
-        errs["continuous_collision"] = max(errs["continuous_collision"], same_values(
-            f"continuous_collision, 1M {label}", new_vel,
-            boundary.continuous_collision_plain(*ccd)))
-        clamped = int(((new_vel != vel).any(dim=1) & args[1]).sum())
-        print(f"  1M {label}: ghost_pass and continuous_collision == plain "
-              f"(max abs err 0, bits equal); {int(args[1].sum())} alive of {P}, ghost contacts "
-              f"{int(got[1].sum())}, particles clamped {clamped}")
-        timed = {"ghost_pass": (lambda a=args: boundary.ghost_pass(*a),
-                                lambda a=args: boundary.ghost_pass_plain(*a)),
-                 "continuous_collision": (lambda a=ccd: boundary.continuous_collision(*a),
-                                          lambda a=ccd: boundary.continuous_collision_plain(*a))}
-    # sorted order is the order of the tick's second ghost pass and of its CCD
-    work = {"ghost_pass": (GHOST_BYTES * P, P * (S * GHOST_OPS + GHOST_PARTICLE_OPS)),
-            "continuous_collision": (CCD_BYTES * P, P * (2 * S * CCD_OPS + CCD_PARTICLE_OPS))}
+        pos_only = boundary.ghost_pos(*pos_args(*args[:2]))
+        errs["ghost_pos"] = max(errs["ghost_pos"], same_values(
+            f"ghost_pos, 1M {label}", pos_only, boundary.ghost_pos_plain(*pos_args(*args[:2]))))
+        same_values(f"ghost_pos vs ghost_pass's pos, 1M {label}", pos_only, got[0])
+        print(f"  1M {label}: ghost_pass and ghost_pos == plain (max abs err 0, bits equal), "
+              f"ghost_pos == ghost_pass's pos; {int(args[1].sum())} alive of {P}, ghost "
+              f"contacts {int(got[1].sum())}")
+
+    # the tick's velocity update at this state: the sorted operands and pair
+    # sums of the crate's backend (p-major: its sums as transposed views)
+    ghost = physics.GhostInfo(boundary.ghost_pos(*pos_args(s.pos, s.alive)), None, None, None)
+    ops = physics.neighbor_stage(
+        s.vel, s.alive, s.uid, ghost, s.tick, pr, sc, prepos=s.pos, segments=s.segments,
+        body_lin_vel=s.body_lin_vel, body_ang_vel=s.body_ang_vel,
+        generator=torch.Generator(device="cuda"))
+    operands = kick.operands(ops.vel, ops.pos, ops.alive, ops.sums, ops.ghost, s.segments, pr,
+                             sc.seg_valid)
+    st = kick.fused(sc.enable_spring)
+    print(f"  the update's operands at 1M (sorted order): strides dv_tension "
+          f"{tuple(ops.sums.dv_tension.stride())}, pressure_real "
+          f"{tuple(ops.sums.pressure_real.stride())}, visc_vsum "
+          f"{tuple(ops.sums.visc_vsum.stride())}")
+    for name in ("velocity_update", "velocity_update_staged"):
+        errs[name] = update_vs_plain("1M sorted order", st, operands)
+    vin = kick.update_plain(st & kick.KICK_MASK & ~kick.CCD, *operands).vel
+    ccd = (ops.pos, vin, ops.alive, s.segments, pr.particle_radius, pr.dt, sc.seg_valid)
+    new_vel = kick.continuous_collision(*ccd)
+    errs["continuous_collision"] = same_values("continuous_collision, 1M sorted order", new_vel,
+                                               kick.continuous_collision_plain(*ccd))
+    clamped = int(((new_vel != vin).any(dim=1) & ops.alive).sum())
+    print(f"  1M sorted order: velocity_update fused and staged == plain, staged == fused "
+          f"(force_dv too), the clamp alone == plain; particles clamped {clamped}")
+
+    ccd_ops = kick._ccd_operands(*ccd)
+    stage_list = [k | kick.NORMS for k in kick.KICKS if st & k] + [kick.INTEGRATE]
+    stage_ops = [(k, (vin if k & kick.CCD else ops.vel,) + operands[1:]) for k in stage_list]
+    timed = {
+        "ghost_pass": (lambda: boundary.ghost_pass(*sorted_),
+                       lambda: boundary.ghost_pass_plain(*sorted_),
+                       GHOST_BYTES * P, P * (S * GHOST_OPS + GHOST_PARTICLE_OPS), BOUNDARY_SOURCE),
+        "ghost_pos": (lambda: boundary.ghost_pos(*pos_args(*slot[:2])),
+                      lambda: boundary.ghost_pos_plain(*pos_args(*slot[:2])),
+                      GHOST_POS_BYTES * P, P * (S * GHOST_POS_OPS + GHOST_PARTICLE_OPS),
+                      BOUNDARY_SOURCE),
+        "velocity_update": (lambda: kick.update(st, *operands),
+                            lambda: kick.update_plain(st, *operands),
+                            kick_bytes(st, operands), kick_ops(st, operands), KICK_SOURCE),
+        "continuous_collision": (lambda: kick.continuous_collision(*ccd),
+                                 lambda: kick.continuous_collision_plain(*ccd),
+                                 kick_bytes(kick.CCD, ccd_ops), kick_ops(kick.CCD, ccd_ops),
+                                 KICK_SOURCE),
+    }
     rows = []
-    for name, (run, plain) in timed.items():
-        n_bytes, n_ops = work[name]
-        rows.append(kernel_row(name, BOUNDARY_SOURCE, BOUNDARY_REPLACES[name], errs[name],
+    for name, (run, plain, n_bytes, n_ops, source) in timed.items():
+        rows.append(kernel_row(name, source, BOUNDARY_REPLACES[name], errs[name],
                                cuda_ms(run, 20), cuda_ms(plain, 5), n_bytes, n_ops))
-        r = rows[-1]
-        print(f"  {name} at 1M ({smi}, sorted order): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
-              f"(median, CUDA events)")
+    # a stage a launch: the sum of each stage's time, plain time and bound
+    per = [(cuda_ms(lambda k=k, o=o: kick.update(k, *o), 20),
+            cuda_ms(lambda k=k, o=o: kick.update_plain(k, *o), 5),
+            *bound(kick_bytes(k, o), kick_ops(k, o))) for k, o in stage_ops]
+    staged = kernel_row("velocity_update_staged", KICK_SOURCE,
+                        BOUNDARY_REPLACES["velocity_update_staged"],
+                        errs["velocity_update_staged"], sum(p[0] for p in per),
+                        sum(p[1] for p in per), 0, 0)
+    staged["bound_ms"] = sum(p[2] for p in per)
+    staged["bound_by"] = "bytes" if all(p[3] == "bytes" for p in per) else "operations"
+    rows.insert(3, staged)
+    print(f"  the update a stage a launch at 1M: kernel ms {[round(p[0], 4) for p in per]}, "
+          f"bounds {[round(p[2], 4) for p in per]}")
+    for r in rows:
+        print(f"  {r['name']} at 1M ({smi}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"share {r['bound_ms'] / r['ms']:.2f} (median, CUDA events)")
 
     print("  the hard inputs of ops/boundary_cases.py:")
     for case, (_, _, claim) in boundary_cases.CASES.items():
@@ -3056,26 +3239,54 @@ def boundary_rows(crate, smi: str) -> list:
         check(facts["holds"], f"boundary case {case}: does not hold what it claims ({facts})")
         c = boundary_cases.inputs(case, "cuda")
         g, v = boundary_cases.ghost_args(c), boundary_cases.ccd_args(c)
+        p = (c["prepos"], c["alive"], c["segments"], c["r"], c["seg_valid"])
         if case == "batch":
             per = [boundary_cases.crate(c, b) for b in range(c["r"].shape[0])]
             ghost_out = torch.ops.sand_crate.ghost_pass(*g)
-            ccd_out = torch.ops.sand_crate.ccd(*v)
+            pos_out = torch.ops.sand_crate.ghost_pos(*p)
             for b, one in enumerate(per):
                 same_values(f"ghost_pass, case batch crate {b}", tuple(o[b] for o in ghost_out),
                             boundary.ghost_pass_plain(*boundary_cases.ghost_args(one)))
-                same_values(f"continuous_collision, case batch crate {b}", ccd_out[b],
-                            boundary.continuous_collision_plain(*boundary_cases.ccd_args(one)))
+                same_values(f"ghost_pos, case batch crate {b}", pos_out[b],
+                            boundary.ghost_pos_plain(one["prepos"], one["alive"],
+                                                     one["segments"], one["r"],
+                                                     one["seg_valid"]))
             vmapped_vs_alone("case batch", g, v)
         else:
             same_values(f"ghost_pass, case {case}", boundary.ghost_pass(*g),
                         boundary.ghost_pass_plain(*g))
-            same_values(f"continuous_collision, case {case}", boundary.continuous_collision(*v),
-                        boundary.continuous_collision_plain(*v))
+            same_values(f"ghost_pos, case {case}", boundary.ghost_pos(*p),
+                        boundary.ghost_pos_plain(*p))
+            same_values(f"continuous_collision, case {case}", kick.continuous_collision(*v),
+                        kick.continuous_collision_plain(*v))
         shown = {k: x for k, x in facts.items() if x and k != "holds"}
         print(f"    {case} ({claim}): == plain; {shown}")
 
-    # a vmapped batch at 1M: the sorted-order crate with radii and steps of
-    # its own in each of BOUNDARY_CRATES crates
+    print("  the hard inputs of ops/kick_cases.py (fused, a stage a launch):")
+    for case, (_, _, claim) in kick_cases.CASES.items():
+        facts = kick_cases.facts(case, "cuda")
+        check(facts["holds"], f"kick case {case}: does not hold what it claims ({facts})")
+        c = kick_cases.inputs(case, "cuda")
+        if case == "batch":
+            cst = kick_cases.stages(c)
+            before = boundary_counts()["kick.velocity_update"]
+            out = torch.ops.sand_crate.velocity_update(*kick_cases.args(c), cst)
+            check(boundary_counts()["kick.velocity_update"] == before + 1,
+                  "the batch case's operator: one launch")
+            for b in range(c["dt"].shape[0]):
+                one = kick_cases.crate(c, b)
+                same_values(f"velocity_update, case batch crate {b}",
+                            tuple(kick._kick_out(cst, tuple(o[b] for o in out))),
+                            tuple(kick.update_plain(cst, *kick_cases.args(one))))
+                update_vs_plain(f"case batch crate {b}", cst, kick_cases.args(one))
+            vmapped_updates("case batch", cst, kick_cases.args(c))
+        else:
+            update_vs_plain(f"case {case}", kick_cases.stages(c), kick_cases.args(c))
+        shown = {k: x for k, x in facts.items() if x and k != "holds"}
+        print(f"    {case} ({claim}): == plain; {shown}")
+
+    # vmapped batches at 1M: the sorted-order crate with radii, steps and
+    # viscosities of its own in each of BOUNDARY_CRATES crates
     scale = torch.linspace(0.9, 1.1, BOUNDARY_CRATES, device="cuda")
     stack = lambda x: torch.stack([x] * BOUNDARY_CRATES)  # noqa: E731
     g = tuple(stack(x) for x in sorted_[:5]) + (pr.particle_radius * scale,) + shared
@@ -3083,36 +3294,75 @@ def boundary_rows(crate, smi: str) -> list:
     v = tuple(stack(x) for x in (fixed, s.vel[order], sorted_[1], s.segments)) + (
         pr.particle_radius * scale, pr.dt * scale.flip(0), sc.seg_valid)
     vmapped_vs_alone("1M sorted order", g, v)
+    per_crate = [None if x is None else stack(x) for x in operands[:-1]]
+    named = kick.PER_CRATE
+    for name, k in (("dt", scale.flip(0)), ("particle_radius", scale), ("viscosity", scale)):
+        i = named.index(name)
+        per_crate[i] = operands[i] * k
+    vmapped_updates("1M sorted order", st, tuple(per_crate) + (sc.seg_valid,))
     return rows
 
 
-def vmapped_vs_alone(label: str, g, v) -> None:
-    """(q): both wrappers under torch.func.vmap over a crate axis (one
-    launch each for all crates) against each crate alone, kernel and plain,
-    bit for bit; ``g`` and ``v`` are the batched arguments (crate axis
-    first, the scene's tensors unbatched)."""
+def vmapped_updates(label: str, stages: int, operands) -> None:
+    """(q): the velocity update under torch.func.vmap over a crate axis (one
+    launch for all crates) against each crate alone, kernel and plain, bit
+    for bit; ``operands`` batched (crate axis first; seg_valid shared)."""
     import torch
 
-    from sand_crate_tpu_torch.ops import boundary
+    from sand_crate_tpu_torch.ops import kick
+
+    n = operands[0].shape[0]
+    before = boundary_counts()["kick.velocity_update"]
+    dims = tuple(None if x is None else 0 for x in operands[:-1]) + (None,)
+    out = torch.func.vmap(lambda *o: tuple(kick.update(stages, *o)), in_dims=dims,
+                          randomness="different")(*operands)
+    rise = boundary_counts()["kick.velocity_update"] - before
+    check(rise == 1, f"{label}: the vmapped update launched {rise} times (one for all crates)")
+    for b in range(n):
+        one = tuple(None if x is None else x[b] for x in operands[:-1]) + operands[-1:]
+        for what, ref in (("alone", kick.update(stages, *one)),
+                          ("plain", kick.update_plain(stages, *one))):
+            same_values(f"vmapped velocity_update, {label}, crate {b} vs {what}",
+                        tuple(o[b] for o in out), tuple(ref))
+    print(f"    vmapped update, {label}: {n} crates, one launch, == each crate alone (kernel "
+          f"and plain)")
+
+
+def vmapped_vs_alone(label: str, g, v) -> None:
+    """(q): the ghost pass (full and positions-only) and the clamp under
+    torch.func.vmap over a crate axis (one launch each for all crates)
+    against each crate alone, kernel and plain, bit for bit; ``g`` and
+    ``v`` are the batched arguments (crate axis first, the scene's tensors
+    unbatched)."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import boundary, kick
 
     n = g[0].shape[0]
+    p = (g[0], g[1], g[2], g[5], g[6])
     before = boundary_counts()
     ghost = torch.func.vmap(boundary.ghost_pass, in_dims=(0,) * 6 + (None,) * 3,
                             randomness="different")(*g)
-    ccd = torch.func.vmap(boundary.continuous_collision, in_dims=(0,) * 6 + (None,),
+    pos_only = torch.func.vmap(boundary.ghost_pos, in_dims=(0,) * 4 + (None,))(*p)
+    ccd = torch.func.vmap(kick.continuous_collision, in_dims=(0,) * 6 + (None,),
                           randomness="different")(*v)
     rise = {k: boundary_counts()[k] - before[k] for k in before}
-    check(rise == {"boundary.ghost": 1, "boundary.ccd": 1},
+    check(rise == {"boundary.ghost": 1, "boundary.ghost_pos": 1, "kick.velocity_update": 0,
+                   "kick.velocity_update_stage": 0, "kick.ccd": 1},
           f"{label}: the vmapped wrappers launched {rise} (one each for all crates)")
     for b in range(n):
         one_g = tuple(x[b] for x in g[:6]) + g[6:]
+        one_p = tuple(x[b] for x in p[:4]) + p[4:]
         one_v = tuple(x[b] for x in v[:6]) + v[6:]
         for what, ref in (("alone", boundary.ghost_pass(*one_g)),
                           ("plain", boundary.ghost_pass_plain(*one_g))):
             same_values(f"vmapped ghost_pass, {label}, crate {b} vs {what}",
                         tuple(o[b] for o in ghost), ref)
-        for what, ref in (("alone", boundary.continuous_collision(*one_v)),
-                          ("plain", boundary.continuous_collision_plain(*one_v))):
+        for what, ref in (("alone", boundary.ghost_pos(*one_p)),
+                          ("plain", boundary.ghost_pos_plain(*one_p))):
+            same_values(f"vmapped ghost_pos, {label}, crate {b} vs {what}", pos_only[b], ref)
+        for what, ref in (("alone", kick.continuous_collision(*one_v)),
+                          ("plain", kick.continuous_collision_plain(*one_v))):
             same_values(f"vmapped continuous_collision, {label}, crate {b} vs {what}", ccd[b],
                         ref)
     print(f"    vmapped, {label}: {n} crates, one launch of each kernel, == each crate alone "
@@ -3124,14 +3374,15 @@ def escape_check(smi: str) -> None:
     auto: p-major) for ESCAPE_TICKS ticks, one replay at a time.  After each
     tick the alive particles outside [-r, 1 + r] (the next tick culls them)
     are found; that tick is run again eagerly from the state before it (the
-    same bits) with the ghost pass's and the CCD's inputs kept, and each
+    same bits) with the ghost pass's and the velocity update's inputs kept
+    (the velocity into the clamp from the plain stages before it), and each
     escaping particle's row is printed as JSON: its pre-fix and fixed
     position, its velocity into and out of the clamp, the segments, r and
     dt; tests/test_torch_boundary.py holds them on the CPU."""
     import torch
 
     from sand_crate_tpu_torch import Crate, physics
-    from sand_crate_tpu_torch.ops import boundary
+    from sand_crate_tpu_torch.ops import boundary, kick
 
     crate = Crate(dam_break_world(N_TARGET), device="cuda", forces_mode="auto")
     r = crate.params.particle_radius
@@ -3154,17 +3405,23 @@ def escape_check(smi: str) -> None:
         after_gen = crate.generator.get_state()
         gen = torch.Generator(device="cuda")
         gen.set_state(g0)
-        real = (boundary.ghost_pass, boundary.continuous_collision)
+        real = (boundary.ghost_pass, kick.update)
         boundary.ghost_pass = keep("ghost", real[0])
-        boundary.continuous_collision = keep("ccd", real[1])
+        kick.update = keep("update", real[1])
         try:
             eager, _ = physics.step(before, crate.params, crate.scene, gen)
         finally:
-            boundary.ghost_pass, boundary.continuous_collision = real
+            boundary.ghost_pass, kick.update = real
         same_bits(f"(q2) tick {tick}: eager re-run vs the replay", eager, st)
         check(torch.equal(gen.get_state(), after_gen), f"(q2) tick {tick}: generator")
         (prepos, _, segments, *_), (fixed, g_cnt, _, _) = kept["ghost"]
-        (pos, vel, alive, _, rad, dt, _), new_vel = kept["ccd"]
+        (stages, *operands), done = kept["update"]
+        named = dict(zip(kick.PER_CRATE, operands))
+        pos, alive, rad, dt = (named[k] for k in ("pos", "alive", "particle_radius", "dt"))
+        # the velocity into the clamp: the kicks before it (the plain
+        # version gives the kernel's bits, phase (q))
+        vel = kick.update_plain(stages & kick.KICK_MASK & ~kick.CCD, *operands).vel
+        new_vel = done.vel
         end = pos + dt * new_vel
         escaped = (((end < -r) | (end > 1.0 + r)).any(dim=1) & alive).nonzero().flatten()
         for i in escaped.tolist():
@@ -3293,6 +3550,7 @@ def turns(label: str, smi: str, graph_tick, eager_tick, ticks: int) -> dict:
         (r1, q1), (r2, q2) = out[kind]
         print(f"    {kind}: {r1:.3f} / {r2:.3f} steps/s, step p50 {q1:.4f} / {q2:.4f} ms; "
               f"{prof[kind]}")
+    out["profile"] = prof
     return out
 
 
@@ -3326,8 +3584,13 @@ def graphs_1m(smi: str) -> None:
             crate.run(GRAPH_SETTLE)
             replay_vs_eager(f"1M {label}", crate, GRAPH_TICKS, want_launches={
                 k: GRAPH_TICKS for k in launches})
-            crate_turns(f"1M {label}", smi, crate)
+            out = crate_turns(f"1M {label}", smi, crate)
             if knob_name is None and not kw:
+                (_, q1), (_, q2) = out["graph"]
+                print(f"  (o) the 1M p-major main path replayed ({smi}): step p50 {q1:.4f} / "
+                      f"{q2:.4f} ms (the same tick with its kicks, clamp and integrate as "
+                      f"separate passes: {SEPARATE_KICKS_P50} ms on an NVIDIA H100 80GB HBM3 at "
+                      f"700 W); {out['profile']['graph']}; eager: {out['profile']['eager']}")
                 frame_graph_vs_tick_graphs(smi, crate)
             del crate
 
@@ -3660,10 +3923,11 @@ def main() -> int:
 
     # -- 2. build (a) ------------------------------------------------------------
     with phase("build"):
-        cuda_build.build("pmajor", "grid_pair", "probes", "boundary")
-        print("build: pmajor.cu (K1/K2, K10), grid_pair.cu (K3-K9), probes.cu (P1-P4) and "
-              "boundary.cu (B1, B2), one nvcc each, in parallel")
-        print_ptxas(("pmajor", "grid_pair", "probes", "boundary"))
+        cuda_build.build("pmajor", "grid_pair", "probes", "boundary", "kick")
+        print("build: pmajor.cu (K1/K2, K10), grid_pair.cu (K3-K9), probes.cu (P1-P4), "
+              "boundary.cu (B1, full and positions-only) and kick.cu (B2, the velocity "
+              "update), one nvcc each, in parallel")
+        print_ptxas(("pmajor", "grid_pair", "probes", "boundary", "kick"))
 
     # -- 3. world --------------------------------------------------------------
     with phase("world"):
@@ -3691,7 +3955,8 @@ def main() -> int:
 
     # -- (q) the boundary kernels against their plain versions ---------------------
     with phase("boundary kernels"):
-        print("boundary kernels (csrc/boundary.cu) vs their plain versions at the settled 1M "
+        print("boundary kernels (csrc/boundary.cu, csrc/kick.cu) vs their plain versions at the "
+              "settled 1M "
               "state, on the hard inputs (ops/boundary_cases.py) and vmapped:")
         b_rows = boundary_rows(crate, smi)
 
@@ -3711,8 +3976,13 @@ def main() -> int:
               f"events, {P50_TICKS} ticks)")
         for r in rows:
             r["launches"] = launches[r["name"][-1]]
-        b_rows[0]["launches"] = launches["boundary.ghost"]
-        b_rows[1]["launches"] = launches["boundary.ccd"]
+        # the update a stage a launch and the clamp alone: the instrumented
+        # tick's, phase (f)
+        main_keys = {"ghost_pass": "boundary.ghost", "ghost_pos": "boundary.ghost_pos",
+                     "velocity_update": "kick.velocity_update"}
+        for r in b_rows:
+            if r["name"] in main_keys:
+                r["launches"] = launches[main_keys[r["name"]]]
 
     # -- (c) the PMSUB main path (K10) ---------------------------------------------
     with phase("PMSUB main path"), knob("SAND_CRATE_PMSUB"):
@@ -3739,7 +4009,16 @@ def main() -> int:
     with phase("instrumented ticks at 1M"):
         print(f"instrumented ticks at 1M on {smi} (fold off, spring on):")
         k10_rows[2]["launches"] = collisions_1m(crate)["sub_b"]
-        instrument_1m(crate, smi)
+        staged = instrument_1m(crate, smi)
+        # the instrumented tick's update: one launch a kick phase, the clamp's
+        # counted as ccd, and one to integrate
+        for r in b_rows:
+            if r["name"] == "velocity_update_staged":
+                r["launches"] = staged["kick.velocity_update_stage"] + staged["kick.ccd"]
+            elif r["name"] == "continuous_collision":
+                r["launches"] = staged["kick.ccd"]
+        check(all(r["launches"] > 0 for r in b_rows),
+              f"boundary rows launched no time on their paths: {b_rows}")
     del crate
 
     # -- (q2) queue 3's open check: the particles that leave the box, and how ----------

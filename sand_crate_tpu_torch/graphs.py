@@ -51,7 +51,7 @@ eagerly: the ticks, each copied back into the static buffers; nothing is
 captured.  A capture that fails raises.
 
 The kernel wrappers count a launch where they launch (``pmajor.LAUNCHES``,
-``pair_kernel.LAUNCHES``, ``boundary.LAUNCHES``).  A capture launches
+``pair_kernel.LAUNCHES``, ``boundary.LAUNCHES``, ``kick.LAUNCHES``).  A capture launches
 nothing, so each counter's rise over the capture is taken back and added
 once per replay instead: the counters go on counting kernels that ran.
 """
@@ -64,7 +64,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .ops import boundary, pair_kernel, pmajor
+from .ops import boundary, kick, pair_kernel, pmajor
 from .state import CrateState, Diagnostics, Params
 
 # Captured graphs alive at once in the process.
@@ -73,7 +73,7 @@ MAX_GRAPHS = 4
 MAX_ROLLOUT_BUFFERS = 4
 
 # The kernel launch counters that a replay advances by their capture's rise.
-COUNTERS = (pmajor.LAUNCHES, pair_kernel.LAUNCHES, boundary.LAUNCHES)
+COUNTERS = (pmajor.LAUNCHES, pair_kernel.LAUNCHES, boundary.LAUNCHES, kick.LAUNCHES)
 # Graph launches (one cudaGraphLaunch each) and captures since the last reset.
 LAUNCHES = {"replay": 0, "capture": 0}
 

@@ -4,7 +4,8 @@ The counterpart of ``sand_crate_tpu/instrument.py``: the reference wraps
 every tick phase in its wall-clock Timer and shows the per-phase ms
 breakdown in the live overlay (crate.py:97-124 via utils/timer.py:37-48).
 This tick runs the same phase helpers that :func:`physics.step` composes,
-in the same order (so the math cannot drift from the fused step), each
+in the same order (so the math cannot drift from the fused step; each kick
+phase and Integrate is one stage of the step's velocity update), each
 under a :class:`~sand_crate_tpu_torch.diagnostics.PhaseTimer` phase named as
 in the JAX package.  On a CUDA device each phase ends in
 ``torch.cuda.synchronize``, so the timer attributes the device time of the
@@ -27,7 +28,7 @@ from typing import Callable
 import torch
 
 from . import graphs, physics
-from .ops import pmajor
+from .ops import kick, pmajor
 from .state import NUM_FORCES, CrateState, Diagnostics, Params, Scene
 
 # The phases that draw from the generator: the emitters' spawn and the
@@ -58,44 +59,36 @@ def _collisions(c: dict) -> None:
         body_lin_vel=state.body_lin_vel, body_ang_vel=state.body_ang_vel,
         generator=c["generator"],
     )
-    c["ops"], c["vel"], c["dv"] = ops, ops.vel, []
+    c["ops"], c["vel"], c["norms"] = ops, ops.vel, []
 
 
 KICKS = ("tension", "gravity", "pressure", "spring", "viscosity", "wall_bounce",
          "continuous_collision")
+# Each kick phase is one stage of the tick's velocity update (ops/kick.py).
+STAGES = dict(zip(KICKS, kick.KICKS))
 
 
-def _kick_fns(c: dict) -> dict:
-    """The kicks over the carry, each vel -> (vel, dv), named as KICKS."""
-    ops, params = c["ops"], c["params"]
-    alive, sums, ghost = ops.alive, ops.sums, ops.ghost
-    return {
-        "tension": lambda v: physics.apply_tension(v, alive, sums, params),
-        "gravity": lambda v: physics.apply_gravity(v, alive, params),
-        "pressure": lambda v: physics.apply_pressure_force(v, alive, sums, ghost, params),
-        "spring": lambda v: physics.apply_spring(v, alive, sums, ghost, params),
-        "viscosity": lambda v: physics.apply_viscosity(v, alive, sums, params),
-        "wall_bounce": lambda v: physics.apply_wall_bounce(v, alive, ghost, params),
-        "continuous_collision": lambda v: physics.apply_continuous_collision(
-            ops.pos, v, alive, c["state"].segments, params, c["scene"]),
-    }
+def _update(c: dict, stages: int) -> kick.KickOut:
+    ops = c["ops"]
+    return kick.velocity_update(stages, c["vel"], ops.pos, ops.alive, ops.sums, ops.ghost,
+                                c["state"].segments, c["params"], c["scene"].seg_valid)
 
 
 def _kick(name: str) -> Phase:
-    def kick(c: dict) -> None:
-        c["vel"], dv = _kick_fns(c)[name](c["vel"])
-        c["dv"].append(dv)
-    return kick
+    def kick_phase(c: dict) -> None:
+        out = _update(c, STAGES[name] | kick.NORMS)
+        c["vel"] = out.vel
+        c["norms"].append(out.norms)
+    return kick_phase
 
 
 def _integrate(c: dict) -> None:
-    state, scene, vel = c["state"], c["scene"], c["vel"]
-    dv_log = list(c["dv"])
-    if not scene.enable_spring:  # the fused step logs a zero for the spring
-        dv_log.insert(KICKS.index("spring"), torch.zeros((), dtype=vel.dtype, device=vel.device))
-    body_lin_vel = physics.gravity_on_free_bodies(state, c["params"], scene)
+    state, scene, params = c["state"], c["scene"], c["params"]
+    out = _update(c, kick.INTEGRATE)
+    body_lin_vel = physics.gravity_on_free_bodies(state, params, scene)
     c["new_state"], c["diag"] = physics.finish_tick(
-        state, c["ops"], vel, body_lin_vel, dv_log, c["truncated"], c["params"])
+        state, c["ops"], out._replace(norms=torch.cat(c["norms"])), body_lin_vel,
+        c["truncated"])
 
 
 def tick_phases(scene: Scene) -> list[tuple[str, Phase]]:

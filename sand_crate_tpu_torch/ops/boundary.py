@@ -1,30 +1,34 @@
-"""The boundary chain of the tick: the ghost pass with its hard-wall fix,
-and the continuous-collision clamp.
+"""The ghost pass of the tick: the virtual colliders with their hard-wall
+fix, in full and positions-only.
 
-The counterparts of two XLA fusions of the JAX step, not of a
+The counterpart of an XLA fusion of the JAX step, not of a
 ``pl.pallas_call``: ``_ghost_core`` (``sand_crate_tpu/physics.py:331-363``,
 the virtual colliders and the hard-wall projection, crate.py:97-99,
-202-243) and ``apply_continuous_collision`` (``physics.py:738-749``, the
-velocity clamp, crate.py:177-200).  Each is a per-particle function over
-the crate's S segments (2S padded walls for the clamp).
+202-243), a per-particle function over the crate's S segments.
 
-* :func:`ghost_pass_plain` and :func:`continuous_collision_plain` compute
-  them as plane-wide torch ops over (S, P) and (2S, P) planes.
-* :func:`ghost_pass` and :func:`continuous_collision` dispatch on the
-  tensors' device: CPU tensors run the plain version; CUDA tensors launch
-  the hand-written kernels of ``csrc/boundary.cu`` (a thread per particle,
-  the segments staged in shared memory, built by ``nvcc`` at first use) on
-  the current stream and count each launch in ``LAUNCHES``; tensors
-  anywhere else raise.  The kernels give the plain versions' bits on the
-  card: the same IEEE f32 operations in the same order, the segment-axis
-  sums and minimum in the order of torch's dim-0 reduction.
+* :func:`ghost_pass_plain` computes it as plane-wide torch ops over (S, P)
+  planes; :func:`ghost_pos_plain` its fixed position alone (the sorted
+  backends' cell sort reads nothing else).
+* :func:`ghost_pass` and :func:`ghost_pos` dispatch on the tensors'
+  device: CPU tensors run the plain version; CUDA tensors launch the
+  hand-written kernel of ``csrc/boundary.cu`` (``ghost_kernel<true>`` and
+  ``<false>``: a thread per slot in a grid-stride loop, the segments staged
+  in shared memory, built by ``nvcc`` at first use) on the current stream
+  and count each launch in ``LAUNCHES``; tensors anywhere else raise.  The
+  kernels give the plain versions' bits on the card: the same IEEE f32
+  operations in the same order, the segment-axis sums in the order of
+  torch's dim-0 reduction.
 
 On the card each launch goes through a custom operator
-(``torch.ops.sand_crate.ghost_pass``, ``torch.ops.sand_crate.ccd``) whose
-kernels take a leading crate axis: ``torch.func.vmap`` (batched crates,
-``sweep.py``) reaches its vmap rule, which moves the crate dims to the
-front and launches once over all crates.  A solo crate is a batch of one.
-On the CPU the wrappers call the plain versions, which vmap natively.
+(``torch.ops.sand_crate.ghost_pass``, ``torch.ops.sand_crate.ghost_pos``)
+whose kernel takes a leading crate axis: ``torch.func.vmap`` (batched
+crates, ``sweep.py``) reaches its vmap rule, which moves the crate dims to
+the front and launches once over all crates.  A solo crate is a batch of
+one.  On the CPU the wrappers call the plain versions, which vmap natively.
+
+The continuous-collision clamp (``apply_continuous_collision``,
+``physics.py:738-749``) is a stage of the tick's velocity update
+(``ops/kick.py``: ``kick.continuous_collision`` is that stage alone).
 """
 
 import ctypes
@@ -37,7 +41,7 @@ from . import cuda_build
 EPS = 1e-12
 
 # Kernel launches since the last reset, counted where each kernel launches.
-LAUNCHES = {"ghost": 0, "ccd": 0}
+LAUNCHES = {"ghost": 0, "ghost_pos": 0}
 
 
 # --------------------------------------------------------------------------
@@ -78,6 +82,17 @@ def ghost_reductions(gm, gvx, gvy, gvelx, gvely):
     return g_cnt, gsum, gvel_sum
 
 
+def _hard_wall(prepos, alive, particle_radius, gm, gvx, gvy):
+    """The hard wall projection (crate.py:202-211): each ghost within r
+    pushes the particle out to r along its mirror offset."""
+    gnorm = torch.sqrt(torch.clamp(gvx * gvx + gvy * gvy, min=0.0))  # (S, P)
+    vrd = torch.clamp(particle_radius / torch.clamp(gnorm, min=EPS), min=0.5) - 0.5
+    correction = torch.stack(
+        [(gm * gvx * vrd).sum(dim=0), (gm * gvy * vrd).sum(dim=0)], dim=-1
+    )
+    return torch.where(alive[:, None], prepos + correction, prepos)
+
+
 def ghost_pass_plain(prepos, alive, segments, body_lin_vel, body_ang_vel, particle_radius,
                      seg_valid, seg_body, body_center):
     """Hard-wall-corrected position plus the three ghost reductions
@@ -87,34 +102,18 @@ def ghost_pass_plain(prepos, alive, segments, body_lin_vel, body_ang_vel, partic
     A pure per-particle function of the PRE-fix position (the S-axis
     reduction order is fixed), so re-running it on a permutation of prepos
     gives the permuted outputs."""
-    r = particle_radius
-    nx_, ny_, gm, gvx, gvy = ghost_geom(prepos, alive, segments, r, seg_valid)
+    nx_, ny_, gm, gvx, gvy = ghost_geom(prepos, alive, segments, particle_radius, seg_valid)
     gvelx, gvely = ghost_vel(nx_, ny_, body_lin_vel, body_ang_vel, seg_body, body_center)
-
-    # -- hard wall projection (crate.py:202-211) ----------------------------
-    gnorm = torch.sqrt(torch.clamp(gvx * gvx + gvy * gvy, min=0.0))  # (S, P)
-    vrd = torch.clamp(r / torch.clamp(gnorm, min=EPS), min=0.5) - 0.5
-    correction = torch.stack(
-        [(gm * gvx * vrd).sum(dim=0), (gm * gvy * vrd).sum(dim=0)], dim=-1
-    )
-    pos = torch.where(alive[:, None], prepos + correction, prepos)
+    pos = _hard_wall(prepos, alive, particle_radius, gm, gvx, gvy)
     g_cnt, gsum, gvel_sum = ghost_reductions(gm, gvx, gvy, gvelx, gvely)
     return pos, g_cnt, gsum, gvel_sum
 
 
-def continuous_collision_plain(pos, vel, alive, segments, particle_radius, dt, seg_valid):
-    """The continuous collision velocity clamp (crate.py:177-200) -> the
-    new velocity (P, 2): each alive particle's move ``vel * dt`` is cut at
-    its first crossing of a padded wall it approaches."""
-    walls = geo.pad_segments(segments, particle_radius)  # (2S,2,2)
-    wall_valid = torch.cat([seg_valid, seg_valid])
-    crossing, t_hit = geo.segment_crossings_soa(
-        pos[:, 0], pos[:, 1], vel[:, 0] * dt, vel[:, 1] * dt, walls
-    )  # (2S, P)
-    crossing = crossing & wall_valid[:, None] & alive[None]
-    factor = torch.where(crossing, t_hit, torch.inf).amin(dim=0)
-    fix = torch.clamp(factor, max=1.0)  # 1 where no crossing
-    return vel * fix[:, None]
+def ghost_pos_plain(prepos, alive, segments, particle_radius, seg_valid):
+    """The hard-wall-corrected position (P, 2) alone: ghost_pass_plain's
+    ``pos``, bit for bit."""
+    _, _, gm, gvx, gvy = ghost_geom(prepos, alive, segments, particle_radius, seg_valid)
+    return _hard_wall(prepos, alive, particle_radius, gm, gvx, gvy)
 
 
 # --------------------------------------------------------------------------
@@ -122,9 +121,9 @@ def continuous_collision_plain(pos, vel, alive, segments, particle_radius, dt, s
 # --------------------------------------------------------------------------
 
 
-def _check(fn, name, t, dtype, shape):
-    if t.device.type != "cuda":
-        raise ValueError(f"{fn}: {name} is on {t.device}, expected the CUDA device")
+def _check(fn, name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(
             f"{fn}: {name} must be a contiguous {dtype} tensor of shape "
@@ -138,67 +137,54 @@ def _lib():
         lib.sc_ghost_pass.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         lib.sc_ghost_pass.restype = ctypes.c_int
-        lib.sc_ccd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.sc_ccd.restype = ctypes.c_int
+        lib.sc_ghost_pos.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        lib.sc_ghost_pos.restype = ctypes.c_int
     return lib
 
 
-def _ghost_launch(prepos, alive, segments, lin, ang, radius, seg_valid, seg_body, body_center):
+def _ghost_launch(prepos, alive, segments, lin, ang, radius, seg_valid, seg_body, body_center,
+                  full=True):
+    """The kernel over a leading crate axis B; ``full=False`` is the
+    positions-only pass (lin, ang, seg_body and body_center unused)."""
     B, P = prepos.shape[:2]
-    S, NB = seg_valid.shape[0], body_center.shape[0]
-    f32 = torch.float32
-    for name, t, dtype, shape in (
-        ("prepos", prepos, f32, (B, P, 2)), ("alive", alive, torch.bool, (B, P)),
-        ("segments", segments, f32, (B, S, 2, 2)), ("body_lin_vel", lin, f32, (B, NB, 2)),
-        ("body_ang_vel", ang, f32, (B, NB)), ("particle_radius", radius, f32, (B,)),
-        ("seg_valid", seg_valid, torch.bool, (S,)), ("seg_body", seg_body, torch.int64, (S,)),
-        ("body_center", body_center, f32, (NB, 2)),
-    ):
-        _check("ghost_pass", name, t, dtype, shape)
-        if t.device != prepos.device:
-            raise ValueError(f"ghost_pass: {name} is on {t.device}, prepos on {prepos.device}")
-    pos = torch.empty_like(prepos)
-    g_cnt = torch.empty((B, P), dtype=f32, device=prepos.device)
-    gsum = torch.empty_like(prepos)
-    gvel_sum = torch.empty_like(prepos)
-    with torch.cuda.device(prepos.device):  # launch on the tensors' card
-        err = _lib().sc_ghost_pass(
-            prepos.data_ptr(), alive.data_ptr(), segments.data_ptr(), lin.data_ptr(),
-            ang.data_ptr(), radius.data_ptr(), seg_valid.data_ptr(), seg_body.data_ptr(),
-            body_center.data_ptr(), pos.data_ptr(), g_cnt.data_ptr(), gsum.data_ptr(),
-            gvel_sum.data_ptr(), B, P, S, NB, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ghost_pass kernel failed: cudaError {err}")
-    LAUNCHES["ghost"] += 1
-    return pos, g_cnt, gsum, gvel_sum
-
-
-def _ccd_launch(pos, vel, alive, segments, radius, dt, seg_valid):
-    B, P = pos.shape[:2]
     S = seg_valid.shape[0]
     f32 = torch.float32
-    for name, t, dtype, shape in (
-        ("pos", pos, f32, (B, P, 2)), ("vel", vel, f32, (B, P, 2)),
-        ("alive", alive, torch.bool, (B, P)), ("segments", segments, f32, (B, S, 2, 2)),
-        ("particle_radius", radius, f32, (B,)), ("dt", dt, f32, (B,)),
-        ("seg_valid", seg_valid, torch.bool, (S,)),
-    ):
-        _check("continuous_collision", name, t, dtype, shape)
-        if t.device != pos.device:
-            raise ValueError(f"continuous_collision: {name} is on {t.device}, pos on "
-                             f"{pos.device}")
-    out = torch.empty_like(vel)
-    with torch.cuda.device(pos.device):
-        err = _lib().sc_ccd(
-            pos.data_ptr(), vel.data_ptr(), alive.data_ptr(), segments.data_ptr(),
-            radius.data_ptr(), dt.data_ptr(), seg_valid.data_ptr(), out.data_ptr(), B, P, S,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    fn = "ghost_pass" if full else "ghost_pos"
+    checks = [("prepos", prepos, f32, (B, P, 2)), ("alive", alive, torch.bool, (B, P)),
+              ("segments", segments, f32, (B, S, 2, 2)), ("particle_radius", radius, f32, (B,)),
+              ("seg_valid", seg_valid, torch.bool, (S,))]
+    if full:
+        NB = body_center.shape[0]
+        checks += [("body_lin_vel", lin, f32, (B, NB, 2)), ("body_ang_vel", ang, f32, (B, NB)),
+                   ("seg_body", seg_body, torch.int64, (S,)),
+                   ("body_center", body_center, f32, (NB, 2))]
+    for name, t, dtype, shape in checks:
+        _check(fn, name, t, dtype, shape, prepos.device)
+    if prepos.device.type != "cuda":
+        raise ValueError(f"{fn}: tensors on {prepos.device}, expected the CUDA device")
+    pos = torch.empty_like(prepos)
+    stream = torch.cuda.current_stream(prepos.device).cuda_stream
+    with torch.cuda.device(prepos.device):  # launch on the tensors' card
+        if full:
+            g_cnt = torch.empty((B, P), dtype=f32, device=prepos.device)
+            gsum = torch.empty_like(prepos)
+            gvel_sum = torch.empty_like(prepos)
+            err = _lib().sc_ghost_pass(
+                prepos.data_ptr(), alive.data_ptr(), segments.data_ptr(), lin.data_ptr(),
+                ang.data_ptr(), radius.data_ptr(), seg_valid.data_ptr(), seg_body.data_ptr(),
+                body_center.data_ptr(), pos.data_ptr(), g_cnt.data_ptr(), gsum.data_ptr(),
+                gvel_sum.data_ptr(), B, P, S, NB, stream,
+            )
+        else:
+            err = _lib().sc_ghost_pos(
+                prepos.data_ptr(), alive.data_ptr(), segments.data_ptr(), radius.data_ptr(),
+                seg_valid.data_ptr(), pos.data_ptr(), B, P, S, stream,
+            )
     if err != 0:
-        raise RuntimeError(f"continuous_collision kernel failed: cudaError {err}")
-    LAUNCHES["ccd"] += 1
-    return out
+        raise RuntimeError(f"{fn} kernel failed: cudaError {err}")
+    LAUNCHES["ghost" if full else "ghost_pos"] += 1
+    return (pos, g_cnt, gsum, gvel_sum) if full else pos
 
 
 def _crates_plain(plain, per_crate, shared):
@@ -229,19 +215,20 @@ def _ghost_op(prepos, alive, segments, body_lin_vel, body_ang_vel, particle_radi
 
 
 @torch.library.custom_op(
-    "sand_crate::ccd", mutates_args=(),
-    schema="(Tensor pos, Tensor vel, Tensor alive, Tensor segments, Tensor particle_radius, "
-           "Tensor dt, Tensor seg_valid) -> Tensor",
+    "sand_crate::ghost_pos", mutates_args=(),
+    schema="(Tensor prepos, Tensor alive, Tensor segments, Tensor particle_radius, "
+           "Tensor seg_valid) -> Tensor",
 )
-def _ccd_op(pos, vel, alive, segments, particle_radius, dt, seg_valid):
-    """The continuous-collision clamp over a leading crate axis; seg_valid
+def _ghost_pos_op(prepos, alive, segments, particle_radius, seg_valid):
+    """The positions-only ghost pass over a leading crate axis; seg_valid
     shared."""
-    per_crate = (pos, vel, alive, segments, particle_radius, dt)
-    if pos.device.type == "cuda":
-        return _ccd_launch(*per_crate, seg_valid)
-    if pos.device.type == "cpu":
-        return _crates_plain(continuous_collision_plain, per_crate, (seg_valid,))
-    raise ValueError(f"continuous_collision: tensors on {pos.device}; expected cpu or cuda")
+    per_crate = (prepos, alive, segments, particle_radius)
+    if prepos.device.type == "cuda":
+        return _ghost_launch(prepos, alive, segments, None, None, particle_radius, seg_valid,
+                             None, None, full=False)
+    if prepos.device.type == "cpu":
+        return _crates_plain(ghost_pos_plain, per_crate, (seg_valid,))
+    raise ValueError(f"ghost_pos: tensors on {prepos.device}; expected cpu or cuda")
 
 
 def _fold(x, dim, n):
@@ -268,7 +255,7 @@ def _vmap_rule(op, n_per_crate, name):
 
 
 _ghost_op.register_vmap(_vmap_rule(_ghost_op, 6, "ghost_pass"))
-_ccd_op.register_vmap(_vmap_rule(_ccd_op, 6, "continuous_collision"))
+_ghost_pos_op.register_vmap(_vmap_rule(_ghost_pos_op, 4, "ghost_pos"))
 
 
 # --------------------------------------------------------------------------
@@ -287,9 +274,9 @@ def ghost_pass(prepos, alive, segments, body_lin_vel, body_ang_vel, particle_rad
                seg_body, body_center):
     """The ghost pass of one crate -> (pos, g_cnt, gsum, gvel_sum), as
     :func:`ghost_pass_plain`.  CPU tensors run the plain version; CUDA
-    tensors launch ``ghost_kernel`` of ``csrc/boundary.cu`` on the current
-    stream (counted in ``LAUNCHES["ghost"]``; under vmap once for all
-    crates); tensors elsewhere raise."""
+    tensors launch ``ghost_kernel<true>`` of ``csrc/boundary.cu`` on the
+    current stream (counted in ``LAUNCHES["ghost"]``; under vmap once for
+    all crates); tensors elsewhere raise."""
     args = (prepos, alive, segments, body_lin_vel, body_ang_vel, particle_radius, seg_valid,
             seg_body, body_center)
     if _device("ghost_pass", prepos) == "cpu":
@@ -297,16 +284,14 @@ def ghost_pass(prepos, alive, segments, body_lin_vel, body_ang_vel, particle_rad
     return ghost_operator(*args)
 
 
-def continuous_collision(pos, vel, alive, segments, particle_radius, dt, seg_valid):
-    """The continuous-collision clamp of one crate -> the new velocity, as
-    :func:`continuous_collision_plain`.  CPU tensors run the plain version;
-    CUDA tensors launch ``ccd_kernel`` of ``csrc/boundary.cu`` on the
-    current stream (counted in ``LAUNCHES["ccd"]``; under vmap once for
-    all crates); tensors elsewhere raise."""
-    args = (pos, vel, alive, segments, particle_radius, dt, seg_valid)
-    if _device("continuous_collision", pos) == "cpu":
-        return continuous_collision_plain(*args)
-    return ccd_operator(*args)
+def ghost_pos(prepos, alive, segments, particle_radius, seg_valid):
+    """The positions-only ghost pass of one crate -> the fixed positions,
+    as :func:`ghost_pos_plain`.  CUDA tensors launch ``ghost_kernel<false>``
+    (counted in ``LAUNCHES["ghost_pos"]``)."""
+    args = (prepos, alive, segments, particle_radius, seg_valid)
+    if _device("ghost_pos", prepos) == "cpu":
+        return ghost_pos_plain(*args)
+    return ghost_pos_operator(*args)
 
 
 def ghost_operator(prepos, alive, segments, body_lin_vel, body_ang_vel, particle_radius,
@@ -323,9 +308,9 @@ def ghost_operator(prepos, alive, segments, body_lin_vel, body_ang_vel, particle
     return tuple(o[0] for o in out)
 
 
-def ccd_operator(pos, vel, alive, segments, particle_radius, dt, seg_valid):
-    """One crate's clamp through the ``sand_crate::ccd`` operator, as a
-    batch of one (the wrapper's CUDA branch)."""
-    per_crate = [x.contiguous()[None] for x in (pos, vel, alive, segments)]
-    per_crate += [particle_radius.reshape(1), dt.reshape(1)]
-    return torch.ops.sand_crate.ccd(*per_crate, seg_valid.contiguous())[0]
+def ghost_pos_operator(prepos, alive, segments, particle_radius, seg_valid):
+    """One crate's positions-only pass through the ``sand_crate::ghost_pos``
+    operator, as a batch of one."""
+    per_crate = [x.contiguous()[None] for x in (prepos, alive, segments)]
+    return torch.ops.sand_crate.ghost_pos(*per_crate, particle_radius.reshape(1),
+                                          seg_valid.contiguous())[0]

@@ -1,9 +1,9 @@
 """Hard inputs for holding the boundary kernels against their plain versions.
 
-``ghost_pass`` and ``continuous_collision`` (``csrc/boundary.cu``) take a
-thread per particle and loop over the crate's segments; their plain
-versions (``ops/boundary.py``) compute the same terms as (S, P) and (2S, P)
-planes.  Each case below puts particles where a rounding, a clamp, a NaN or
+``ghost_pass`` (``csrc/boundary.cu``) and ``kick.continuous_collision``
+(``csrc/kick.cu``) take a thread per particle and loop over the crate's
+segments; their plain versions (``ops/boundary.py``, ``ops/kick.py``)
+compute the same terms as (S, P) and (2S, P) planes.  Each case below puts particles where a rounding, a clamp, a NaN or
 the launch shape has an edge: a particle at exactly 1.2 r from a wall,
 nearest points clamped to a segment's ends, a zero-length segment, a
 particle on a wall, moves parallel to a wall and crossings whose
@@ -232,7 +232,7 @@ def ghost_args(c: dict) -> tuple:
 
 
 def ccd_args(c: dict) -> tuple:
-    """The arguments of ``boundary.continuous_collision`` (positions: the
+    """The arguments of ``kick.continuous_collision`` (positions: the
     case's prepos)."""
     return (c["prepos"], c["vel"], c["alive"], c["segments"], c["r"], c["dt"], c["seg_valid"])
 

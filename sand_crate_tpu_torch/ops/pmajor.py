@@ -564,7 +564,7 @@ def neighbor_forces_pmajor_sorted(
 
     # Dead selves have empty candidate ranges (or sit past their chunk's
     # last alive self), so every dead row is zero.
-    zeros2 = torch.zeros((P, 2), dtype=dtype, device=pos.device)
+    zeros2 = pos.new_zeros((), dtype=dtype).expand(P, 2)  # one element, read for every slot
     return PairSums(
         p_i=cp.to(dtype),
         dv_tension=out_b[0:2].T.to(dtype),

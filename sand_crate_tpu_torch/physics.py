@@ -7,7 +7,8 @@ crate.py:91-129):
   1.  spawn from sources, cull out-of-box particles
   2.  advance rigid bodies
   3.  virtual colliders (boundary ghosts) on pre-fix positions, then the
-      hard wall projection
+      hard wall projection (ops/boundary.py; the sorted backends take the
+      fixed positions alone here)
   4.  stable cell-id sort of (vel, pre-fix pos, uid), ghost pass recomputed
       on the sorted order, then the pair sums (ops/pmajor.py: feature rows
       -> pass A -> cell pressure -> pass B; ops/pallas_forces.py: slab
@@ -19,6 +20,7 @@ crate.py:91-129):
   5.  tension, gravity, pressure, spring (flag-gated), viscosity, wall
       bounce, continuous collision kicks
   6.  integrate positions
+  (5 and 6 are one velocity update, ops/kick.py: on the card one kernel)
 
 The sorted backends keep the state permanently cell-sorted (``uid``
 carries identity), as in the JAX package.  The dense, cellwise and gather
@@ -47,7 +49,7 @@ from .cellwise import (
 )
 from .config import BODY_FIXED, BODY_FREE, BODY_MOTORED
 from .neighbors import neighbor_list
-from .ops import boundary
+from .ops import boundary, kick
 from .ops.chunked import neighbor_forces_chunked_sorted
 from .ops.pallas_forces import neighbor_forces_pallas_sorted
 from .ops.pmajor import neighbor_forces_pmajor_sorted
@@ -280,20 +282,18 @@ def advance_bodies(state: CrateState, params: Params, scene: Scene) -> CrateStat
 # --------------------------------------------------------------------------
 
 
-def _alive_mean_dv(dv: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
-    """Mean ||dv|| over alive particles (force_monitor.py:27-33 semantics)."""
-    n = torch.sqrt(torch.clamp((dv * dv).sum(dim=-1), min=0.0))
-    cnt = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
-    return torch.where(alive, n, 0.0).sum() / cnt
+# The backends that keep slot order (neighbor_stage); every other backend
+# sorts the state by cell each tick.
+SLOT_ORDER_MODES = ("gather", "dense")
 
 
 class GhostInfo(NamedTuple):
     """Boundary-ghost reductions shared by the later force phases."""
 
     pos: torch.Tensor  # (P, 2) hard-wall-corrected positions
-    g_cnt: torch.Tensor  # (P,)   ghosts per particle
-    gsum: torch.Tensor  # (P, 2) sum of mirror ghost vectors
-    gvel_sum: torch.Tensor  # (P, 2) sum of ghost contact velocities
+    g_cnt: torch.Tensor | None  # (P,)   ghosts per particle
+    gsum: torch.Tensor | None  # (P, 2) sum of mirror ghost vectors
+    gvel_sum: torch.Tensor | None  # (P, 2) sum of ghost contact velocities
 
 
 def ghost_sums(prepos, alive, segments, body_lin_vel, body_ang_vel, params, scene):
@@ -325,7 +325,15 @@ def _ghost_core(
 
 def ghost_phase(state: CrateState, params: Params, scene: Scene) -> GhostInfo:
     """Virtual colliders on pre-fix positions + hard wall projection
-    (reference "Virtual Colliders" phase, crate.py:97-99, 202-243)."""
+    (reference "Virtual Colliders" phase, crate.py:97-99, 202-243).
+
+    The sorted backends read only the fixed positions here (their cell
+    sort's keys; neighbor_stage runs the full pass again on the sorted
+    order), so they take the positions-only pass and the sums are None."""
+    if scene.forces_mode not in SLOT_ORDER_MODES:
+        pos = boundary.ghost_pos(state.pos, state.alive, state.segments,
+                                 params.particle_radius, scene.seg_valid)
+        return GhostInfo(pos, None, None, None)
     return _ghost_core(
         state.pos, state.alive, state.segments, state.body_lin_vel,
         state.body_ang_vel, params, scene,
@@ -380,16 +388,15 @@ def neighbor_stage(
     uniform array, from ``generator``; gather draws one per directed edge.
     ``live_rows`` bounds the chunked sweep (ops/chunked.py)."""
     diam = params.diameter
-    if scene.forces_mode == "gather":
-        sums = neighbor_forces_gather(ghost.pos, vel, alive, generator, params, scene)
-        return TickOperands(pos=ghost.pos, vel=vel, alive=alive, uid=uid, ghost=ghost,
-                            sums=sums)
-    if scene.forces_mode == "dense":
-        sums = neighbor_forces_dense(
-            ghost.pos, vel, alive, _particle_noise(ghost.pos, generator, params), diam,
-            params.surface_smoothing, params.target_pressure, params.ignored_pressure,
-            params.spring_overlap_balance, scene,
-        )
+    if scene.forces_mode in SLOT_ORDER_MODES:
+        if scene.forces_mode == "gather":
+            sums = neighbor_forces_gather(ghost.pos, vel, alive, generator, params, scene)
+        else:
+            sums = neighbor_forces_dense(
+                ghost.pos, vel, alive, _particle_noise(ghost.pos, generator, params), diam,
+                params.surface_smoothing, params.target_pressure, params.ignored_pressure,
+                params.spring_overlap_balance, scene,
+            )
         return TickOperands(pos=ghost.pos, vel=vel, alive=alive, uid=uid, ghost=ghost,
                             sums=sums)
     cid = cell_ids_grid(ghost.pos, alive, scene)
@@ -431,74 +438,6 @@ def neighbor_stage(
     return TickOperands(pos=ghost.pos, vel=vel, alive=alive, uid=uid, ghost=ghost, sums=sums)
 
 
-def apply_tension(vel, alive, sums: PairSums, params: Params):
-    """Surface tension kick (crate.py:335-358)."""
-    dv = torch.where(alive[:, None], params.dt * sums.dv_tension, 0.0)
-    return vel + dv, _alive_mean_dv(dv, alive)
-
-
-def apply_gravity(vel, alive, params: Params):
-    """Gravity on particles (crate.py:309-310)."""
-    dv = torch.where(alive[:, None], params.dt * params.gravity[None, :], 0.0)
-    return vel + dv, _alive_mean_dv(dv, alive)
-
-
-def apply_pressure_force(vel, alive, sums: PairSums, ghost: GhostInfo, params: Params):
-    """Pressure force incl. ghost push-off (crate.py:286-307).
-
-    sum_s m_s * p_i * gvec_s factors as p_i * (sum_s m_s gvec_s) = p_i * gsum.
-    """
-    ghost_term = sums.p_i[:, None] * ghost.gsum
-    dv = params.dt * params.pressure_amplifier * (sums.pressure_real + ghost_term)
-    dv = torch.where(alive[:, None], dv, 0.0)
-    return vel + dv, _alive_mean_dv(dv, alive)
-
-
-def apply_spring(vel, alive, sums: PairSums, ghost: GhostInfo, params: Params):
-    """Spring force (crate.py:325-333; reference ships it disabled :117-118)."""
-    pull_ghost = params.spring_overlap_balance * ghost.gsum
-    total = sums.nbr_cnt + ghost.g_cnt
-    dv = (
-        params.dt
-        * params.spring_amplifier
-        * (sums.spring_real + pull_ghost)
-        / torch.clamp(total, min=1.0)[:, None]
-    )
-    dv = torch.where(alive[:, None] & (total > 0)[:, None], dv, 0.0)
-    return vel + dv, _alive_mean_dv(dv, alive)
-
-
-def apply_viscosity(vel, alive, sums: PairSums, params: Params):
-    """Viscosity: stale v_j snapshot, fresh v_i (crate.py:316-323)."""
-    dv = params.dt * params.viscosity * (sums.visc_vsum - sums.nbr_cnt[:, None] * vel)
-    dv = torch.where(alive[:, None], dv, 0.0)
-    return vel + dv, _alive_mean_dv(dv, alive)
-
-
-def apply_wall_bounce(vel, alive, ghost: GhostInfo, params: Params):
-    """Wall bounce against the moving-wall contact velocity (crate.py:245-259)."""
-    denom = torch.clamp(ghost.g_cnt, min=1.0)[:, None]
-    normal = ghost.gsum / denom  # mean ghost direction
-    contact_vel = ghost.gvel_sum / denom
-    n_unit, _ = geo.safe_normalize(normal)
-    rel_vel = vel - contact_vel
-    approach = (rel_vel * n_unit).sum(dim=-1)  # (P,)
-    bounce = -approach[:, None] * n_unit * (1.0 + params.wall_collision_decay)
-    hit = alive & (ghost.g_cnt > 0) & (approach < 0.0)
-    dv = torch.where(hit[:, None], bounce, 0.0)
-    return vel + dv, _alive_mean_dv(dv, alive)
-
-
-def apply_continuous_collision(pos, vel, alive, segments, params: Params, scene: Scene):
-    """Continuous collision velocity clamp (crate.py:177-200):
-    ``ops/boundary.continuous_collision`` (on the card the CCD kernel of
-    ``csrc/boundary.cu``); the force_dv entry is the mean |dv| over alive."""
-    new_vel = boundary.continuous_collision(
-        pos, vel, alive, segments, params.particle_radius, params.dt, scene.seg_valid
-    )
-    return new_vel, _alive_mean_dv(new_vel - vel, alive)
-
-
 def gravity_on_free_bodies(state: CrateState, params: Params, scene: Scene):
     """Gravity integrates into free bodies' center velocity (crate.py:311-314)."""
     free = scene.body_kind == BODY_FREE
@@ -511,35 +450,29 @@ def gravity_on_free_bodies(state: CrateState, params: Params, scene: Scene):
 def finish_tick(
     state: CrateState,
     ops: TickOperands,
-    vel,
+    out: kick.KickOut,
     body_lin_vel,
-    dv_log,
     spawn_truncated,
-    params: Params,
 ) -> tuple[CrateState, Diagnostics]:
-    """Integrate positions (crate.py:360-361) and assemble diagnostics.
-
-    ``vel`` is the post-force velocity in the operands' (sorted) order;
-    dead slots' velocities are untouched by every force phase."""
-    pos, alive, sums = ops.pos, ops.alive, ops.sums
-    pos = torch.where(alive[:, None], pos + params.dt * vel, pos)
+    """The new state and the diagnostics from the velocity update ``out``
+    (its vel, integrated pos, pressure, norms and reductions; crate.py:
+    360-361) in the operands' (sorted) order.  Dead slots' velocities are
+    untouched by every force phase but for a +0 added (-0 becomes +0)."""
     new_state = state._replace(
-        pos=pos,
-        vel=vel,
-        alive=alive,
-        pressure=torch.where(alive, sums.p_i, 0.0),
+        pos=out.pos,
+        vel=out.vel,
+        alive=ops.alive,
+        pressure=out.pressure,
         uid=ops.uid,
         body_lin_vel=body_lin_vel,
         tick=state.tick + 1,
     )
-    speed2 = (vel * vel).sum(dim=-1)
-    finite = (torch.isfinite(pos) & torch.isfinite(vel)).all(dim=-1)
     diag = Diagnostics(
-        force_dv=torch.stack(dv_log),
+        force_dv=kick.force_dv(out.norms, out.cnt),
         particle_count=new_state.particle_count,
-        neighbor_overflow=sums.overflow,
-        max_speed=torch.sqrt(torch.where(alive, speed2, 0.0).max()),
-        non_finite=(alive & ~finite).sum(dtype=torch.int32),
+        neighbor_overflow=ops.sums.overflow,
+        max_speed=out.max_speed,
+        non_finite=out.non_finite,
         spawn_truncated=spawn_truncated,
     )
     assert diag.force_dv.shape == (NUM_FORCES,)
@@ -576,29 +509,16 @@ def step(
         body_lin_vel=state.body_lin_vel, body_ang_vel=state.body_ang_vel,
         generator=generator, live_rows=live_rows,
     )
-    pos, vel, alive, ghost, sums = ops.pos, ops.vel, ops.alive, ops.ghost, ops.sums
 
-    dv_log = []
-    vel, dv = apply_tension(vel, alive, sums, params)
-    dv_log.append(dv)
-    vel, dv = apply_gravity(vel, alive, params)
-    dv_log.append(dv)
+    # -- kicks, wall bounce, CCD and integrate (crate.py:109-129, 177-200) ------
+    # ops/kick.py: the kicks (tension, gravity, pressure, the spring when the
+    # scene enables it, viscosity; crate.py:286-358), the wall bounce
+    # (crate.py:245-259), the clamp (crate.py:177-200) and the integrate, in
+    # the reference's order; on the card the one kernel of csrc/kick.cu
     body_lin_vel = gravity_on_free_bodies(state, params, scene)
-    vel, dv = apply_pressure_force(vel, alive, sums, ghost, params)
-    dv_log.append(dv)
-    if scene.enable_spring:
-        vel, dv = apply_spring(vel, alive, sums, ghost, params)
-        dv_log.append(dv)
-    else:
-        dv_log.append(torch.zeros((), dtype=pos.dtype, device=pos.device))
-    vel, dv = apply_viscosity(vel, alive, sums, params)
-    dv_log.append(dv)
-    vel, dv = apply_wall_bounce(vel, alive, ghost, params)
-    dv_log.append(dv)
-    vel, dv = apply_continuous_collision(pos, vel, alive, state.segments, params, scene)
-    dv_log.append(dv)
-
-    return finish_tick(state, ops, vel, body_lin_vel, dv_log, spawn_truncated, params)
+    out = kick.velocity_update(kick.fused(scene.enable_spring), ops.vel, ops.pos, ops.alive,
+                               ops.sums, ops.ghost, state.segments, params, scene.seg_valid)
+    return finish_tick(state, ops, out, body_lin_vel, spawn_truncated)
 
 
 def rollout(

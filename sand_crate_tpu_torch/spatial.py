@@ -77,20 +77,13 @@ from .cellwise import (
     sums_from_packed,
 )
 from .collectives import DistGroup, LocalGroup, shard_generator
-from .ops import pair_kernel, placement
+from .ops import kick, pair_kernel, placement
 from .ops import pmajor as pm
 from .ops.pallas_forces import pair_sums_from_planes
 from .physics import (
     _ghost_core,
     _particle_noise,
     advance_bodies,
-    apply_continuous_collision,
-    apply_gravity,
-    apply_pressure_force,
-    apply_spring,
-    apply_tension,
-    apply_viscosity,
-    apply_wall_bounce,
     cull_particles,
     gravity_on_free_bodies,
     spawn_particles,
@@ -555,7 +548,7 @@ def _band_sums_pmajor(pos, vel, alive, scene: Scene, comm, tick, params: Params,
     rows_u = torch.empty_like(rows)
     rows_u[:, order] = rows
     rows_u = rows_u.to(pos.dtype)
-    zeros2 = torch.zeros((P, 2), dtype=pos.dtype, device=dev)
+    zeros2 = pos.new_zeros(()).expand(P, 2)  # one element: the update reads it for every slot
     v0 = 1 + n_b
     return PairSums(
         p_i=rows_u[0],
@@ -741,7 +734,6 @@ def spatial_step(
     else:
         lo, hi = edges[d], edges[d + 1]
         band = Band(lo=lo, hi=hi, bh_alloc=bh_alloc, last=hi - lo)
-    dt = params.dt
 
     # -- lifecycle: spawn only the sources inside my band, against the global count
     if scene.num_sources:
@@ -780,31 +772,23 @@ def spatial_step(
     else:
         sums, sent = _band_sums_cellwise(pos, vel, alive, scene, comm, params, band, generator)
 
-    # -- kicks in reference order, CCD, integrate --------------------------------------
-    vel, _ = apply_tension(vel, alive, sums, params)
-    vel, _ = apply_gravity(vel, alive, params)
+    # -- kicks in reference order, CCD, integrate: one velocity update --------------
     body_lin_vel = gravity_on_free_bodies(state, params, scene)
-    vel, _ = apply_pressure_force(vel, alive, sums, ghost, params)
-    if scene.enable_spring:
-        vel, _ = apply_spring(vel, alive, sums, ghost, params)
-    vel, _ = apply_viscosity(vel, alive, sums, params)
-    vel, _ = apply_wall_bounce(vel, alive, ghost, params)
-    vel, _ = apply_continuous_collision(pos, vel, alive, state.segments, params, scene)
-    alive2 = alive[:, None]
-    pos = torch.where(alive2, pos + dt * vel, pos)
-    vel = torch.where(alive2, vel, state.vel)
+    out = kick.velocity_update(kick.fused(scene.enable_spring, norms=False), vel, pos, alive,
+                               sums, ghost, state.segments, params, scene.seg_valid)
+    pos = out.pos
+    vel = torch.where(alive[:, None], out.vel, state.vel)
     new_state = state._replace(
-        pos=pos, vel=vel, alive=alive, pressure=torch.where(alive, sums.p_i, 0.0),
+        pos=pos, vel=vel, alive=alive, pressure=out.pressure,
         body_lin_vel=body_lin_vel, tick=state.tick + 1,
     )
 
     # -- stats: one psum, one all_gather ---------------------------------------------
     local_alive = alive.sum(dtype=I32)
     overflow = sums.overflow.to(I32)
-    finite = (torch.isfinite(pos) & torch.isfinite(vel)).all(dim=-1)
     totals = comm.psum(torch.stack([
         local_alive, overflow, mig_dropped, mig_deferred, spawn_truncated.to(I32),
-        (alive & ~finite).sum(dtype=I32),
+        out.non_finite,
     ]))
     per_shard = comm.all_gather(torch.cat([torch.stack([local_alive, overflow]), sent]))
     stats = {

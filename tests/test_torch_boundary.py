@@ -1,5 +1,6 @@
 """The boundary chain of the tick (ops/boundary.py): the ghost pass with its
-hard-wall fix and the continuous-collision clamp.
+hard-wall fix and the continuous-collision clamp (the velocity update's CCD
+stage, ops/kick.py).
 
 On the CPU: the port's wrappers (the plain versions there) against the JAX
 package's ``_ghost_core`` and ``apply_continuous_collision`` on every hard
@@ -12,9 +13,10 @@ and the 1M dam break's wall escapes, rows recorded on the card, pass
 through the port's, the JAX package's and the float64 oracle's clamps
 alike.
 
-``cuda``-marked tests (skipped without a card) hold the kernels of
-csrc/boundary.cu to their plain versions bit for bit, solo, vmapped and
-inside a captured graph, with the launch counters rising.  This module
+``cuda``-marked tests (skipped without a card) hold the ghost kernel of
+csrc/boundary.cu and the velocity update's CCD stage (csrc/kick.cu) to
+their plain versions bit for bit, solo, vmapped and inside a captured
+graph, with the launch counters rising.  This module
 imports JAX only inside the tests that compare with it, so on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_boundary.py
@@ -27,7 +29,7 @@ import pytest
 import torch
 
 from sand_crate_tpu_torch import physics as tphys
-from sand_crate_tpu_torch.ops import boundary, boundary_cases
+from sand_crate_tpu_torch.ops import boundary, boundary_cases, kick
 
 torch.set_num_threads(1)
 
@@ -94,14 +96,14 @@ def test_continuous_collision_matches_jax(case):
         j, params, scene = _namespaces(c)
         ref, _ = jphys.apply_continuous_collision(j["prepos"], j["vel"], j["alive"],
                                                   j["segments"], params, scene)
-        got = boundary.continuous_collision(*boundary_cases.ccd_args(c))
+        got = kick.continuous_collision(*boundary_cases.ccd_args(c))
         _close((got,), (ref,), f"{case} crate {b} continuous collision")
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_tick_functions_are_the_plain_versions(case):
-    """physics._ghost_core and apply_continuous_collision give the plain
-    versions' bits (and the clamp's force_dv entry its mean |dv|)."""
+    """physics._ghost_core and the velocity update's CCD stage give the
+    plain versions' bits (and the clamp's norm row its masked |dv|)."""
     for c in _crates(case):
         params = types.SimpleNamespace(particle_radius=c["r"], dt=c["dt"])
         scene = types.SimpleNamespace(seg_valid=c["seg_valid"], seg_body=c["seg_body"],
@@ -110,11 +112,14 @@ def test_tick_functions_are_the_plain_versions(case):
                                   params, scene)
         _same_bits(tuple(ghost), boundary.ghost_pass_plain(*boundary_cases.ghost_args(c)),
                    f"{case} _ghost_core")
-        vel, dv = tphys.apply_continuous_collision(c["prepos"], c["vel"], c["alive"],
-                                                   c["segments"], params, scene)
-        want = boundary.continuous_collision_plain(*boundary_cases.ccd_args(c))
-        _same_bits(vel, want, f"{case} apply_continuous_collision")
-        _same_bits(dv, tphys._alive_mean_dv(want - c["vel"], c["alive"]), f"{case} force_dv")
+        out = kick.update(kick.CCD | kick.NORMS, c["vel"], c["prepos"], c["alive"],
+                          *(None,) * 9, c["segments"], c["dt"], *(None,) * 6, c["r"],
+                          c["seg_valid"])
+        want = kick.continuous_collision_plain(*boundary_cases.ccd_args(c))
+        _same_bits(out.vel, want, f"{case} the CCD stage")
+        dv = want - c["vel"]
+        norm = torch.sqrt(torch.clamp(dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1], min=0.0))
+        _same_bits(out.norms[0], torch.where(c["alive"], norm, 0.0), f"{case} norm row")
 
 
 def _batched(c):
@@ -131,15 +136,15 @@ def test_vmap_equals_each_crate_alone(wrappers):
     through the vmap rule.  Each equals the crate alone bit for bit."""
     c = boundary_cases.inputs("batch", "cpu")
     g, v, g_dims, v_dims = _batched(c)
-    ghost_fn, ccd_fn = ((boundary.ghost_pass, boundary.continuous_collision)
+    ghost_fn, ccd_fn = ((boundary.ghost_pass, kick.continuous_collision)
                         if wrappers == "wrappers" else
-                        (boundary.ghost_operator, boundary.ccd_operator))
+                        (boundary.ghost_operator, kick.ccd_operator))
     ghost = torch.func.vmap(ghost_fn, in_dims=g_dims, randomness="different")(*g)
     ccd = torch.func.vmap(ccd_fn, in_dims=v_dims, randomness="different")(*v)
     for b, one in enumerate(_crates("batch")):
         _same_bits(tuple(o[b] for o in ghost),
                    boundary.ghost_pass_plain(*boundary_cases.ghost_args(one)), f"ghost {b}")
-        _same_bits(ccd[b], boundary.continuous_collision_plain(*boundary_cases.ccd_args(one)),
+        _same_bits(ccd[b], kick.continuous_collision_plain(*boundary_cases.ccd_args(one)),
                    f"ccd {b}")
 
 
@@ -155,9 +160,9 @@ def test_operator_vmap_rule_takes_unbatched_operands():
         want = boundary.ghost_pass_plain(stack[b], *boundary_cases.ghost_args(c)[1:])
         _same_bits(tuple(o[b] for o in out), want, f"crate {b}")
     v = (stack,) + boundary_cases.ccd_args(c)[1:]
-    out = torch.func.vmap(boundary.ccd_operator, in_dims=(0,) + (None,) * 6)(*v)
+    out = torch.func.vmap(kick.ccd_operator, in_dims=(0,) + (None,) * 6)(*v)
     for b in range(3):
-        _same_bits(out[b], boundary.continuous_collision_plain(
+        _same_bits(out[b], kick.continuous_collision_plain(
             stack[b], *boundary_cases.ccd_args(c)[1:]), f"ccd crate {b}")
 
 
@@ -166,7 +171,7 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="expected cpu or cuda"):
         boundary.ghost_pass(*boundary_cases.ghost_args(c))
     with pytest.raises(ValueError, match="expected cpu or cuda"):
-        boundary.continuous_collision(*boundary_cases.ccd_args(c))
+        kick.continuous_collision(*boundary_cases.ccd_args(c))
 
 
 # --------------------------------------------------------------------------
@@ -289,7 +294,7 @@ def test_escape_passes_every_clamp(tick, prepos, pos, vel):
     assert start[0, 0] < r  # past the padded line, on the wall's side
 
     v = np.array([vel], f32)
-    port = boundary.continuous_collision_plain(t(start), t(v), t(alive), t(box), t(r), t(dt),
+    port = kick.continuous_collision_plain(t(start), t(v), t(alive), t(box), t(r), t(dt),
                                                seg_valid).numpy()
     jax_vel, _ = jphys.apply_continuous_collision(jnp.asarray(start), jnp.asarray(v),
                                                   jnp.asarray(alive), jnp.asarray(box),
@@ -318,52 +323,65 @@ def cuda():
     return torch.device("cuda")
 
 
+def _ccd_op(pos, vel, alive, segments, r, dt, seg_valid):
+    """The clamp over a leading crate axis through the velocity update's
+    operator (its CCD stage alone)."""
+    return torch.ops.sand_crate.velocity_update(vel, pos, alive, *(None,) * 9, segments, dt,
+                                                *(None,) * 6, r, seg_valid, kick.CCD)[0]
+
+
+def _launches():
+    return {**boundary.LAUNCHES, **kick.LAUNCHES}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES)
 def test_kernels_bit_identical_to_plain(cuda, case):
-    """Both kernels on every hard case: the plain versions' bits (NaN
-    payloads and signed zeros included); the three-crate case through the
-    crate-axis operators, one launch each."""
+    """The ghost pass (both instantiations) and the update's CCD stage on
+    every hard case: the plain versions' bits (NaN payloads and signed
+    zeros included); the three-crate case through the crate-axis
+    operators, one launch each."""
     c = boundary_cases.inputs(case, cuda)
-    before = dict(boundary.LAUNCHES)
+    before = _launches()
     if case == "batch":
         ghost = torch.ops.sand_crate.ghost_pass(*boundary_cases.ghost_args(c))
-        ccd = torch.ops.sand_crate.ccd(*boundary_cases.ccd_args(c))
+        ccd = _ccd_op(*boundary_cases.ccd_args(c))
         for b, one in enumerate(_crates(case, cuda)):
             _same_bits(tuple(o[b] for o in ghost),
                        boundary.ghost_pass_plain(*boundary_cases.ghost_args(one)), f"ghost {b}")
-            _same_bits(ccd[b], boundary.continuous_collision_plain(
+            _same_bits(ccd[b], kick.continuous_collision_plain(
                 *boundary_cases.ccd_args(one)), f"ccd {b}")
     else:
         g, v = boundary_cases.ghost_args(c), boundary_cases.ccd_args(c)
         _same_bits(boundary.ghost_pass(*g), boundary.ghost_pass_plain(*g), "ghost")
-        _same_bits(boundary.continuous_collision(*v), boundary.continuous_collision_plain(*v),
+        _same_bits(kick.continuous_collision(*v), kick.continuous_collision_plain(*v),
                    "ccd")
-    assert boundary.LAUNCHES == {"ghost": before["ghost"] + 1, "ccd": before["ccd"] + 1}
+    assert _launches() == {**before, "ghost": before["ghost"] + 1, "ccd": before["ccd"] + 1}
 
 
 @pytest.mark.cuda
 def test_vmapped_kernels_launch_once_for_all_crates(cuda):
     c = boundary_cases.inputs("batch", cuda)
     g, v, g_dims, v_dims = _batched(c)
-    before = dict(boundary.LAUNCHES)
+    before = _launches()
     ghost = torch.func.vmap(boundary.ghost_pass, in_dims=g_dims, randomness="different")(*g)
-    ccd = torch.func.vmap(boundary.continuous_collision, in_dims=v_dims,
+    ccd = torch.func.vmap(kick.continuous_collision, in_dims=v_dims,
                           randomness="different")(*v)
-    assert boundary.LAUNCHES == {"ghost": before["ghost"] + 1, "ccd": before["ccd"] + 1}
+    assert _launches() == {**before, "ghost": before["ghost"] + 1, "ccd": before["ccd"] + 1}
     for b, one in enumerate(_crates("batch", cuda)):
         _same_bits(tuple(o[b] for o in ghost),
                    boundary.ghost_pass_plain(*boundary_cases.ghost_args(one)), f"ghost {b}")
-        _same_bits(ccd[b], boundary.continuous_collision_plain(*boundary_cases.ccd_args(one)),
+        _same_bits(ccd[b], kick.continuous_collision_plain(*boundary_cases.ccd_args(one)),
                    f"ccd {b}")
 
 
 @pytest.mark.cuda
 def test_captured_tick_replays_the_kernels(cuda):
-    """A crate's replayed tick (a captured CUDA graph) runs both kernels:
-    the counters rise by the ghost pass twice a tick (p-major) and the CCD
-    once, and the replays equal the eager loop with the plain versions in
-    place of the kernels bit for bit."""
+    """A crate's replayed tick (a captured CUDA graph) runs the boundary
+    kernels and the velocity update: the counters rise by the
+    positions-only and the full ghost pass once a tick each (p-major) and
+    the update once, and the replays equal the eager loop with the plain
+    versions in place of the kernels bit for bit."""
     from sand_crate_tpu_torch import Crate, load_config_dict
     from sand_crate_tpu_torch.graphs import clone
 
@@ -383,20 +401,23 @@ def test_captured_tick_replays_the_kernels(cuda):
     }}).world_config
     crate = Crate(world, device=cuda, forces_mode="pmajor")
     state0, gen0 = clone(crate.state), crate.generator.get_state()
-    boundary.LAUNCHES.update(ghost=0, ccd=0)
+    boundary.LAUNCHES.update(ghost=0, ghost_pos=0)
+    kick.LAUNCHES.update(velocity_update=0, velocity_update_stage=0, ccd=0)
     crate.run(6)
-    assert boundary.LAUNCHES == {"ghost": 12, "ccd": 6}
+    want = {"ghost": 6, "ghost_pos": 6, "velocity_update": 6, "velocity_update_stage": 0,
+            "ccd": 0}
+    assert _launches() == want
     gen = torch.Generator(device=cuda)
     gen.set_state(gen0)
-    kept = boundary.ghost_pass, boundary.continuous_collision
-    boundary.ghost_pass = boundary.ghost_pass_plain
-    boundary.continuous_collision = boundary.continuous_collision_plain
+    kept = boundary.ghost_pass, boundary.ghost_pos, kick.update
+    boundary.ghost_pass, boundary.ghost_pos = boundary.ghost_pass_plain, boundary.ghost_pos_plain
+    kick.update = kick.update_plain
     try:
         state = state0
         for _ in range(6):
             state, _ = tphys.step(state, crate.params, crate.scene, gen)
     finally:
-        boundary.ghost_pass, boundary.continuous_collision = kept
-    assert boundary.LAUNCHES == {"ghost": 12, "ccd": 6}
+        boundary.ghost_pass, boundary.ghost_pos, kick.update = kept
+    assert _launches() == want
     for name, a, b in zip(state._fields, crate.state, state):
         assert torch.equal(a, b), name

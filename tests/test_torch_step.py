@@ -27,6 +27,7 @@ from sand_crate_tpu_torch import load_config, load_config_dict
 from sand_crate_tpu_torch import physics as tphys
 from sand_crate_tpu_torch.cellwise import PairSums
 from sand_crate_tpu_torch.engine import Crate
+from sand_crate_tpu_torch.ops import kick as tkick
 from sand_crate_tpu_torch.scene import build_scene, init_state
 from sand_crate_tpu_torch.state import Params
 
@@ -163,18 +164,24 @@ def test_kicks_match_jax(kick):
     jg = jphys.GhostInfo(J["pos"], J["g_cnt"], J["gsum"], J["gvel_sum"])
     tg = tphys.GhostInfo(T["pos"], T["g_cnt"], T["gsum"], T["gvel_sum"])
     calls = {
-        "tension": lambda m, v, al, s, g, p, sc, seg: m.apply_tension(v, al, s, p),
-        "gravity": lambda m, v, al, s, g, p, sc, seg: m.apply_gravity(v, al, p),
-        "pressure": lambda m, v, al, s, g, p, sc, seg: m.apply_pressure_force(v, al, s, g, p),
-        "spring": lambda m, v, al, s, g, p, sc, seg: m.apply_spring(v, al, s, g, p),
-        "viscosity": lambda m, v, al, s, g, p, sc, seg: m.apply_viscosity(v, al, s, p),
-        "wall_bounce": lambda m, v, al, s, g, p, sc, seg: m.apply_wall_bounce(v, al, g, p),
-        "continuous_collision": lambda m, v, al, s, g, p, sc, seg:
-            m.apply_continuous_collision(g.pos, v, al, seg, p, sc),
+        "tension": lambda v, al, s, g, p, sc, seg: jphys.apply_tension(v, al, s, p),
+        "gravity": lambda v, al, s, g, p, sc, seg: jphys.apply_gravity(v, al, p),
+        "pressure": lambda v, al, s, g, p, sc, seg: jphys.apply_pressure_force(v, al, s, g, p),
+        "spring": lambda v, al, s, g, p, sc, seg: jphys.apply_spring(v, al, s, g, p),
+        "viscosity": lambda v, al, s, g, p, sc, seg: jphys.apply_viscosity(v, al, s, p),
+        "wall_bounce": lambda v, al, s, g, p, sc, seg: jphys.apply_wall_bounce(v, al, g, p),
+        "continuous_collision": lambda v, al, s, g, p, sc, seg:
+            jphys.apply_continuous_collision(g.pos, v, al, seg, p, sc),
     }
-    ref = calls[kick](jphys, J["vel"], J["alive"], jsums, jg, jp, js, jst.segments)
-    got = calls[kick](tphys, T["vel"], T["alive"], tsums, tg, tp, ts, tst.segments)
-    _close(tuple(got), tuple(ref), 1e-5, 1e-6, kick)
+    ref = calls[kick](J["vel"], J["alive"], jsums, jg, jp, js, jst.segments)
+    # the port: that kick as one stage of the tick's velocity update, its
+    # mean |dv| from its norm row
+    stage = tkick.KICKS[list(calls).index(kick)] | tkick.NORMS
+    out = tkick.velocity_update(stage, T["vel"], T["pos"], T["alive"], tsums, tg, tst.segments,
+                                tp, ts.seg_valid)
+    cnt = torch.clamp(T["alive"].sum().to(torch.float32), min=1.0)
+    got = (out.vel, tkick.force_dv(out.norms, cnt)[0])
+    _close(got, tuple(ref), 1e-5, 1e-6, kick)
     assert float(got[1]) > 0  # the kick did something
 
 
