@@ -9,8 +9,9 @@ prints its wall time as "[phase] name: s"):
 2. build: compile the hand-written CUDA kernels (csrc/pmajor.cu with K1/K2
    and K10, csrc/grid_pair.cu with K3-K9, csrc/probes.cu, csrc/boundary.cu
    with B1 (full and positions-only), csrc/kick.cu with B2 (the velocity
-   update); one nvcc each, started together) and print every kernel's
-   ptxas registers and spills.
+   update), csrc/pair_batch.cu with D1 (the dense passes) and D2 (the
+   chunked window passes); one nvcc each, started together) and print every
+   kernel's ptxas registers and spills.
 3. world: the dam break (configs/dam_break.yaml, read without PyYAML)
    rescaled as bench.py rescales it (tools.perf_probe.dam_break_world), to
    1,000,000 target particles (1,001,700 alive).
@@ -123,12 +124,12 @@ prints its wall time as "[phase] name: s"):
    the frames back; a checkpoint saved at tick T and restored into a fresh
    Crate runs on as the uninterrupted crate does, held against two
    uninterrupted runs from one seed (bit for bit where those agree).
-(j) batched crates and the small- and mid-crate backends (no pair kernel
-   of their own: the pair and probe counters stay 0 on their paths, and the
-   boundary counters rise by exactly their per-tick counts, the full ghost
-   pass once a tick, the positions-only pass once on chunked, the velocity
-   update once; a vmapped batch launches each once a tick for all its
-   crates): (a)
+(j) batched crates and the small- and mid-crate backends (their pair
+   kernels D1 on dense and D2 on chunked, once a pass a tick, K1/K2 on
+   pmajor, and no other pair or probe kernel; the boundary counters rise by
+   exactly their per-tick counts, the full ghost pass once a tick, the
+   positions-only pass once on chunked, the velocity update once; a vmapped
+   batch launches each once a tick for all its crates): (a)
    stirring_cup and wave_machine (bench.STIRRING_CUP, bench.WAVE_MACHINE)
    as one crate on dense, chunked and pmajor for SMALL_TICKS ticks each,
    dense and pmajor twice in turns, steps/s and step p50 per backend, the
@@ -151,9 +152,10 @@ prints its wall time as "[phase] name: s"):
    0, ticks/s; the last frame from the C rasterizer (native/rasterize.c,
    which must build) equal pixel for pixel to the numpy rasterizer; phase
    (i)'s recording replayed through ``cli.main(["replay", ...])``; then the
-   wave machine (bench.WAVE_MACHINE) WAVE_BACKEND_TICKS ticks on dense,
-   gather and cellwise (plain torch, no kernel launched; overflow and
-   non_finite 0), and at the dense crate's state the gather's and
+   wave machine (bench.WAVE_MACHINE) WAVE_BACKEND_TICKS ticks on dense
+   (D1 once a pass a tick), gather and cellwise (plain torch, no pair
+   kernel; overflow and non_finite 0), and at the dense crate's state the
+   gather's and
    cellwise's pair sums (noise 0) equal to dense's within SUMS_TOL, the
    counts exactly, below the 20-neighbor cap and the cell capacity.
 (l) the runaway check: the 1M dam break settled SETTLE_TICKS ticks on
@@ -283,6 +285,29 @@ prints its wall time as "[phase] name: s"):
    before it), and each escaping particle's row (pre-fix and fixed position,
    velocity into and out of the clamp, the segments, r, dt) is printed as
    JSON (tests/test_torch_boundary.py holds such rows on the CPU).
+
+(r) the batched pair kernels (csrc/pair_batch.cu, ops/pair_batch.py), before
+   (j): D1 (the dense passes) and D2 (the chunked window passes) against
+   their plain versions on every case of ops/pair_batch_cases.py (each
+   checked to hold what it claims; counts bit for bit, NaN in the same
+   places, floats within PAIR_TOL relative plus PAIR_TOL of the field's
+   largest magnitude), the three-crate case vmapped (one launch a pass, each
+   crate bit for bit alone); then at the settled states of the 1024-crate
+   stirring_cup batch (run_datagen's, dense) and the 64-crate wave_machine
+   batch ((j)(d)'s, chunked), each kernel on each: the whole operator and
+   each pass alone against the plain version vmapped over the crates, a few
+   crates alone bit for bit their rows of the batch, median times of each
+   pass and of its plain version, the bounds (D1 at 1024 x 640 and D2 at 64
+   x 4096 are the rows of the kernels line, their launches those of (j)(c)
+   and (j)(d)): the pair test charged to every pair that must be tested
+   (D1: each ordered pair of alive slots; D2: the row test to each alive
+   window pair, the d2 test to those within one row), the rest of a pair's
+   terms only to the pairs the run counts (its neighbour counts' sum), at
+   the published 67 TFLOP/s f32 peak (ops/measure.py: these floats are held
+   at a tolerance, so a kernel may fuse them).  Then the dense and the chunked trajectories: a dam break
+   of capacity 3712 for TRAJ_TICKS ticks on the kernel path and with the
+   pair entries and the boundary wrappers swapped for their plain versions,
+   as phase 6.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
@@ -464,6 +489,17 @@ BAND_GRAPH_CELLS = {
 # guarded t 6 and the minimum 2).  The ghost passes' operations are counted
 # as if every slot-segment pair took the exact path (an upper count: their
 # bound is their bytes either way).
+PAIR_SOURCE = "sand_crate_tpu_torch/csrc/pair_batch.cu"
+PAIR_REPLACES = {"dense": "sand_crate_tpu/cellwise.py:334",
+                 "window": "sand_crate_tpu/ops/chunked.py:50"}
+# Each backend's pair kernels (kernel_counts keys), once a pass a tick.
+PAIR_KEYS = {"pmajor": ("pmajor.a", "pmajor.b"), "dense": ("pairs.dense_a", "pairs.dense_b"),
+             "chunked": ("pairs.window_a", "pairs.window_b")}
+PAIR_TOL = 1e-5  # (r): tests/test_torch_dense_chunked.py::_assert_sums
+PAIR_SETTLE = 200  # (r): ticks that settle each batch (wave_machine: ~2800 alive)
+PAIR_REPS = 5  # (r): timed runs of each pass and of its plain version
+PAIR_SOLO = 3  # (r): crates of each settled batch held alone against their rows
+TRAJ_SMALL_PARTICLES = 3500  # (r): the dense and chunked trajectories (capacity 3712)
 BOUNDARY_SOURCE = "sand_crate_tpu_torch/csrc/boundary.cu"
 KICK_SOURCE = "sand_crate_tpu_torch/csrc/kick.cu"
 BOUNDARY_REPLACES = {"ghost_pass": "sand_crate_tpu/physics.py:331",
@@ -509,8 +545,9 @@ def dam_break_world(n_target: int):
     return world(n_target)
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops, library_ms=None):
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops, library_ms=None,
+               f32_flops=0.0):
+    bound_ms, bound_by = bound(n_bytes, n_ops, f32_flops=f32_flops)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
@@ -1378,8 +1415,9 @@ def uid_aligned(crate):
     return s.pos.cpu()[order], s.vel.cpu()[order], s.alive.cpu()[order]
 
 
-def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict):
-    """A ~10k-particle dam break for TRAJ_TICKS ticks on the card, on the
+def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict,
+               n_target: int = TRAJ_PARTICLES):
+    """A dam break of ``n_target`` (~10k) particles for TRAJ_TICKS ticks on the card, on the
     kernel path (Crate.run: replays of the captured tick) and with ``swaps``
     ((module, name, plain), ...) in place in an explicit eager loop of
     physics.step (a graph keeps the launches it captured, and the plain
@@ -1393,7 +1431,7 @@ def trajectory(label: str, forces_mode: str, swaps, counts: dict, expected: dict
 
     from sand_crate_tpu_torch.ops import boundary, kick
 
-    world = dam_break_world(TRAJ_PARTICLES)
+    world = dam_break_world(n_target)
     with_kernels = Crate(world, device="cuda", forces_mode=forces_mode)
     with_plain = Crate(world, device="cuda", forces_mode=forces_mode)
     swaps = list(swaps) + [(boundary, "ghost_pass", boundary.ghost_pass_plain),
@@ -1773,11 +1811,20 @@ def kernel_counts():
     boundary kernels, which run on every path, count apart:
     boundary_counts)."""
     from sand_crate_tpu_torch import probes
-    from sand_crate_tpu_torch.ops import pair_kernel, pmajor
+    from sand_crate_tpu_torch.ops import pair_batch, pair_kernel, pmajor
 
     return {**{f"pmajor.{k}": v for k, v in pmajor.LAUNCHES.items()},
             **{f"grid.{k}": v for k, v in pair_kernel.LAUNCHES.items()},
-            **{f"probes.{k}": v for k, v in probes.LAUNCHES.items()}}
+            **{f"probes.{k}": v for k, v in probes.LAUNCHES.items()},
+            **{f"pairs.{k}": v for k, v in pair_batch.LAUNCHES.items()}}
+
+
+def pair_want(counts: dict, mode: str, ticks: int) -> dict:
+    """``counts``' keys with the pair kernels of backend ``mode`` launched
+    ``ticks`` times each (once a pass a tick) and every other kernel 0."""
+    want = dict.fromkeys(counts, 0)
+    want.update(dict.fromkeys(PAIR_KEYS.get(mode, ()), ticks))
+    return want
 
 
 def reset_boundary() -> None:
@@ -1790,11 +1837,12 @@ def reset_boundary() -> None:
 def reset_kernel_counts() -> None:
     """Every kernel launch counter of the port to 0, the boundary's too."""
     from sand_crate_tpu_torch import probes
-    from sand_crate_tpu_torch.ops import pair_kernel, pmajor
+    from sand_crate_tpu_torch.ops import pair_batch, pair_kernel, pmajor
 
     reset(pmajor.LAUNCHES)
     reset(pair_kernel.LAUNCHES)
     reset(probes.LAUNCHES)
+    reset(pair_batch.LAUNCHES)
     reset_boundary()
 
 
@@ -1846,10 +1894,9 @@ def small_crate(name: str, raw: dict, mode: str, smi: str, profile: bool) -> flo
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_counts()
-    want = SMALL_TICKS if mode == "pmajor" else 0
-    check(launches["pmajor.a"] == launches["pmajor.b"] == want
-          and sum(launches.values()) == 2 * want,
-          f"{name} on {mode}: kernel launches {launches} (pmajor: K1/K2 once a tick; else none)")
+    check(launches == pair_want(launches, mode, SMALL_TICKS),
+          f"{name} on {mode}: kernel launches {launches} (its pair kernels once a pass a tick, "
+          f"nothing else)")
     launches = {k: v for k, v in launches.items() if v}
     launches.update(check_boundary(f"{name} on {mode}", boundary_want(SMALL_TICKS, mode)))
     events = [torch.cuda.Event(enable_timing=True) for _ in range(P50_TICKS + 1)]
@@ -1920,7 +1967,9 @@ def vmapped_vs_solo(mode: str) -> None:
     check(crates.scene.forces_mode == mode, f"BatchedCrates picked {crates.scene.forces_mode}")
     crates.run(VMAP_TICKS // 2)
     crates.run(VMAP_TICKS - VMAP_TICKS // 2)
-    check(sum(kernel_counts().values()) == 0, "a batched run launched a pair or probe kernel")
+    counts = kernel_counts()
+    check(counts == pair_want(counts, mode, VMAP_TICKS),
+          f"vmapped {mode}: launches {counts} (its pair kernels once a pass a tick for the batch)")
     check_boundary(f"vmapped {mode}", boundary_want(VMAP_TICKS, mode))
     worst = 0.0
     for i in range(VMAP_CRATES):
@@ -1968,7 +2017,9 @@ def datagen_1024(smi: str, mode: str) -> float:
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         frames = list(load_trajectory(tmp))
-    check(sum(kernel_counts().values()) == 0, "datagen launched a pair or probe kernel")
+    launches = kernel_counts()
+    check(launches == pair_want(launches, mode, DATAGEN_TICKS),
+          f"run_datagen on {mode}: launches {launches} (its pair kernels once a pass a tick)")
     check_boundary(f"run_datagen on {mode}", boundary_want(DATAGEN_TICKS, mode))
     check(out["frames"] == len(frames) == DATAGEN_TICKS // DATAGEN_EVERY, "datagen frames")
     check(out["overflow"] == 0 and out["non_finite"] == 0,
@@ -1994,8 +2045,9 @@ def datagen_1024(smi: str, mode: str) -> float:
           f"{steps / wall:.1f} particle-steps/s (particles counted at each sample: "
           f"{counts}), alive per crate at the end {int(last.min())}-{int(last.max())}; "
           f"peak memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
-    print(f"    a fresh batch after {DATAGEN_EVERY} ticks, {profile}")
-    return DATAGEN_CRATES * DATAGEN_TICKS / wall
+    print(f"    a fresh batch after {DATAGEN_EVERY} ticks, {profile}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return DATAGEN_CRATES * DATAGEN_TICKS / wall, launches
 
 
 def wave_64(smi: str, mode: str) -> float:
@@ -2029,7 +2081,9 @@ def wave_64(smi: str, mode: str) -> float:
         check(int(diag.non_finite.max()) == 0, "wave crates: non-finite particles")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check(sum(kernel_counts().values()) == 0, "a batched run launched a pair or probe kernel")
+    launches = kernel_counts()
+    check(launches == pair_want(launches, mode, WAVE_TICKS),
+          f"{WAVE_CRATES} wave_machine crates on {mode}: launches {launches}")
     check_boundary(f"{WAVE_CRATES} wave_machine crates on {mode}", boundary_want(WAVE_TICKS, mode))
     check(worst == 0, f"wave crates: overflow {worst}")
     print(f"  {WAVE_CRATES} wave_machine crates on {mode} ({smi}): {WAVE_TICKS} ticks in two "
@@ -2038,11 +2092,12 @@ def wave_64(smi: str, mode: str) -> float:
           f"{int(crates.particle_counts().sum())} particles at the end; overflow {worst}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"    {profiled(crates.run, PROFILED_TICKS)}")
-    return WAVE_CRATES * WAVE_TICKS / wall
+    return WAVE_CRATES * WAVE_TICKS / wall, launches
 
 
-def batched_crates(smi: str) -> None:
-    """Phase (j)."""
+def batched_crates(smi: str) -> dict:
+    """Phase (j); returns the pair kernels' launches of (c) on dense and of
+    (d) on chunked (BatchedCrates' defaults at those capacities)."""
     from sand_crate_tpu_torch.bench import STIRRING_CUP, WAVE_MACHINE
     from sand_crate_tpu_torch.scene import auto_forces_mode, default_capacity
     from sand_crate_tpu_torch.sweep import DENSE_MAX_CAPACITY
@@ -2063,14 +2118,312 @@ def batched_crates(smi: str) -> None:
     vmapped_vs_solo("chunked")
     # (c) and (d) run each batch on both vmappable backends, BatchedCrates'
     # default first: the evidence for its dense/chunked threshold.
+    main = {}
     for label, run, name, cap in (("(c) batched datagen", datagen_1024, "stirring_cup", 640),
                                   ("(d) mid-size batch", wave_64, "wave_machine", 4096)):
         print(f"{label}:")
         first = "dense" if cap <= DENSE_MAX_CAPACITY else "chunked"
         other = "chunked" if first == "dense" else "dense"
-        rates = {first: run(smi, first), other: run(smi, other)}
+        runs = {first: run(smi, first), other: run(smi, other)}
+        main[first] = runs[first][1]
         print(f"  {name} batch: BatchedCrates picks {first} at capacity {cap}; crate-steps/s "
-              + ", ".join(f"{m} {r:.1f}" for m, r in rates.items()))
+              + ", ".join(f"{m} {r:.1f}" for m, (r, _) in runs.items()))
+    return main
+
+# --------------------------------------------------------------------------
+# (r) the batched pair kernels: D1 and D2 (csrc/pair_batch.cu)
+# --------------------------------------------------------------------------
+
+# The columns of D2's output, by pass (spring columns where the scene has it).
+WINDOW_COLUMNS = {"a": ("w_sum", "s_x", "s_y", "nbr_cnt"),
+                  "b": ("dv_x", "dv_y", "pressure_x", "pressure_y", "visc_x", "visc_y"),
+                  "b_spring": ("dv_x", "dv_y", "pressure_x", "pressure_y", "spring_x",
+                               "spring_y", "visc_x", "visc_y")}
+
+
+def held(label: str, got, ref, names) -> float:
+    """ops/pair_batch_cases.assert_sums as a gate (counts bit for bit, NaN
+    and inf in the same places, floats within PAIR_TOL relative plus
+    PAIR_TOL of the field's largest magnitude): the largest absolute
+    difference, or the run fails naming the field."""
+    from sand_crate_tpu_torch.ops import pair_batch_cases as cases
+
+    try:
+        return cases.assert_sums(tuple(got), tuple(ref), names, PAIR_TOL)
+    except AssertionError as e:
+        check(False, f"{label}: {e}")
+
+
+def pair_cases() -> None:
+    """(r1): D1 and D2 against their plain versions on every case of
+    ops/pair_batch_cases.py (each checked on the CPU to hold what it
+    claims), crate by crate; the three-crate case vmapped."""
+    import torch
+
+    from sand_crate_tpu_torch import cellwise
+    from sand_crate_tpu_torch.ops import chunked, pair_batch
+    from sand_crate_tpu_torch.ops import pair_batch_cases as cases
+
+    one = dict.fromkeys(pair_batch.LAUNCHES, 1)
+    for name in cases.CASES:
+        facts = cases.facts(name)
+        check(all(facts.values()), f"pair case {name} does not hold what it claims: {facts}")
+        c = cases.inputs(name, "cuda")
+        sc = cases.scene(c)
+        errs, nans, lost = [0.0, 0.0], [0, 0], 0
+        for b in range(cases.crates(c)):
+            args = cases.dense_args(c, b)
+            reset(pair_batch.LAUNCHES)
+            got = pair_batch.neighbor_forces_dense(*args, sc)
+            win = cases.chunked_sums(c, b)
+            check(pair_batch.LAUNCHES == one, f"case {name}: launches {pair_batch.LAUNCHES}")
+            errs[0] = max(errs[0], held(f"D1, case {name}, crate {b}", got[:6],
+                                        cellwise.neighbor_forces_dense(*args, sc)[:6],
+                                        cases.FIELDS))
+            ref = cases.chunked_sums(c, b, chunked._pass_scan_plain)
+            errs[1] = max(errs[1], held(f"D2, case {name}, crate {b}", win[:6], ref[:6],
+                                        cases.FIELDS))
+            check(int(win.overflow) == int(ref.overflow),
+                  f"D2, case {name}: overflow {int(win.overflow)} != {int(ref.overflow)}")
+            nans[0] += sum(int(torch.isnan(x).sum()) for x in got[:6])
+            nans[1] += sum(int(torch.isnan(x).sum()) for x in win[:6])
+            lost += int(win.overflow)
+        print(f"  case {name}: {cases.crates(c)} x {c['pos'].shape[1]} slots, D2 cs {c['cs']} "
+              f"halo {c['halo']} bound {c['live_rows']}: max abs err D1 {errs[0]:.3e}, D2 "
+              f"{errs[1]:.3e}; NaN entries (as plain) D1 {nans[0]}, D2 {nans[1]}; D2 overflow "
+              f"{lost} (as plain)")
+    c = cases.inputs("batch", "cuda")
+    reset(pair_batch.LAUNCHES)
+    dense, win = cases.vmapped_dense(c), cases.vmapped_chunked(c)
+    check(pair_batch.LAUNCHES == one,
+          f"the vmapped three-crate case launched {pair_batch.LAUNCHES} (one a pass)")
+    for b in range(cases.crates(c)):
+        alone = pair_batch.neighbor_forces_dense(*cases.dense_args(c, b), cases.scene(c))
+        same_values(f"D1 vmapped, crate {b} against its run alone",
+                    tuple(x[b] for x in dense), tuple(alone[:6]))
+        same_values(f"D2 vmapped, crate {b} against its run alone",
+                    tuple(x[b] for x in win), tuple(cases.chunked_sums(c, b)))
+    print("  the three-crate case vmapped (coefficients of its own a crate): one launch a pass "
+          "of each kernel, every crate bit for bit its run alone")
+
+
+def settled_batch(raw: dict, n: int, seed: int, mode: str):
+    """(world, BatchedCrates) of ``n`` crates of the dict world ``raw`` with
+    random coefficients (sweep.DEFAULT_RANDOM_RANGES) on ``mode``, after
+    PAIR_SETTLE ticks."""
+    import copy
+
+    import torch
+
+    from sand_crate_tpu_torch import Params, load_config_dict
+    from sand_crate_tpu_torch.sweep import DEFAULT_RANDOM_RANGES, BatchedCrates, random_params
+
+    config = load_config_dict(copy.deepcopy(raw))
+    base = Params.from_coefficients(config.world_config.coefficients, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    batch = BatchedCrates(config, random_params(gen, base, DEFAULT_RANDOM_RANGES, n),
+                          device="cuda", seed=seed, forces_mode=mode)
+    batch.run(PAIR_SETTLE)
+    return config.world_config, batch
+
+
+def solo_crates(B: int) -> list:
+    return sorted({round(k * (B - 1) / (PAIR_SOLO - 1)) for k in range(PAIR_SOLO)})
+
+
+def dense_at(label: str, batch) -> dict:
+    """(r2): D1 at a settled batch's state (its positions, velocities and
+    alive masks, collider noise drawn per crate): the operator (one launch a
+    pass) and each pass alone against the plain version vmapped over the
+    crates; crates alone bit for bit their rows; times and bounds."""
+    import torch
+
+    from sand_crate_tpu_torch import cellwise
+    from sand_crate_tpu_torch.ops import pair_batch
+    from sand_crate_tpu_torch.ops import pair_batch_cases as cases
+
+    st, pr = batch.state, batch.params
+    spring = bool(batch.scene.enable_spring)
+    B, P = st.alive.shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    u = torch.rand(st.pos.shape, generator=gen, device="cuda")
+    noise = (u - 0.5) * (pr.diameter * pr.collider_noise_level)[:, None, None]
+    args = (st.pos, st.vel, st.alive, noise, *(getattr(pr, k) for k in pair_batch.DENSE_COEFS))
+    reset(pair_batch.LAUNCHES)
+    got = torch.ops.sand_crate.dense_pairs(*args, int(spring))
+    check(pair_batch.LAUNCHES == {"dense_a": 1, "dense_b": 1, "window_a": 0, "window_b": 0},
+          f"D1 at {label}: launches {pair_batch.LAUNCHES}")
+    err = held(f"D1 at {label}", got,
+               torch.func.vmap(lambda *a: pair_batch.dense_pairs_plain(*a, spring))(*args),
+               cases.FIELDS)
+    a_args = (st.pos, st.alive, noise, pr.diameter, pr.ignored_pressure)
+    plain_a = torch.func.vmap(cellwise.dense_pass_a)
+    ra = plain_a(*a_args)
+    err_a = held(f"D1 pass A at {label}", pair_batch.dense_pass_a(*a_args), ra,
+                 ("p_i", "s", "nbr_cnt"))
+    b_args = (st.pos, st.vel, st.alive, noise, ra[0], ra[1], pr.diameter, pr.surface_smoothing,
+              pr.target_pressure, pr.spring_overlap_balance)
+    plain_b = torch.func.vmap(lambda *a: cellwise.dense_pass_b(*a, spring))
+    err_b = held(f"D1 pass B at {label}", pair_batch.dense_pass_b(*b_args, spring),
+                 plain_b(*b_args), ("dv_tension", "pressure_real", "spring_real", "visc_vsum"))
+    solo = solo_crates(B)
+    for b in solo:
+        alone = torch.ops.sand_crate.dense_pairs(*(x[b:b + 1] for x in args), int(spring))
+        same_values(f"D1 at {label}: crate {b} alone against its row of the batch",
+                    tuple(y[0] for y in alone), tuple(x[b] for x in got))
+    n_alive = st.alive.sum(dim=1).double()
+    tested = float((n_alive * (n_alive - 1)).sum())
+    counted = float(got[5].double().sum())
+    key_b = "b_spring" if spring else "b"
+    out = dict(
+        err_a=max(err, err_a), err_b=max(err, err_b),
+        ms_a=cuda_ms(lambda: pair_batch.dense_pass_a(*a_args), PAIR_REPS),
+        ms_b=cuda_ms(lambda: pair_batch.dense_pass_b(*b_args, spring), PAIR_REPS),
+        plain_a=cuda_ms(lambda: plain_a(*a_args), PAIR_REPS),
+        plain_b=cuda_ms(lambda: plain_b(*b_args), PAIR_REPS),
+        # bytes: pos, alive, noise in and p_i, s, cnt out (A); pos, vel,
+        # alive, noise, p_i, s in and four (B, P, 2) sums out (B)
+        bytes_a=B * P * (8 + 1 + 8 + 4 + 8 + 4) + 2 * 4 * B,
+        bytes_b=B * P * (8 + 8 + 1 + 8 + 4 + 8 + 4 * 8) + 4 * 4 * B,
+        ops_a=tested * pair_batch.PAIR_TEST_OPS + counted * pair_batch.COUNTED_PAIR_OPS["a"],
+        ops_b=tested * pair_batch.PAIR_TEST_OPS + counted * pair_batch.COUNTED_PAIR_OPS[key_b])
+    alive = st.alive.sum(dim=1)
+    print(f"  D1 at {label} ({B} x {P} slots, alive {int(alive.min())}-{int(alive.max())} a "
+          f"crate, spring {spring}): == plain vmapped (max abs err {err:.3e}; pass A alone "
+          f"{err_a:.3e}, pass B alone {err_b:.3e}), crates {solo} alone bit for bit their rows; "
+          f"pass A {out['ms_a']:.4f} ms, pass B {out['ms_b']:.4f} ms (plain vmapped "
+          f"{out['plain_a']:.3f} / {out['plain_b']:.3f} ms); {B * P * P:.4g} pairs a pass "
+          f"computed, {tested:.4g} tested ({pair_batch.PAIR_TEST_OPS} operations), {counted:.4g} "
+          f"counted ({pair_batch.COUNTED_PAIR_OPS} operations): bounds "
+          f"{bound(out['bytes_a'], 0, f32_flops=out['ops_a'])[0]:.4f} / "
+          f"{bound(out['bytes_b'], 0, f32_flops=out['ops_b'])[0]:.4f} ms at 67 TFLOP/s")
+    return out
+
+
+def window_tests(feat, n_chunks: int, cs: int, halo: int) -> tuple:
+    """(alive window pairs, those within one row) of a (B, p_pad, F) slab's
+    swept chunks: the ordered pairs (self, window slot), both alive and not
+    the same slab row, that D2's function must row-test, and those of them
+    whose grid rows differ by at most one, which it must d2-test."""
+    import torch
+
+    B, p_pad = feat.shape[:2]
+    row, alive = feat[..., 4], feat[..., 5] > 0
+    window_pairs = row_pairs = 0.0
+    for c in range(n_chunks):
+        lo, hi = max(c * cs - halo, 0), min(c * cs + cs + halo, p_pad)
+        for b0 in range(0, B, 64):
+            sr, sa = row[b0:b0 + 64, c * cs:c * cs + cs], alive[b0:b0 + 64, c * cs:c * cs + cs]
+            wr, wa = row[b0:b0 + 64, lo:hi], alive[b0:b0 + 64, lo:hi]
+            both = sa[:, :, None] & wa[:, None, :]
+            k = torch.arange(cs, device=feat.device)
+            both[:, k, k + c * cs - lo] = False  # a self is its own window's slot
+            near = both & ((wr[:, None, :] - sr[:, :, None]).abs() <= 1.0)
+            window_pairs += float(both.sum())
+            row_pairs += float(near.sum())
+    return window_pairs, row_pairs
+
+
+def window_at(label: str, batch, world) -> dict:
+    """(r2): D2 at a settled batch's state in each crate's cell order, the
+    chunked scene of its world, the sweep bound its largest alive count:
+    pass A and pass B on the slabs the vmapped chunked sweep builds, each
+    against the plain version vmapped over the crates; crates alone bit for
+    bit their rows; times and bounds."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import chunked, pair_batch
+    from sand_crate_tpu_torch.ops import pair_batch_cases as cases
+    from sand_crate_tpu_torch.scene import build_scene
+
+    st, pr = batch.state, batch.params
+    sc = build_scene(world, device="cuda", forces_mode="chunked")
+    check(sc.capacity == batch.scene.capacity, f"D2 at {label}: capacity")
+    spring = bool(sc.enable_spring)
+    pos, vel, alive, cid = cases.sorted_batch(st.pos, st.vel, st.alive, sc)
+    bound_rows = int(alive.sum(dim=1).max())
+    coefs = [getattr(pr, k) for k in pair_batch.DENSE_COEFS]
+    args = (pos, vel, alive, cid, pr.diameter * pr.collider_noise_level, st.tick, *coefs)
+    feats = cases.batch_slabs(args, (0,) * len(args), sc, bound_rows)
+    B, p_pad = feats[0].shape[:2]
+    cs, halo = sc.chunk_cs, sc.chunk_halo
+    n_chunks = chunked.live_chunks(bound_rows, p_pad, cs)
+    wcoefs = [pr.diameter, pr.surface_smoothing, pr.target_pressure, pr.spring_overlap_balance]
+    pairs = B * n_chunks * cs * (cs + 2 * halo)
+    window_pairs, row_pairs = window_tests(feats[0], n_chunks, cs, halo)
+    solo = solo_crates(B)
+    out = {}
+    for mode, feat in zip("ab", feats):
+        n_out = pair_batch.window_outputs(mode, spring)
+        key = "b_spring" if mode == "b" and spring else mode
+        reset(pair_batch.LAUNCHES)
+        got = pair_batch.window_kernel(feat, *wcoefs, halo, cs, n_chunks, mode, spring)
+        check(pair_batch.LAUNCHES == {**dict.fromkeys(pair_batch.LAUNCHES, 0),
+                                      "window_" + mode: 1},
+              f"D2 pass {mode} at {label}: launches {pair_batch.LAUNCHES}")
+        plain = torch.func.vmap(lambda f, d, s, t, q, m=mode, k=n_out: chunked._pass_scan_plain(
+            f, halo, k, m, d, s, t, q, spring, n_chunks, cs))
+        out["err_" + mode] = held(f"D2 pass {mode} at {label}", got.unbind(-1),
+                                  plain(feat, *wcoefs).unbind(-1), WINDOW_COLUMNS[key])
+        for b in solo:
+            alone = pair_batch.window_kernel(feat[b:b + 1], *(x[b:b + 1] for x in wcoefs), halo,
+                                             cs, n_chunks, mode, spring)
+            same_values(f"D2 pass {mode} at {label}: crate {b} alone against its row",
+                        alone[0], got[b])
+        out["ms_" + mode] = cuda_ms(lambda m=mode, f=feat: pair_batch.window_kernel(
+            f, *wcoefs, halo, cs, n_chunks, m, spring), PAIR_REPS)
+        out["plain_" + mode] = cuda_ms(lambda f=feat, p=plain: p(f, *wcoefs), PAIR_REPS)
+        # bytes: the slab in, the sums out
+        out["bytes_" + mode] = B * p_pad * (feat.shape[2] + n_out) * 4 + 4 * 4 * B
+        if mode == "a":
+            counted = float(got[..., 3].double().sum())
+        out["ops_" + mode] = (window_pairs * pair_batch.ROW_TEST_OPS
+                              + row_pairs * pair_batch.PAIR_TEST_OPS
+                              + counted * pair_batch.COUNTED_PAIR_OPS[key])
+    print(f"  D2 at {label} ({B} crates, slab {p_pad} rows, cs {cs}, halo {halo}, sweep bound "
+          f"{bound_rows}: {n_chunks} chunks, spring {spring}): passes A and B == plain vmapped "
+          f"(max abs err {out['err_a']:.3e} / {out['err_b']:.3e}), crates {solo} alone bit for "
+          f"bit their rows; pass A {out['ms_a']:.4f} ms, pass B {out['ms_b']:.4f} ms (plain "
+          f"vmapped {out['plain_a']:.3f} / {out['plain_b']:.3f} ms); {pairs:.4g} pairs a pass "
+          f"computed, {window_pairs:.4g} alive window pairs row-tested "
+          f"({pair_batch.ROW_TEST_OPS} operations), {row_pairs:.4g} within a row tested "
+          f"({pair_batch.PAIR_TEST_OPS}), {counted:.4g} counted "
+          f"({pair_batch.COUNTED_PAIR_OPS}): bounds "
+          f"{bound(out['bytes_a'], 0, f32_flops=out['ops_a'])[0]:.4f} / "
+          f"{bound(out['bytes_b'], 0, f32_flops=out['ops_b'])[0]:.4f} ms at 67 TFLOP/s")
+    return out
+
+
+def pair_batch_rows(smi: str) -> list:
+    """Phase (r); returns the kernels line's rows of D1 (at 1024 x 640) and
+    D2 (at 64 x 4096), their launches filled in by (j)."""
+    import torch
+
+    from sand_crate_tpu_torch.bench import STIRRING_CUP, WAVE_MACHINE
+
+    print(f"(r1) D1 and D2 vs their plain versions on the hard cases "
+          f"(ops/pair_batch_cases.py), {smi}:")
+    pair_cases()
+    print(f"(r2) at settled batches ({PAIR_SETTLE} ticks), {smi}:")
+    rows = []
+    for raw, n, seed, mode, name in ((STIRRING_CUP, DATAGEN_CRATES, 3, "dense", "stirring_cup"),
+                                     (WAVE_MACHINE, WAVE_CRATES, 5, "chunked", "wave_machine")):
+        world, batch = settled_batch(raw, n, seed, mode)
+        label = f"{n} settled {name} crates"
+        d = dense_at(label, batch)
+        w = window_at(label, batch, world)
+        kept, which = (d, "dense") if mode == "dense" else (w, "window")
+        for p in "ab":
+            rows.append(kernel_row(f"{which}_{p}", PAIR_SOURCE, PAIR_REPLACES[which],
+                                   kept["err_" + p], kept["ms_" + p], kept["plain_" + p],
+                                   kept["bytes_" + p], 0, f32_flops=kept["ops_" + p]))
+        print(f"  {label}: D1 {d['ms_a'] + d['ms_b']:.4f} ms against D2 "
+              f"{w['ms_a'] + w['ms_b']:.4f} ms for both passes (BatchedCrates runs {mode})")
+        del batch
+        torch.cuda.empty_cache()
+    return rows
 
 
 def cli_path(smi: str, recording_dir) -> None:
@@ -2159,7 +2512,9 @@ def cli_path(smi: str, recording_dir) -> None:
               f"overflow {int(diag.neighbor_overflow)}")
         print(f"  wave_machine on {mode}: {c.particle_count} particles at tick {c.tick}, "
               f"{ms:.3f} ms/tick (host clock + synchronize), overflow 0, non_finite 0")
-    check(not any(kernel_counts().values()), f"dense/gather/cellwise launched {kernel_counts()}")
+    counts = kernel_counts()
+    check(counts == pair_want(counts, "dense", WAVE_BACKEND_TICKS),
+          f"dense/gather/cellwise launched {counts} (dense: D1 once a pass a tick; else none)")
     ref_crate = crates["dense"]
     st, pr = ref_crate.state, ref_crate.params
     zero = torch.zeros_like(st.pos)
@@ -3630,7 +3985,7 @@ def graphs_small(smi: str) -> None:
             crate = Crate(world, device="cuda", forces_mode=mode)
             crate.run(SMALL_TICKS)
             edit = ("viscosity", 1.5 * float(crate.viscosity))
-            want = {"pmajor.a": GRAPH_TICKS, "pmajor.b": GRAPH_TICKS} if mode == "pmajor" else {}
+            want = dict.fromkeys(PAIR_KEYS[mode], GRAPH_TICKS)
             replay_vs_eager(f"{name} on {mode}", crate, GRAPH_TICKS, edit, want)
             crate_turns(f"{name} on {mode}", smi, crate)
     for n in PROBE_SIZES[:-1]:
@@ -3668,7 +4023,7 @@ def graphs_batched(smi: str) -> None:
         reset_kernel_counts()
         reset(graphs.LAUNCHES)
         diag = b.run(GRAPH_TICKS)
-        calls = dict(graphs.LAUNCHES)
+        calls, launches = dict(graphs.LAUNCHES), kernel_counts()
         bounds = check_boundary(f"BatchedCrates on {mode}", boundary_want(GRAPH_TICKS, mode))
         b.generator.set_state(g0)
         st, want, worst = eager_loop(s0, p0, b.scene, b.generator, GRAPH_TICKS, live,
@@ -3676,7 +4031,9 @@ def graphs_batched(smi: str) -> None:
         same_bits(f"BatchedCrates on {mode}", b.state, st)
         same_bits(f"BatchedCrates on {mode} (diagnostics)", diag,
                   want._replace(neighbor_overflow=worst))
-        check(sum(kernel_counts().values()) == 0, "a batched run launched a pair or probe kernel")
+        check(launches == pair_want(launches, mode, GRAPH_TICKS),
+              f"BatchedCrates on {mode}: launches {launches} (its pair kernels once a pass a "
+              f"replayed tick)")
         check(calls["replay"] >= GRAPH_TICKS - 1, f"BatchedCrates on {mode}: graph calls {calls}")
         print(f"  BatchedCrates on {mode}: {VMAP_CRATES} crates x {GRAPH_TICKS} ticks (sweep bound "
               f"{live}), replayed == the eager vmapped loop bit for bit, overflow max "
@@ -3923,11 +4280,11 @@ def main() -> int:
 
     # -- 2. build (a) ------------------------------------------------------------
     with phase("build"):
-        cuda_build.build("pmajor", "grid_pair", "probes", "boundary", "kick")
+        cuda_build.build("pmajor", "grid_pair", "probes", "boundary", "kick", "pair_batch")
         print("build: pmajor.cu (K1/K2, K10), grid_pair.cu (K3-K9), probes.cu (P1-P4), "
-              "boundary.cu (B1, full and positions-only) and kick.cu (B2, the velocity "
-              "update), one nvcc each, in parallel")
-        print_ptxas(("pmajor", "grid_pair", "probes", "boundary", "kick"))
+              "boundary.cu (B1, full and positions-only), kick.cu (B2, the velocity "
+              "update) and pair_batch.cu (D1, D2), one nvcc each, in parallel")
+        print_ptxas(("pmajor", "grid_pair", "probes", "boundary", "kick", "pair_batch"))
 
     # -- 3. world --------------------------------------------------------------
     with phase("world"):
@@ -4098,6 +4455,23 @@ def main() -> int:
         print("P1-P4 vs their plain versions on the hard inputs (probes/probe_cases.py):")
         probe_hard_cases()
 
+    # -- (r) the batched pair kernels against their plain versions ----------------
+    with phase("batched pair kernels"):
+        pair_rows = pair_batch_rows(smi)
+    with phase("dense and chunked trajectories"):
+        from sand_crate_tpu_torch import cellwise
+        from sand_crate_tpu_torch.ops import chunked, pair_batch
+
+        none = dict.fromkeys(pair_batch.LAUNCHES, 0)
+        trajectory("dense trajectory", "dense",
+                   [(pair_batch, "neighbor_forces_dense", cellwise.neighbor_forces_dense)],
+                   pair_batch.LAUNCHES, {**none, "dense_a": TRAJ_TICKS, "dense_b": TRAJ_TICKS},
+                   TRAJ_SMALL_PARTICLES)
+        trajectory("chunked trajectory", "chunked",
+                   [(pair_batch, "window_pass", chunked._pass_scan_plain)], pair_batch.LAUNCHES,
+                   {**none, "window_a": TRAJ_TICKS, "window_b": TRAJ_TICKS},
+                   TRAJ_SMALL_PARTICLES)
+
     with tempfile.TemporaryDirectory() as tmp:
         traj_dir = Path(tmp) / "trajectory"
         # -- (i) recording and checkpoints ---------------------------------------
@@ -4107,7 +4481,12 @@ def main() -> int:
         # -- (j) batched crates, the dense and chunked backends --------------------
         with phase("batched crates"):
             print(f"batched crates and the small- and mid-crate backends on {smi}:")
-            batched_crates(smi)
+            batch_launches = batched_crates(smi)
+            for r in pair_rows:  # D1 on (c)'s dense run, D2 on (d)'s chunked run
+                r["launches"] = batch_launches["dense" if r["name"].startswith("dense")
+                                               else "chunked"]["pairs." + r["name"]]
+            check(all(r["launches"] > 0 for r in pair_rows),
+                  f"a pair kernel launched no time on its batched path: {pair_rows}")
 
         # -- (k) the command line's main path, rendering, replay, gather, cellwise --
         with phase("CLI main path"):
@@ -4131,6 +4510,8 @@ def main() -> int:
             r["tools_launches"] = tool_launches["pmajor." + r["name"][-1]]
         for r in grid_rows:
             r["tools_launches"] = tool_launches["grid." + r["name"]]
+        for r in pair_rows:  # (n2)'s dense wave_machine soak, (n7) and (n8) on chunked
+            r["tools_launches"] = tool_launches["pairs." + r["name"]]
 
     # -- (o) the compiled step loop: replayed graphs against the eager loop ------------
     with phase("graphs"):
@@ -4140,7 +4521,7 @@ def main() -> int:
     with phase("band graphs"):
         band_graphs(smi)
 
-    print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows + b_rows}))
+    print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows + b_rows + pair_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

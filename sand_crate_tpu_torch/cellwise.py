@@ -13,7 +13,12 @@ their rank % M cellmate's sums and are counted in the overflow.  The
 collider noise is one (P, 2) jitter per particle, drawn by the caller.
 ``pass_a_on_grid`` / ``pad_ps_grid`` / ``pass_b_on_grid`` keep the JAX
 names and arguments, so a caller that fills the pad ring with another
-band's edge rows (the JAX spatial engine's halo) can call them alike."""
+band's edge rows (the JAX spatial engine's halo) can call them alike.
+
+The dense backend here (:func:`neighbor_forces_dense`, passes
+:func:`dense_pass_a` and :func:`dense_pass_b`) is the plain twin of the
+dense pair kernels (D1, ``csrc/pair_batch.cu``); the tick calls
+``ops/pair_batch.neighbor_forces_dense``, which launches them on the card."""
 
 from __future__ import annotations
 
@@ -315,6 +320,95 @@ def neighbor_forces_cellwise_sorted(
     return sums_from_packed(packed, gather_slot, overflow, nc_m)
 
 
+def _dense_geometry(pos: torch.Tensor, alive: torch.Tensor, noise: torch.Tensor,
+                    diameter: torch.Tensor):
+    """The (P, P) planes of both dense passes: the pair mask (bool), the
+    noisy unit direction's x and y, and the overlap weight w.  A pair (i, j)
+    counts when both are alive, i != j and their distance is at most one
+    diameter; its direction and weight use j's position plus ``noise[j]``.
+    The weight is selected by the mask, as the JAX package's compiled step
+    takes ``m * (1 - clip(..))`` (XLA rewrites a product with a converted
+    mask to a select): a dead slot at a NaN position leaves ``p_i`` finite."""
+    P = pos.shape[0]
+    diam = torch.clamp(diameter, min=EPS)
+    px, py = pos[:, 0], pos[:, 1]
+    rx = px[:, None] - px[None, :]
+    ry = py[:, None] - py[None, :]
+    d2 = rx * rx + ry * ry
+    del rx, ry
+    eye = torch.eye(P, dtype=torch.bool, device=pos.device)
+    mb = (d2 <= diam * diam) & alive[:, None] & alive[None, :] & ~eye
+    del d2, eye
+    qx = px + noise[:, 0]
+    qy = py + noise[:, 1]
+    nx = px[:, None] - qx[None, :]
+    ny = py[:, None] - qy[None, :]
+    dist = torch.sqrt(torch.clamp(nx * nx + ny * ny, min=0.0))
+    den = torch.clamp(dist, min=EPS)
+    nx = nx / den
+    ny = ny / den
+    del den
+    w = torch.where(mb, 1.0 - torch.clamp(dist / diam, 0.0, 1.0), 0.0)
+    return mb, nx, ny, w
+
+
+def _dense_a(mb, nx, ny, w, ignored_pressure):
+    """Pass A's sums from the planes -> (p_i, s, cnt)."""
+    cnt = mb.to(w.dtype).sum(dim=1)
+    p_i = torch.where(cnt > 0, torch.clamp(w.sum(dim=1) - ignored_pressure, min=0.0), 0.0)
+    coeff = (1.0 - w) * w
+    s = torch.stack([(coeff * nx).sum(dim=1), (coeff * ny).sum(dim=1)], dim=-1)
+    return p_i, s, cnt
+
+
+def _dense_b(mb, nx, ny, w, vel, p_i, s, surface_smoothing, target_pressure,
+             spring_overlap_balance, spring: bool):
+    """Pass B's sums from the planes -> (dv_tension, pressure_real,
+    spring_real, visc_vsum).  Each term is selected by the mask, as the
+    compiled JAX step takes ``m * (..)``, then multiplied by the direction;
+    the neighbour velocities are multiplied by the mask (the compiled step
+    keeps that product, so a NaN velocity of a dead slot reaches the sum)."""
+    sx, sy = s[:, 0], s[:, 1]
+    align = ((sx[:, None] - sx[None, :]) * nx + (sy[:, None] - sy[None, :]) * ny) * (
+        surface_smoothing
+    )
+    t = torch.where(mb, align + (p_i[None, :] + p_i[:, None] - 2.0 * target_pressure), 0.0)
+    del align
+    dv_tension = torch.stack([(t * nx).sum(dim=1), (t * ny).sum(dim=1)], dim=-1)
+    t = torch.where(mb, p_i[:, None] + p_i[None, :], 0.0)
+    pressure_real = torch.stack([(t * nx).sum(dim=1), (t * ny).sum(dim=1)], dim=-1)
+    if spring:
+        t = torch.where(mb, spring_overlap_balance - w, 0.0)
+        spring_real = torch.stack([(t * nx).sum(dim=1), (t * ny).sum(dim=1)], dim=-1)
+    else:
+        spring_real = torch.zeros_like(vel)
+    del t
+    m = mb.to(vel.dtype)
+    visc_vsum = torch.stack([(m * vel[None, :, 0]).sum(dim=1), (m * vel[None, :, 1]).sum(dim=1)],
+                            dim=-1)
+    return dv_tension, pressure_real, spring_real, visc_vsum
+
+
+def dense_pass_a(pos: torch.Tensor, alive: torch.Tensor, noise: torch.Tensor,
+                 diameter: torch.Tensor, ignored_pressure: torch.Tensor):
+    """Dense pass A alone -> (p_i (P,), s (P, 2), cnt (P,)): the neighbor
+    count, the pressure ``where(cnt > 0, max(0, sum w - ignored_pressure),
+    0)`` and the surface-normal sums ``sum (1 - w) w nhat``."""
+    return _dense_a(*_dense_geometry(pos, alive, noise, diameter), ignored_pressure)
+
+
+def dense_pass_b(pos: torch.Tensor, vel: torch.Tensor, alive: torch.Tensor, noise: torch.Tensor,
+                 p_i: torch.Tensor, s: torch.Tensor, diameter: torch.Tensor,
+                 surface_smoothing: torch.Tensor, target_pressure: torch.Tensor,
+                 spring_overlap_balance: torch.Tensor, spring: bool):
+    """Dense pass B alone, from pass A's ``p_i`` and ``s`` -> (dv_tension,
+    pressure_real, spring_real, visc_vsum), each (P, 2); ``spring_real`` is
+    zero unless ``spring``.  It builds the planes anew (a pass timed on its
+    own, as D1's pass B runs)."""
+    return _dense_b(*_dense_geometry(pos, alive, noise, diameter), vel, p_i, s,
+                    surface_smoothing, target_pressure, spring_overlap_balance, spring)
+
+
 def neighbor_forces_dense(
     pos: torch.Tensor,
     vel: torch.Tensor,
@@ -328,64 +422,26 @@ def neighbor_forces_dense(
     scene: Scene,
 ) -> PairSums:
     """All-pairs masked (P, P) pair sums: no sort, no grid (the JAX
-    ``neighbor_forces_dense``, sand_crate_tpu/cellwise.py:334-392).
+    ``neighbor_forces_dense``, sand_crate_tpu/cellwise.py:334-392, as its
+    compiled step computes it).
 
-    A pair (i, j) counts when both are alive, i != j and their distance is
-    at most one diameter; its direction and weight use j's position plus
+    The plain twin of the dense kernels (D1, ``csrc/pair_batch.cu``): the
+    tick reaches it through ``ops/pair_batch.neighbor_forces_dense``, which
+    runs it on CPU tensors and launches the kernels on CUDA ones.  A pair
+    (i, j) counts when both are alive, i != j and their distance is at most
+    one diameter; its direction and weight use j's position plus
     ``noise[j]`` (the collider jitter, drawn by the caller).  Every term is
     the JAX function's, in its order, on x and y planes kept apart, so that
-    no (P, P, 2) tensor is built; each plane is dropped once its last use
-    is past (at a batch of 1024 crates of 640 slots one f32 plane is 1.68
-    GB).  Nothing is read back to the host, so the function vmaps over a
-    leading crate axis.  ``spring_real`` is zero unless
-    ``scene.enable_spring`` (the step reads it only then)."""
-    dtype = pos.dtype
-    P = pos.shape[0]
-    diam = torch.clamp(diameter, min=EPS)
-    px, py = pos[:, 0], pos[:, 1]
-    rx = px[:, None] - px[None, :]
-    ry = py[:, None] - py[None, :]
-    d2 = rx * rx + ry * ry
-    del rx, ry
-    eye = torch.eye(P, dtype=torch.bool, device=pos.device)
-    mb = (d2 <= diam * diam) & alive[:, None] & alive[None, :] & ~eye
-    del d2, eye
-    m = mb.to(dtype)
-    qx = px + noise[:, 0]
-    qy = py + noise[:, 1]
-    nx = px[:, None] - qx[None, :]
-    ny = py[:, None] - qy[None, :]
-    dist = torch.sqrt(torch.clamp(nx * nx + ny * ny, min=0.0))
-    den = torch.clamp(dist, min=EPS)
-    nx = nx / den
-    ny = ny / den
-    del den
-    w = m * (1.0 - torch.clamp(dist / diam, 0.0, 1.0))
-    del dist
-
-    cnt = m.sum(dim=1)
-    p_i = torch.where(cnt > 0, torch.clamp(w.sum(dim=1) - ignored_pressure, min=0.0), 0.0)
-    coeff = (1.0 - w) * w
-    sx = (coeff * nx).sum(dim=1)
-    sy = (coeff * ny).sum(dim=1)
-    del coeff
-
-    align = ((sx[:, None] - sx[None, :]) * nx + (sy[:, None] - sy[None, :]) * ny) * (
-        surface_smoothing
-    )
-    t = m * (align + (p_i[None, :] + p_i[:, None] - 2.0 * target_pressure))
-    del align
-    dv_tension = torch.stack([(t * nx).sum(dim=1), (t * ny).sum(dim=1)], dim=-1)
-    t = m * (p_i[:, None] + p_i[None, :])
-    pressure_real = torch.stack([(t * nx).sum(dim=1), (t * ny).sum(dim=1)], dim=-1)
-    if scene.enable_spring:
-        t = m * (spring_overlap_balance - w)
-        spring_real = torch.stack([(t * nx).sum(dim=1), (t * ny).sum(dim=1)], dim=-1)
-    else:
-        spring_real = torch.zeros_like(pos)
-    del t, w, nx, ny
-    visc_vsum = torch.stack([(m * vel[None, :, 0]).sum(dim=1), (m * vel[None, :, 1]).sum(dim=1)],
-                            dim=-1)
+    no (P, P, 2) tensor is built (at a batch of 1024 crates of 640 slots one
+    f32 plane is 1.68 GB); both passes read one set of planes.  Nothing is
+    read back to the host, so the function vmaps over a leading crate axis.
+    ``spring_real`` is zero unless ``scene.enable_spring`` (the step reads it
+    only then)."""
+    planes = _dense_geometry(pos, alive, noise, diameter)
+    p_i, s, cnt = _dense_a(*planes, ignored_pressure)
+    dv_tension, pressure_real, spring_real, visc_vsum = _dense_b(
+        *planes, vel, p_i, s, surface_smoothing, target_pressure, spring_overlap_balance,
+        scene.enable_spring)
     return PairSums(
         p_i=p_i,
         dv_tension=dv_tension,

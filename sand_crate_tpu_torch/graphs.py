@@ -64,7 +64,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .ops import boundary, kick, pair_kernel, pmajor
+from .ops import boundary, kick, pair_batch, pair_kernel, pmajor
 from .state import CrateState, Diagnostics, Params
 
 # Captured graphs alive at once in the process.
@@ -73,7 +73,8 @@ MAX_GRAPHS = 4
 MAX_ROLLOUT_BUFFERS = 4
 
 # The kernel launch counters that a replay advances by their capture's rise.
-COUNTERS = (pmajor.LAUNCHES, pair_kernel.LAUNCHES, boundary.LAUNCHES, kick.LAUNCHES)
+COUNTERS = (pmajor.LAUNCHES, pair_kernel.LAUNCHES, boundary.LAUNCHES, kick.LAUNCHES,
+            pair_batch.LAUNCHES)
 # Graph launches (one cudaGraphLaunch each) and captures since the last reset.
 LAUNCHES = {"replay": 0, "capture": 0}
 

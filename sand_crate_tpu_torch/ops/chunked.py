@@ -1,4 +1,4 @@
-"""Chunked fixed-halo pair backend: plain torch, vmappable.
+"""Chunked fixed-halo pair backend, vmappable.
 
 The PyTorch counterpart of ``sand_crate_tpu/ops/chunked.py`` (XLA code
 there, no Pallas kernel), the mid-size backend of batched crates
@@ -9,9 +9,13 @@ there, no Pallas kernel), the mid-size backend of batched crates
                   [chunk_start - H, chunk_start + cs + H), H = ``Scene.chunk_halo``
     pair plane:   (cs, cs + 2H) elementwise math, one chunk at a time
 
-The chunk loop is a Python loop over a host count of chunks, so under
+Each pass sweeps the sorted feature slab through ``ops/pair_batch.window_pass``:
+on the card one launch of the window kernel (D2, ``csrc/pair_batch.cu``)
+for every crate of a vmapped batch; on the CPU :func:`_pass_scan_plain`,
+its plain twin, a Python loop over a host count of chunks, so that under
 ``torch.func.vmap`` every window is a slice at the same offset for every
-crate: no per-crate gather and no host read.
+crate: no per-crate gather and no host read.  The hashed noise, the
+feature slabs and the loss count stay torch glue (P-sized).
 
 Pair rule: |grid-row delta| <= 1, distance within one diameter, both alive,
 different slab index.  No cell-capacity cap.  The one approximation is the
@@ -30,6 +34,7 @@ import torch
 
 from ..cellwise import PairSums, cell_ids_grid
 from ..state import Scene
+from . import pair_batch
 from .pmajor import EPS, _u01
 
 
@@ -45,13 +50,13 @@ def live_chunks(live_rows: int | None, p_pad: int, cs: int) -> int:
     return min(-(-max(int(live_rows), 0) // cs), nchunks)
 
 
-def _pass_scan(feat, halo, n_out, mode, diam, smoothing, target_p, balance,
-               enable_spring, n_chunks, cs):
-    """Sweep the first ``n_chunks`` cs-wide self chunks of the (p_pad, F)
-    sorted feature slab, each against its one fixed (cs + 2 halo) window;
-    later chunks hold no alive self (dead rows sort last) and get exact
-    zeros, as every output is gated on the both-alive pair mask.  Returns
-    (p_pad, n_out)."""
+def _pass_scan_plain(feat, halo, n_out, mode, diam, smoothing, target_p, balance,
+                     enable_spring, n_chunks, cs):
+    """The window kernel's plain twin.  Sweep the first ``n_chunks``
+    cs-wide self chunks of the (p_pad, F) sorted feature slab, each against
+    its one fixed (cs + 2 halo) window; later chunks hold no alive self
+    (dead rows sort last) and get exact zeros, as every output is gated on
+    the both-alive pair mask.  Returns (p_pad, n_out)."""
     p_pad, F = feat.shape
     wt = cs + 2 * halo
     featp = torch.nn.functional.pad(feat, (0, 0, halo, halo))
@@ -95,12 +100,14 @@ def _pass_scan(feat, halo, n_out, mode, diam, smoothing, target_p, balance,
             align = ((s_sx - c_sx) * nhx + (s_sy - c_sy) * nhy) * smoothing
             t_coef = torch.where(mb, align + (c_cp + s_cp - 2.0 * target_p), 0.0)
             p_coef = torch.where(mb, s_cp + c_cp, 0.0)
-            mm = mb.to(feat.dtype)
             outs = [t_coef * nhx, t_coef * nhy, p_coef * nhx, p_coef * nhy]
             if enable_spring:
                 sp = torch.where(mb, balance - wgt, 0.0)
                 outs += [sp * nhx, sp * nhy]
-            outs += [mm * c_vx, mm * c_vy]
+            # The JAX loop multiplies by mb.astype(f32); XLA compiles that
+            # product as a select, so a NaN velocity outside the mask (a
+            # dead slot) stays out of the sum: a where keeps its result.
+            outs += [torch.where(mb, c_vx, 0.0), torch.where(mb, c_vy, 0.0)]
         out.append(torch.stack([o.sum(dim=1) for o in outs], dim=-1))
     assert not out or out[0].shape[-1] == n_out
     rest = p_pad - n_chunks * cs
@@ -189,7 +196,7 @@ def neighbor_forces_chunked_sorted(
     )[0]
 
     feat_a = torch.stack([col(px), col(py), col(npx), col(npy), col(rowf), col(af)], dim=-1)
-    out_a = _pass_scan(feat_a, halo, 4, "a", diam, sm, tp, bal, False, n_chunks, cs)
+    out_a = pair_batch.window_pass(feat_a, halo, 4, "a", diam, sm, tp, bal, False, n_chunks, cs)
     w_sum, sx, sy, cnt = (out_a[:P, k] for k in range(4))
     cp = torch.where(cnt > 0, torch.clamp(w_sum - ignored_pressure, min=0.0), 0.0)
 
@@ -199,8 +206,8 @@ def neighbor_forces_chunked_sorted(
          col(vel[:, 0].to(f32)), col(vel[:, 1].to(f32)), col(cp), col(sx), col(sy)],
         dim=-1,
     )
-    out_b = _pass_scan(feat_b, halo, n_out_b, "b", diam, sm, tp, bal, scene.enable_spring,
-                       n_chunks, cs)
+    out_b = pair_batch.window_pass(feat_b, halo, n_out_b, "b", diam, sm, tp, bal,
+                                   scene.enable_spring, n_chunks, cs)
 
     lost = _lost_pairs(sorted_cid, n_alive, nx, ny, halo, p_pad // cs, cs)
     if live_rows is not None:

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 # reproduce their plain torch versions bit for bit (see each source's note).
 SOURCE_FLAGS = {
     "pmajor": ("-fmad=false",), "grid_pair": ("-fmad=false",), "probes": ("-fmad=false",),
-    "boundary": ("-fmad=false",), "kick": ("-fmad=false",),
+    "boundary": ("-fmad=false",), "kick": ("-fmad=false",), "pair_batch": ("-fmad=false",),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

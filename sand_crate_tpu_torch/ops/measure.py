@@ -8,7 +8,11 @@ The peaks are the H100 SXM's (NVIDIA's data sheet and Hopper white paper,
 700 W).  Every kernel of ``csrc/`` is built with ``-fmad=false``, so a
 multiply and an add issue as two instructions: f32 operations count at half
 the 67 TFLOP/s FMA peak (which counts an FMA as two operations), and bf16
-operations, packed two to an instruction (bf16x2), at twice that.
+operations, packed two to an instruction (bf16x2), at twice that.  Work
+whose floats need not round as a plain version's do (held at a tolerance,
+free to fuse a multiply and an add) is counted at the full published 67
+TFLOP/s instead: the least time the card could take for it, whatever the
+kernel's own flags (the pair sums, ``ops/pair_batch.py``).
 """
 
 from __future__ import annotations
@@ -18,19 +22,22 @@ import statistics
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12 / 2
+F32_PEAK_FLOPS = 67e12
+F32_OPS_PER_S = F32_PEAK_FLOPS / 2
 BF16_OPS_PER_S = 2 * F32_OPS_PER_S
 # Device clock cycles the card waits before each timed run (~1 ms at the
 # H100's clocks: longer than any wrapper takes to enqueue its launches).
 HOLD_CYCLES = 2_000_000
 
 
-def bound(n_bytes: float, f32_ops: float, bf16_ops: float = 0.0):
+def bound(n_bytes: float, f32_ops: float, bf16_ops: float = 0.0, f32_flops: float = 0.0):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     (each input read once, each output written once) and the operations
-    over their peak rates."""
+    over their peak rates (``f32_flops``: f32 operations free to fuse, at
+    the published FMA peak)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (f32_ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
+    t_ops = (f32_ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+             + f32_flops / F32_PEAK_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

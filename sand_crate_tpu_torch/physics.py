@@ -13,10 +13,12 @@ crate.py:91-129):
       on the sorted order, then the pair sums (ops/pmajor.py: feature rows
       -> pass A -> cell pressure -> pass B; ops/pallas_forces.py: slab
       -> slot grid -> pass A -> pass B emitted in sorted order;
-      ops/chunked.py: fixed windows of the sorted slab; or the cell grid of
-      cellwise.py); the dense backend skips the sort and sums all pairs
-      (cellwise.neighbor_forces_dense), the gather backend skips it and
-      sums over fixed-K neighbor lists (:func:`neighbor_forces_gather`)
+      ops/chunked.py: fixed windows of the sorted slab, on the card the
+      window kernel; or the cell grid of cellwise.py); the dense backend
+      skips the sort and sums all pairs (ops/pair_batch.py: on the card the
+      dense kernel, its plain twin cellwise.neighbor_forces_dense), the
+      gather backend skips it and sums over fixed-K neighbor lists
+      (:func:`neighbor_forces_gather`)
   5.  tension, gravity, pressure, spring (flag-gated), viscosity, wall
       bounce, continuous collision kicks
   6.  integrate positions
@@ -45,11 +47,10 @@ from .cellwise import (
     PairSums,
     cell_ids_grid,
     neighbor_forces_cellwise_sorted,
-    neighbor_forces_dense,
 )
 from .config import BODY_FIXED, BODY_FREE, BODY_MOTORED
 from .neighbors import neighbor_list
-from .ops import boundary, kick
+from .ops import boundary, kick, pair_batch
 from .ops.chunked import neighbor_forces_chunked_sorted
 from .ops.pallas_forces import neighbor_forces_pallas_sorted
 from .ops.pmajor import neighbor_forces_pmajor_sorted
@@ -392,7 +393,7 @@ def neighbor_stage(
         if scene.forces_mode == "gather":
             sums = neighbor_forces_gather(ghost.pos, vel, alive, generator, params, scene)
         else:
-            sums = neighbor_forces_dense(
+            sums = pair_batch.neighbor_forces_dense(
                 ghost.pos, vel, alive, _particle_noise(ghost.pos, generator, params), diam,
                 params.surface_smoothing, params.target_pressure, params.ignored_pressure,
                 params.spring_overlap_balance, scene,
