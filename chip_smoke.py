@@ -125,8 +125,9 @@ prints its wall time as "[phase] name: s"):
    Crate runs on as the uninterrupted crate does, held against two
    uninterrupted runs from one seed (bit for bit where those agree).
 (j) batched crates and the small- and mid-crate backends (their pair
-   kernels D1 on dense and D2 on chunked, once a pass a tick, K1/K2 on
-   pmajor, and no other pair or probe kernel; the boundary counters rise by
+   kernels D1 (prologue and passes) on dense and D2 on chunked, once a pass
+   a tick, K1/K2 on pmajor, and no other pair or probe kernel; the boundary
+   counters rise by
    exactly their per-tick counts, the full ghost pass once a tick, the
    positions-only pass once on chunked, the velocity update once; a vmapped
    batch launches each once a tick for all its crates): (a)
@@ -143,7 +144,9 @@ prints its wall time as "[phase] name: s"):
    overflow 0, particle-steps/s and peak memory; (d) WAVE_CRATES
    wave_machine crates for WAVE_TICKS ticks: particle-steps/s, overflow 0.
    (c) and (d) run on BatchedCrates' default backend and then on the other
-   one (the evidence for its threshold).
+   one (the evidence for its threshold), each profiled with its
+   PROFILED_TOP costliest kernels by name (the breakdown of the batched
+   dense and chunked ticks).
 (k) the command line's main path: ``cli.main(["run", <configs/dam_break.yaml
    as JSON>, "--headless", "--no-record", "--ticks", CLI_TICKS,
    "--ticks-per-frame", 2])`` on the card (Playback -> Crate.stream_frames
@@ -287,24 +290,32 @@ prints its wall time as "[phase] name: s"):
    JSON (tests/test_torch_boundary.py holds such rows on the CPU).
 
 (r) the batched pair kernels (csrc/pair_batch.cu, ops/pair_batch.py), before
-   (j): D1 (the dense passes) and D2 (the chunked window passes) against
-   their plain versions on every case of ops/pair_batch_cases.py (each
-   checked to hold what it claims; counts bit for bit, NaN in the same
-   places, floats within PAIR_TOL relative plus PAIR_TOL of the field's
-   largest magnitude), the three-crate case vmapped (one launch a pass, each
-   crate bit for bit alone); then at the settled states of the 1024-crate
-   stirring_cup batch (run_datagen's, dense) and the 64-crate wave_machine
-   batch ((j)(d)'s, chunked), each kernel on each: the whole operator and
-   each pass alone against the plain version vmapped over the crates, a few
-   crates alone bit for bit their rows of the batch, median times of each
-   pass and of its plain version, the bounds (D1 at 1024 x 640 and D2 at 64
-   x 4096 are the rows of the kernels line, their launches those of (j)(c)
-   and (j)(d)): the pair test charged to every pair that must be tested
-   (D1: each ordered pair of alive slots; D2: the row test to each alive
-   window pair, the d2 test to those within one row), the rest of a pair's
-   terms only to the pairs the run counts (its neighbour counts' sum), at
-   the published 67 TFLOP/s f32 peak (ops/measure.py: these floats are held
-   at a tolerance, so a kernel may fuse them).  Then the dense and the chunked trajectories: a dam break
+   (j): D1 (its prologue, which orders each crate, and the dense passes)
+   and D2 (the chunked window passes) against their plain versions on
+   every case of ops/pair_batch_cases.py (each checked to hold what it
+   claims; counts bit for bit, NaN in the same places, floats within
+   PAIR_TOL relative plus PAIR_TOL of the field's largest magnitude; the
+   prologue's order and sorted fields bit for bit its plain twin's, its
+   tile records equal), the three-crate case vmapped (one launch a kernel,
+   each crate bit for bit alone), with the share of candidate tiles the
+   kernels skip and the pairs they test (ops/pair_batch.py's mirror of
+   their rule); then at the settled states of the 1024-crate stirring_cup
+   batch (run_datagen's, dense) and the 64-crate wave_machine batch
+   ((j)(d)'s, chunked), each kernel on each: the whole operator, the
+   prologue and each pass alone against the plain versions vmapped over
+   the crates, a few crates alone bit for bit their rows of the batch,
+   median times of each kernel and of its plain version, the tiles
+   skipped and pairs tested, and the bounds (D1 at 1024 x 640 and D2 at
+   64 x 4096 are the rows of the kernels line, their launches those of
+   (j)(c) and (j)(d)): the larger of the bytes (each input read once, each
+   output written once) at 3.35 TB/s and the terms of the pairs the run
+   counts (its neighbour counts' sum, COUNTED_PAIR_OPS each) at the
+   published 67 TFLOP/s f32 peak (ops/measure.py: these floats are held
+   at a tolerance, so a kernel may fuse them); beside it the all-pairs
+   figure, which charges the pair test to every pair that could count (D1:
+   each ordered pair of alive slots; D2: the row test to each alive window
+   pair, the d2 test to those within one row) and which a kernel that skips
+   tiles beats.  Then the dense and the chunked trajectories: a dam break
    of capacity 3712 for TRAJ_TICKS ticks on the kernel path and with the
    pair entries and the boundary wrappers swapped for their plain versions,
    as phase 6.
@@ -395,6 +406,7 @@ DATAGEN_EVERY = 20
 WAVE_CRATES = 64  # (j)(d): the JAX package's measured batch (ops/chunked.py:80)
 WAVE_TICKS = 20
 PROFILED_TICKS = 5  # (j): ticks under torch.profiler for the device's busy share
+PROFILED_TOP = 8  # (j): kernels named in the batched ticks' breakdown
 # the profiler's host calls that launch device work: kernels, and (graphs.py)
 # whole captured ticks
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
@@ -493,7 +505,8 @@ PAIR_SOURCE = "sand_crate_tpu_torch/csrc/pair_batch.cu"
 PAIR_REPLACES = {"dense": "sand_crate_tpu/cellwise.py:334",
                  "window": "sand_crate_tpu/ops/chunked.py:50"}
 # Each backend's pair kernels (kernel_counts keys), once a pass a tick.
-PAIR_KEYS = {"pmajor": ("pmajor.a", "pmajor.b"), "dense": ("pairs.dense_a", "pairs.dense_b"),
+PAIR_KEYS = {"pmajor": ("pmajor.a", "pmajor.b"),
+             "dense": ("pairs.dense_order", "pairs.dense_a", "pairs.dense_b"),
              "chunked": ("pairs.window_a", "pairs.window_b")}
 PAIR_TOL = 1e-5  # (r): tests/test_torch_dense_chunked.py::_assert_sums
 PAIR_SETTLE = 200  # (r): ticks that settle each batch (wave_machine: ~2800 alive)
@@ -1846,10 +1859,11 @@ def reset_kernel_counts() -> None:
     reset_boundary()
 
 
-def profiled(run, ticks: int) -> str:
+def profiled(run, ticks: int, top: int = 0) -> str:
     """``run(ticks)`` under torch.profiler (as profile_tick.py reads it): the
     host-clock ms a tick, the kernels' device ms a tick, the busy share
-    (kernel time / wall time) and the kernel launches a tick."""
+    (kernel time / wall time) and the kernel launches a tick; with ``top``,
+    the device ms a tick of the ``top`` costliest kernels by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1865,10 +1879,24 @@ def profiled(run, ticks: int) -> str:
                     if e.device_type == DeviceType.CUDA) / ticks / 1e3
     calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
     launches = sum(calls.values())
-    return (f"profiled {ticks} ticks: wall {wall_ms:.3f} ms/tick (profiler on), kernels "
-            f"{kernel_ms:.3f} ms/tick, busy share {kernel_ms / wall_ms:.3f}, "
-            f"{launches / ticks:.0f} launches/tick "
-            f"({', '.join(f'{k} {v / ticks:g}' for k, v in sorted(calls.items()))})")
+    out = (f"profiled {ticks} ticks: wall {wall_ms:.3f} ms/tick (profiler on), kernels "
+           f"{kernel_ms:.3f} ms/tick, busy share {kernel_ms / wall_ms:.3f}, "
+           f"{launches / ticks:.0f} launches/tick "
+           f"({', '.join(f'{k} {v / ticks:g}' for k, v in sorted(calls.items()))})")
+    if top:
+        kernels = sorted(((e.self_device_time_total / ticks / 1e3, e.key) for e in events
+                          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                         reverse=True)
+        out += "; costliest kernels (ms/tick): " + "; ".join(
+            f"{short_kernel(k)} {ms:.4f}" for ms, k in kernels[:top])
+    return out
+
+
+def short_kernel(key: str) -> str:
+    """A profiler kernel name, its return type and namespaces (anonymous,
+    at::native) left out, cut to 90 characters."""
+    key = key.replace("(anonymous namespace)::", "").replace("at::native::", "")
+    return (key[5:] if key.startswith("void ") else key)[:90]
 
 
 def small_crate(name: str, raw: dict, mode: str, smi: str, profile: bool) -> float:
@@ -2036,7 +2064,7 @@ def datagen_1024(smi: str, mode: str) -> float:
                                                 DEFAULT_RANDOM_RANGES, DATAGEN_CRATES),
                           device="cuda", forces_mode=mode)
     batch.run(DATAGEN_EVERY)
-    profile = profiled(batch.run, PROFILED_TICKS)
+    profile = profiled(batch.run, PROFILED_TICKS, top=PROFILED_TOP)
     del batch
     steps = sum(counts) * DATAGEN_EVERY
     print(f"  run_datagen ({smi}): {DATAGEN_CRATES} stirring_cup crates x {DATAGEN_TICKS} ticks, "
@@ -2091,7 +2119,7 @@ def wave_64(smi: str, mode: str) -> float:
           f"{steps / wall:.1f} particle-steps/s (mean of each run's first and last count), "
           f"{int(crates.particle_counts().sum())} particles at the end; overflow {worst}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    print(f"    {profiled(crates.run, PROFILED_TICKS)}")
+    print(f"    {profiled(crates.run, PROFILED_TICKS, top=PROFILED_TOP)}")
     return WAVE_CRATES * WAVE_TICKS / wall, launches
 
 
@@ -2154,10 +2182,46 @@ def held(label: str, got, ref, names) -> float:
         check(False, f"{label}: {e}")
 
 
+def order_vs_plain(label: str, got, want) -> None:
+    """D1's prologue against its plain twin (pair_batch.dense_order_plain):
+    the order and the sorted fields bit for bit, the tile records equal (a
+    box's zero may take either sign)."""
+    import torch
+
+    check(torch.equal(got.order, want.order), f"{label}: the order differs from its plain twin's")
+    same_values(f"{label}: the sorted fields", (got.pq, got.sv), (want.pq, want.sv))
+    check(torch.equal(got.tiles[..., 6:], want.tiles[..., 6:]),
+          f"{label}: the tiles' alive bits or flags differ")
+    check(torch.equal(got.tiles[..., :6].view(torch.float32),
+                      want.tiles[..., :6].view(torch.float32)), f"{label}: the tiles' boxes differ")
+
+
+def dense_work(order, diameter, mode: str) -> dict:
+    """pair_batch.tile_work of D1's pass ``mode`` on the prologue ``order``."""
+    from sand_crate_tpu_torch.ops import pair_batch
+
+    P = order.order.shape[1]
+    visit, _ = pair_batch.dense_visits(order, diameter, mode)
+    return pair_batch.tile_work(visit, P, pair_batch.self_tile(P), P)
+
+
+def window_work(feat, diameter, halo: int, cs: int, n_chunks: int) -> dict:
+    """pair_batch.tile_work of D2 on the slabs ``feat`` (B, p_pad, F)."""
+    from sand_crate_tpu_torch.ops import pair_batch
+
+    visit, _ = pair_batch.window_visits(feat, diameter, halo, cs, n_chunks)
+    return pair_batch.tile_work(visit, cs, pair_batch.self_tile(feat.shape[1]), cs + 2 * halo)
+
+
+def skip_share(work: dict) -> str:
+    return (f"{1.0 - work['visited'] / max(work['tile_pairs'], 1.0):.4f} of "
+            f"{work['tile_pairs']:.4g} tile pairs skipped, {work['tested']:.4g} pairs tested")
+
+
 def pair_cases() -> None:
-    """(r1): D1 and D2 against their plain versions on every case of
-    ops/pair_batch_cases.py (each checked on the CPU to hold what it
-    claims), crate by crate; the three-crate case vmapped."""
+    """(r1): D1 (its prologue too) and D2 against their plain versions on
+    every case of ops/pair_batch_cases.py (each checked on the CPU to hold
+    what it claims), crate by crate; the three-crate case vmapped."""
     import torch
 
     from sand_crate_tpu_torch import cellwise
@@ -2170,7 +2234,10 @@ def pair_cases() -> None:
         check(all(facts.values()), f"pair case {name} does not hold what it claims: {facts}")
         c = cases.inputs(name, "cuda")
         sc = cases.scene(c)
-        errs, nans, lost = [0.0, 0.0], [0, 0], 0
+        o_args = tuple(c[k] for k in ("pos", "vel", "alive", "noise", "diameter"))
+        od = pair_batch.dense_order(*o_args)
+        order_vs_plain(f"D1's prologue, case {name}", od, pair_batch.dense_order_plain(*o_args))
+        errs, nans, lost, work_w = [0.0, 0.0], [0, 0], 0, []
         for b in range(cases.crates(c)):
             args = cases.dense_args(c, b)
             reset(pair_batch.LAUNCHES)
@@ -2188,23 +2255,27 @@ def pair_cases() -> None:
             nans[0] += sum(int(torch.isnan(x).sum()) for x in got[:6])
             nans[1] += sum(int(torch.isnan(x).sum()) for x in win[:6])
             lost += int(win.overflow)
+            feat, (halo, _, _, diam, *_, n_chunks, cs) = cases.window_slabs(c, b)[0]
+            work_w.append(window_work(feat[None], diam[None], halo, cs, n_chunks))
+        w = {k: sum(x[k] for x in work_w) for k in work_w[0]}
         print(f"  case {name}: {cases.crates(c)} x {c['pos'].shape[1]} slots, D2 cs {c['cs']} "
               f"halo {c['halo']} bound {c['live_rows']}: max abs err D1 {errs[0]:.3e}, D2 "
               f"{errs[1]:.3e}; NaN entries (as plain) D1 {nans[0]}, D2 {nans[1]}; D2 overflow "
-              f"{lost} (as plain)")
+              f"{lost} (as plain); prologue == plain; D1 pass A "
+              f"{skip_share(dense_work(od, c['diameter'], 'a'))}, D2 {skip_share(w)}")
     c = cases.inputs("batch", "cuda")
     reset(pair_batch.LAUNCHES)
     dense, win = cases.vmapped_dense(c), cases.vmapped_chunked(c)
     check(pair_batch.LAUNCHES == one,
-          f"the vmapped three-crate case launched {pair_batch.LAUNCHES} (one a pass)")
+          f"the vmapped three-crate case launched {pair_batch.LAUNCHES} (one a kernel)")
     for b in range(cases.crates(c)):
         alone = pair_batch.neighbor_forces_dense(*cases.dense_args(c, b), cases.scene(c))
         same_values(f"D1 vmapped, crate {b} against its run alone",
                     tuple(x[b] for x in dense), tuple(alone[:6]))
         same_values(f"D2 vmapped, crate {b} against its run alone",
                     tuple(x[b] for x in win), tuple(cases.chunked_sums(c, b)))
-    print("  the three-crate case vmapped (coefficients of its own a crate): one launch a pass "
-          "of each kernel, every crate bit for bit its run alone")
+    print("  the three-crate case vmapped (coefficients of its own a crate): one launch of each "
+          "kernel, every crate bit for bit its run alone")
 
 
 def settled_batch(raw: dict, n: int, seed: int, mode: str):
@@ -2235,8 +2306,9 @@ def solo_crates(B: int) -> list:
 def dense_at(label: str, batch) -> dict:
     """(r2): D1 at a settled batch's state (its positions, velocities and
     alive masks, collider noise drawn per crate): the operator (one launch a
-    pass) and each pass alone against the plain version vmapped over the
-    crates; crates alone bit for bit their rows; times and bounds."""
+    kernel) and the prologue and each pass alone against their plain twins
+    vmapped over the crates; crates alone bit for bit their rows; times,
+    bounds, the tiles skipped and the pairs tested."""
     import torch
 
     from sand_crate_tpu_torch import cellwise
@@ -2253,20 +2325,26 @@ def dense_at(label: str, batch) -> dict:
     args = (st.pos, st.vel, st.alive, noise, *(getattr(pr, k) for k in pair_batch.DENSE_COEFS))
     reset(pair_batch.LAUNCHES)
     got = torch.ops.sand_crate.dense_pairs(*args, int(spring))
-    check(pair_batch.LAUNCHES == {"dense_a": 1, "dense_b": 1, "window_a": 0, "window_b": 0},
+    check(pair_batch.LAUNCHES == {**dict.fromkeys(pair_batch.LAUNCHES, 0), "dense_order": 1,
+                                  "dense_a": 1, "dense_b": 1},
           f"D1 at {label}: launches {pair_batch.LAUNCHES}")
     err = held(f"D1 at {label}", got,
                torch.func.vmap(lambda *a: pair_batch.dense_pairs_plain(*a, spring))(*args),
                cases.FIELDS)
+    o_args = (st.pos, st.vel, st.alive, noise, pr.diameter)
+    od = pair_batch.dense_order(*o_args)
+    order_vs_plain(f"D1's prologue at {label}", od, pair_batch.dense_order_plain(*o_args))
     a_args = (st.pos, st.alive, noise, pr.diameter, pr.ignored_pressure)
     plain_a = torch.func.vmap(cellwise.dense_pass_a)
     ra = plain_a(*a_args)
-    err_a = held(f"D1 pass A at {label}", pair_batch.dense_pass_a(*a_args), ra,
+    k_a = (od, pr.diameter, pr.ignored_pressure)
+    err_a = held(f"D1 pass A at {label}", pair_batch.dense_pass_a(*k_a), ra,
                  ("p_i", "s", "nbr_cnt"))
-    b_args = (st.pos, st.vel, st.alive, noise, ra[0], ra[1], pr.diameter, pr.surface_smoothing,
-              pr.target_pressure, pr.spring_overlap_balance)
+    coef_b = (pr.diameter, pr.surface_smoothing, pr.target_pressure, pr.spring_overlap_balance)
+    b_args = (st.pos, st.vel, st.alive, noise, ra[0], ra[1], *coef_b)
+    k_b = (od, ra[0], ra[1], *coef_b)
     plain_b = torch.func.vmap(lambda *a: cellwise.dense_pass_b(*a, spring))
-    err_b = held(f"D1 pass B at {label}", pair_batch.dense_pass_b(*b_args, spring),
+    err_b = held(f"D1 pass B at {label}", pair_batch.dense_pass_b(*k_b, spring),
                  plain_b(*b_args), ("dv_tension", "pressure_real", "spring_real", "visc_vsum"))
     solo = solo_crates(B)
     for b in solo:
@@ -2274,31 +2352,47 @@ def dense_at(label: str, batch) -> dict:
         same_values(f"D1 at {label}: crate {b} alone against its row of the batch",
                     tuple(y[0] for y in alone), tuple(x[b] for x in got))
     n_alive = st.alive.sum(dim=1).double()
-    tested = float((n_alive * (n_alive - 1)).sum())
+    all_tested = float((n_alive * (n_alive - 1)).sum())
     counted = float(got[5].double().sum())
     key_b = "b_spring" if spring else "b"
+    work = {m: dense_work(od, pr.diameter, m) for m in "ab"}
+    T = -(-P // pair_batch.TILE)
     out = dict(
-        err_a=max(err, err_a), err_b=max(err, err_b),
-        ms_a=cuda_ms(lambda: pair_batch.dense_pass_a(*a_args), PAIR_REPS),
-        ms_b=cuda_ms(lambda: pair_batch.dense_pass_b(*b_args, spring), PAIR_REPS),
+        err_order=0.0, err_a=max(err, err_a), err_b=max(err, err_b),
+        ms_order=cuda_ms(lambda: pair_batch.dense_order(*o_args), PAIR_REPS),
+        ms_a=cuda_ms(lambda: pair_batch.dense_pass_a(*k_a), PAIR_REPS),
+        ms_b=cuda_ms(lambda: pair_batch.dense_pass_b(*k_b, spring), PAIR_REPS),
+        plain_order=cuda_ms(lambda: pair_batch.dense_order_plain(*o_args), PAIR_REPS),
         plain_a=cuda_ms(lambda: plain_a(*a_args), PAIR_REPS),
         plain_b=cuda_ms(lambda: plain_b(*b_args), PAIR_REPS),
-        # bytes: pos, alive, noise in and p_i, s, cnt out (A); pos, vel,
+        # bytes: pos, vel, alive, noise in and order, pq, sv, the tiles out
+        # (prologue); pos, alive, noise in and p_i, s, cnt out (A); pos, vel,
         # alive, noise, p_i, s in and four (B, P, 2) sums out (B)
+        bytes_order=B * P * (8 + 8 + 1 + 8 + 4 + 16 + 8) + B * T * 32 + 4 * B,
         bytes_a=B * P * (8 + 1 + 8 + 4 + 8 + 4) + 2 * 4 * B,
         bytes_b=B * P * (8 + 8 + 1 + 8 + 4 + 8 + 4 * 8) + 4 * 4 * B,
-        ops_a=tested * pair_batch.PAIR_TEST_OPS + counted * pair_batch.COUNTED_PAIR_OPS["a"],
-        ops_b=tested * pair_batch.PAIR_TEST_OPS + counted * pair_batch.COUNTED_PAIR_OPS[key_b])
+        ops_order=0.0,
+        ops_a=counted * pair_batch.COUNTED_PAIR_OPS["a"],
+        ops_b=counted * pair_batch.COUNTED_PAIR_OPS[key_b])
+    all_pairs = {p: bound(out["bytes_" + p], 0, f32_flops=all_tested * pair_batch.PAIR_TEST_OPS
+                          + out["ops_" + p])[0] for p in "ab"}
+    bounds = {p: bound(out["bytes_" + p], 0, f32_flops=out["ops_" + p])
+              for p in ("order", "a", "b")}
     alive = st.alive.sum(dim=1)
     print(f"  D1 at {label} ({B} x {P} slots, alive {int(alive.min())}-{int(alive.max())} a "
           f"crate, spring {spring}): == plain vmapped (max abs err {err:.3e}; pass A alone "
-          f"{err_a:.3e}, pass B alone {err_b:.3e}), crates {solo} alone bit for bit their rows; "
-          f"pass A {out['ms_a']:.4f} ms, pass B {out['ms_b']:.4f} ms (plain vmapped "
-          f"{out['plain_a']:.3f} / {out['plain_b']:.3f} ms); {B * P * P:.4g} pairs a pass "
-          f"computed, {tested:.4g} tested ({pair_batch.PAIR_TEST_OPS} operations), {counted:.4g} "
-          f"counted ({pair_batch.COUNTED_PAIR_OPS} operations): bounds "
-          f"{bound(out['bytes_a'], 0, f32_flops=out['ops_a'])[0]:.4f} / "
-          f"{bound(out['bytes_b'], 0, f32_flops=out['ops_b'])[0]:.4f} ms at 67 TFLOP/s")
+          f"{err_a:.3e}, pass B alone {err_b:.3e}), prologue == plain, crates {solo} alone bit "
+          f"for bit their rows; prologue {out['ms_order']:.4f} ms, pass A {out['ms_a']:.4f} ms, "
+          f"pass B {out['ms_b']:.4f} ms (plain vmapped {out['plain_order']:.3f} / "
+          f"{out['plain_a']:.3f} / {out['plain_b']:.3f} ms); pass A {skip_share(work['a'])}, "
+          f"pass B {skip_share(work['b'])}; {counted:.4g} pairs counted ({pair_batch.COUNTED_PAIR_OPS} "
+          f"operations): bounds {bounds['order'][0]:.4f} ({bounds['order'][1]}) / "
+          f"{bounds['a'][0]:.4f} ({bounds['a'][1]}) / {bounds['b'][0]:.4f} ({bounds['b'][1]}) ms "
+          f"at 3.35 TB/s and 67 TFLOP/s, shares {bounds['order'][0] / out['ms_order']:.3f} / "
+          f"{bounds['a'][0] / out['ms_a']:.3f} / {bounds['b'][0] / out['ms_b']:.3f}; the "
+          f"all-pairs figure ({all_tested:.4g} alive pairs tested, "
+          f"{pair_batch.PAIR_TEST_OPS} operations each) {all_pairs['a']:.4f} / "
+          f"{all_pairs['b']:.4f} ms")
     return out
 
 
@@ -2379,20 +2473,24 @@ def window_at(label: str, batch, world) -> dict:
         out["bytes_" + mode] = B * p_pad * (feat.shape[2] + n_out) * 4 + 4 * 4 * B
         if mode == "a":
             counted = float(got[..., 3].double().sum())
-        out["ops_" + mode] = (window_pairs * pair_batch.ROW_TEST_OPS
-                              + row_pairs * pair_batch.PAIR_TEST_OPS
-                              + counted * pair_batch.COUNTED_PAIR_OPS[key])
+        out["ops_" + mode] = counted * pair_batch.COUNTED_PAIR_OPS[key]
+        out["all_pairs_" + mode] = bound(out["bytes_" + mode], 0, f32_flops=(
+            window_pairs * pair_batch.ROW_TEST_OPS + row_pairs * pair_batch.PAIR_TEST_OPS
+            + out["ops_" + mode]))[0]
+    work = window_work(feats[0], pr.diameter, halo, cs, n_chunks)
+    bounds = {p: bound(out["bytes_" + p], 0, f32_flops=out["ops_" + p]) for p in "ab"}
     print(f"  D2 at {label} ({B} crates, slab {p_pad} rows, cs {cs}, halo {halo}, sweep bound "
           f"{bound_rows}: {n_chunks} chunks, spring {spring}): passes A and B == plain vmapped "
           f"(max abs err {out['err_a']:.3e} / {out['err_b']:.3e}), crates {solo} alone bit for "
           f"bit their rows; pass A {out['ms_a']:.4f} ms, pass B {out['ms_b']:.4f} ms (plain "
-          f"vmapped {out['plain_a']:.3f} / {out['plain_b']:.3f} ms); {pairs:.4g} pairs a pass "
-          f"computed, {window_pairs:.4g} alive window pairs row-tested "
-          f"({pair_batch.ROW_TEST_OPS} operations), {row_pairs:.4g} within a row tested "
-          f"({pair_batch.PAIR_TEST_OPS}), {counted:.4g} counted "
-          f"({pair_batch.COUNTED_PAIR_OPS}): bounds "
-          f"{bound(out['bytes_a'], 0, f32_flops=out['ops_a'])[0]:.4f} / "
-          f"{bound(out['bytes_b'], 0, f32_flops=out['ops_b'])[0]:.4f} ms at 67 TFLOP/s")
+          f"vmapped {out['plain_a']:.3f} / {out['plain_b']:.3f} ms); {pairs:.4g} window pairs a "
+          f"pass, {skip_share(work)}, {counted:.4g} counted ({pair_batch.COUNTED_PAIR_OPS} "
+          f"operations): bounds {bounds['a'][0]:.4f} ({bounds['a'][1]}) / {bounds['b'][0]:.4f} "
+          f"({bounds['b'][1]}) ms at 3.35 TB/s and 67 TFLOP/s, shares "
+          f"{bounds['a'][0] / out['ms_a']:.3f} / {bounds['b'][0] / out['ms_b']:.3f}; the "
+          f"all-pairs figure ({window_pairs:.4g} alive window pairs row-tested, "
+          f"{pair_batch.ROW_TEST_OPS} operations, {row_pairs:.4g} within a row d2-tested, "
+          f"{pair_batch.PAIR_TEST_OPS}) {out['all_pairs_a']:.4f} / {out['all_pairs_b']:.4f} ms")
     return out
 
 
@@ -2415,12 +2513,13 @@ def pair_batch_rows(smi: str) -> list:
         d = dense_at(label, batch)
         w = window_at(label, batch, world)
         kept, which = (d, "dense") if mode == "dense" else (w, "window")
-        for p in "ab":
+        for p in ("order", "a", "b") if which == "dense" else "ab":
             rows.append(kernel_row(f"{which}_{p}", PAIR_SOURCE, PAIR_REPLACES[which],
                                    kept["err_" + p], kept["ms_" + p], kept["plain_" + p],
                                    kept["bytes_" + p], 0, f32_flops=kept["ops_" + p]))
-        print(f"  {label}: D1 {d['ms_a'] + d['ms_b']:.4f} ms against D2 "
-              f"{w['ms_a'] + w['ms_b']:.4f} ms for both passes (BatchedCrates runs {mode})")
+        print(f"  {label}: D1 {d['ms_order'] + d['ms_a'] + d['ms_b']:.4f} ms (prologue and both "
+              f"passes) against D2 {w['ms_a'] + w['ms_b']:.4f} ms for both passes "
+              f"(BatchedCrates runs {mode})")
         del batch
         torch.cuda.empty_cache()
     return rows
@@ -4465,7 +4564,8 @@ def main() -> int:
         none = dict.fromkeys(pair_batch.LAUNCHES, 0)
         trajectory("dense trajectory", "dense",
                    [(pair_batch, "neighbor_forces_dense", cellwise.neighbor_forces_dense)],
-                   pair_batch.LAUNCHES, {**none, "dense_a": TRAJ_TICKS, "dense_b": TRAJ_TICKS},
+                   pair_batch.LAUNCHES, {**none, "dense_order": TRAJ_TICKS,
+                                         "dense_a": TRAJ_TICKS, "dense_b": TRAJ_TICKS},
                    TRAJ_SMALL_PARTICLES)
         trajectory("chunked trajectory", "chunked",
                    [(pair_batch, "window_pass", chunked._pass_scan_plain)], pair_batch.LAUNCHES,

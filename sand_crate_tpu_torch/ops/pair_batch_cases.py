@@ -28,7 +28,18 @@ a mask, a clamp, a NaN, a window edge or the launch shape has an edge:
   own, for the operators' crate axis and vmap rules;
 * ``halo_row``: one dense grid row, wider than the chunk windows, so D2
   loses pairs (counted into the overflow alike);
-* ``live_rows``: a sweep bound that skips the last chunk (its rows zeros).
+* ``live_rows``: a sweep bound that skips the last chunk (its rows zeros);
+* ``tiles_exact``: two crates of 1000 slots with diameters of their own,
+  their particles in clusters several diameters apart (so the kernels skip
+  most candidate tiles), and in each a pair exactly one diameter apart and
+  a pair one f32 ulp further, each pair split across two sorted tiles, and
+  three lines that fill the first three sorted tiles: the first two
+  exactly one diameter apart (their boxes' gap is the diameter: the tile
+  pair must be visited), the third an ulp further (skipped);
+* ``nan_far``: 1000 slots in lines of 32, three grid rows apart (every line
+  one sorted tile, every other tile out of reach), and two dead slots, one
+  at a NaN position and one with an infinite velocity, whose tile every
+  self tile must visit for the NaN places only.
 
 Inputs are made from a numpy seed.  ``tests/test_torch_pair_batch.py`` and
 ``chip_smoke.py`` run every case, and :func:`facts` checks that each holds
@@ -57,7 +68,23 @@ FIELDS = ("p_i", "dv_tension", "pressure_real", "spring_real", "visc_vsum", "nbr
 SMALL = dict(cs=32, halo=128, live_rows=None)
 
 CASES = ("exact", "coincident", "nan_pos", "nan_vel", "all_dead", "lone", "p1000", "p4096",
-         "spring", "batch", "halo_row", "live_rows")
+         "spring", "batch", "halo_row", "live_rows", "tiles_exact", "nan_far")
+# tiles_exact: the crates' diameters, the pairs' midpoints (a pair one
+# diameter apart vertically at EXACT_AT, one an ulp further at ULP_AT) and the
+# clusters' lattice (CLUSTERS columns x rows, CLUSTER_STEP diameters apart,
+# CLUSTER_N particles within CLUSTER_R diameters of each centre)
+TILE_DIAMS = (DIAM, 0.75 * DIAM)
+EXACT_AT, ULP_AT = (0.5, 0.25), (0.25, 0.3125)
+CLUSTERS, CLUSTER_STEP, CLUSTER_N, CLUSTER_R = (6, 5), 5.0, 28, 1.6
+# and below them three lines of a tile's particles each (the first three
+# sorted tiles), from LINE_AT up: the second exactly one diameter above the
+# first (their tiles' box gap is exactly one diameter), the third one ulp
+# past one diameter above the second
+LINE_AT = (0.3, 0.03125)
+# nan_far: lines of a tile's particles LINE_STEP diameters apart, LINE_GAP
+# grid rows between lines, at half the usual diameter; its two bad slots
+LINE_STEP, LINE_GAP, FAR_DIAM = 0.55, 3, DIAM / 2
+NAN_SLOT, INF_SLOT = 17, 500
 
 
 def _cloud(rng, P, lo=0.1, alive=1.0):
@@ -124,10 +151,80 @@ def _case(name: str) -> dict:
         c = _cloud(rng, 512)
         c["alive"][:] = np.arange(512) < 300
         geo = dict(cs=128, halo=128, live_rows=300)
+    elif name == "tiles_exact":
+        crates = [_clusters(rng, d) for d in TILE_DIAMS]
+        c = {k: np.stack([x[k] for x in crates]) for k in crates[0]}
+        coef = {k: np.full(2, v) for k, v in COEF.items()}
+        coef["diameter"] = np.array(TILE_DIAMS)
+        return _finish(c, coef, dict(cs=128, halo=256, live_rows=None), spring=False)
+    elif name == "nan_far":
+        c = _lines(rng)
+        coef = dict(COEF, diameter=FAR_DIAM)
+        c = {k: v[None] for k, v in c.items()}
+        return _finish(c, {k: np.array([v]) for k, v in coef.items()},
+                       dict(cs=128, halo=128, live_rows=None), spring=False)
     else:
         raise KeyError(name)
     c = {k: v[None] for k, v in c.items()}
     return _finish(c, {k: np.array([v]) for k, v in COEF.items()}, geo, spring)
+
+
+def _clusters(rng, d: float, P: int = 1000) -> dict:
+    """tiles_exact's crate at diameter ``d``: clusters on a lattice right of
+    the two pairs, the pairs, then dead slots up to ``P``, shuffled."""
+    nx, ny = CLUSTERS
+    # cluster rows through the pairs' grid rows, so that each pair's two
+    # particles sort a cluster row's width apart
+    centres = [(0.56 + CLUSTER_STEP * d * i + CLUSTER_R * d,
+                EXACT_AT[1] + CLUSTER_STEP * d * (j - 2)) for j in range(ny) for i in range(nx)]
+    pts = []
+    for cx, cy in centres:
+        r = CLUSTER_R * d * np.sqrt(rng.random(CLUSTER_N))
+        a = rng.random(CLUSTER_N) * 2 * np.pi
+        pts.append(np.stack([cx + r * np.cos(a), cy + r * np.sin(a)], -1))
+    # each pair straddles a grid row boundary (half a diameter either side
+    # of its point), in the crate's own cells and in the slab's
+    far = np.float32(ULP_AT[1] + d / 2)
+    pairs = np.array([(EXACT_AT[0], EXACT_AT[1] - d / 2), (EXACT_AT[0], EXACT_AT[1] + d / 2),
+                      (ULP_AT[0], ULP_AT[1] - d / 2),
+                      (ULP_AT[0], np.nextafter(far, np.float32(1.0)))])
+    x0, y0 = LINE_AT
+    y1 = np.float32(y0 + d)
+    ys = (y0, y1, np.nextafter(np.float32(y1 + d), np.float32(1.0)))
+    per = pair_batch.TILE
+    lines = [np.stack([x0 + 0.5 * d * np.arange(per), np.full(per, y)], -1) for y in ys]
+    alive_pos = np.concatenate(lines + pts + [pairs])
+    n = alive_pos.shape[0]
+    pos = np.concatenate([alive_pos, 0.05 + rng.random((P - n, 2)) * 0.04])
+    alive = np.arange(P) < n
+    perm = rng.permutation(P)
+    return dict(pos=pos[perm], vel=(rng.random((P, 2)) - 0.5)[perm], alive=alive[perm],
+                noise=((rng.random((P, 2)) - 0.5) * d * NOISE)[perm])
+
+
+def _lines(rng, P: int = 1000) -> dict:
+    """nan_far's crate: lines of a tile's alive particles, each in one grid
+    row, LINE_GAP rows apart, and two dead slots, at NAN_SLOT a NaN
+    position and at INF_SLOT an infinite velocity; the other rows go to
+    shuffled slots."""
+    d = FAR_DIAM
+    n = P - 2
+    k = np.arange(n)
+    line, at = k // pair_batch.TILE, k % pair_batch.TILE
+    x = (8 + LINE_STEP * at) * d + (rng.random(n) - 0.5) * 0.1 * d
+    y = (8.5 + LINE_GAP * line) * d + (rng.random(n) - 0.5) * 0.6 * d
+    rows = dict(pos=np.concatenate([np.stack([x, y], -1), [[0.9, 0.9], [0.9, 0.95]]]),
+                vel=np.concatenate([rng.random((n, 2)) - 0.5, [[0.1, 0.2], [0.3, 0.4]]]),
+                alive=np.arange(P) < n, noise=(rng.random((P, 2)) - 0.5) * d * NOISE)
+    rest = rng.permutation(np.setdiff1d(np.arange(P), [NAN_SLOT, INF_SLOT]))
+    slot = np.concatenate([rest, [NAN_SLOT, INF_SLOT]])  # row r goes to slot[r]
+    out = {}
+    for key, v in rows.items():
+        out[key] = np.empty_like(v)
+        out[key][slot] = v
+    out["pos"][NAN_SLOT] = np.nan
+    out["vel"][INF_SLOT] = np.inf
+    return out
 
 
 def _finish(c, coef, geo, spring):
@@ -367,6 +464,73 @@ def facts(name: str) -> dict:
         out["one grid row"] = len(set(torch.floor(c["pos"][0, :, 1] / c["cell"]).tolist())) == 1
         out["the windows lose pairs, counted"] = int(win[0].overflow) > 0
         out["fewer pairs than dense"] = float(win[0].nbr_cnt.sum()) < float(cnt.sum())
+    elif name == "tiles_exact":
+        out["two crates, diameters of their own"] = B == 2 and len(set(c["diameter"].tolist())) == 2
+        for b in range(B):
+            pos, alive, diam = c["pos"][b], c["alive"][b], c["diameter"][b]
+            cnt = dense[b][5]
+            pairs = [torch.nonzero(alive & (pos[:, 0] == x)).flatten() for x in (0.5, 0.25)]
+            d2 = [(pos[i[0]] - pos[i[1]]).pow(2).sum() for i in pairs]
+            out[f"crate {b}: a pair at exactly one diameter"] = bool(d2[0] == diam * diam)
+            out[f"crate {b}: it counts, alone"] = cnt[pairs[0]].tolist() == [1.0, 1.0]
+            out[f"crate {b}: one ulp further does not"] = (
+                bool(d2[1] > diam * diam) and cnt[pairs[1]].tolist() == [0.0, 0.0])
+            od = pair_batch.dense_order_plain(*(c[k][b:b + 1] for k in (
+                "pos", "vel", "alive", "noise", "diameter")))
+            at = torch.argsort(od.order[0])  # each slot's sorted index
+            out[f"crate {b}: each pair split across two sorted tiles"] = all(
+                int(at[i[0]]) // pair_batch.TILE != int(at[i[1]]) // pair_batch.TILE
+                for i in pairs)
+            slab = sorted_args(c, b)[0][:, 0]
+            out[f"crate {b}: and across two slab tiles"] = all(
+                len({int(r) // pair_batch.TILE for r in torch.nonzero(slab == x).flatten()}) == 2
+                for x in (0.5, 0.25))
+            visit, _ = pair_batch.dense_visits(od, c["diameter"][b:b + 1], "a")
+            out[f"crate {b}: most candidate tiles skipped"] = float(visit.float().mean()) < 0.5
+            lines = od.pq[0, :3 * pair_batch.TILE, 1].reshape(3, pair_batch.TILE)
+            out[f"crate {b}: three lines, one a sorted tile"] = bool(
+                (lines == lines[:, :1]).all() and (lines[1:, 0] > lines[:-1, 0]).all())
+            xs = od.pq[0, :2 * pair_batch.TILE, 0].reshape(2, pair_batch.TILE).sort(-1).values
+            gap = lines[1, 0] - lines[0, 0]
+            out[f"crate {b}: lines 0, 1 exactly one diameter apart, visited"] = bool(
+                torch.equal(xs[0], xs[1]) and gap * gap == diam * diam
+                and visit[0, 0, 1] and visit[0, 1, 0])
+            out[f"crate {b}: lines 1, 2 an ulp further, skipped"] = bool(
+                lines[2, 0] - lines[1, 0] > diam and not visit[0, 1, 2] and not visit[0, 2, 1])
+        out["the windows lose nothing"] = all(int(w.overflow) == 0 for w in win)
+        out["the same counts in the windows"] = all(
+            torch.equal(w.nbr_cnt.sort().values, d[5].sort().values) for w, d in zip(win, dense))
+    elif name == "nan_far":
+        pos, vel = c["pos"][0], c["vel"][0]
+        out["a dead slot at a NaN position"] = bool(
+            not alive[NAN_SLOT] and torch.isnan(pos[NAN_SLOT]).all())
+        out["a dead slot with an infinite velocity"] = bool(
+            not alive[INF_SLOT] and torch.isinf(vel[INF_SLOT]).all())
+        args = {k: c[k][:1] for k in ("pos", "vel", "alive", "noise", "diameter")}
+        clean = dict(args, pos=torch.nan_to_num(args["pos"], nan=0.9),
+                     vel=torch.nan_to_num(args["vel"], posinf=0.0))
+        for label, a in (("without the flag", clean), ("with it", args)):
+            od = pair_batch.dense_order_plain(*a.values())
+            at = torch.argsort(od.order[0])
+            bad = int(at[NAN_SLOT]) // pair_batch.TILE
+            out[f"{label}: both bad slots in one tile"] = (
+                bad == int(at[INF_SLOT]) // pair_batch.TILE)
+            visit, full = pair_batch.dense_visits(od, a["diameter"], "b")
+            others = [t for t in range(visit.shape[1]) if t != bad]
+            if a is clean:
+                out["without the flag, every other tile skips theirs"] = not bool(
+                    visit[0, others, bad].any())
+                out["and every line tile every other line tile"] = bool(
+                    (visit[0] == torch.eye(visit.shape[1], dtype=torch.bool)).all())
+            else:
+                out["with it, every tile visits theirs, pair by pair"] = bool(full[0, :, bad].all())
+        out["every dense dv_tension and visc_vsum NaN"] = bool(
+            torch.isnan(dv).all() and torch.isnan(vs).all())
+        out["p_i finite"] = bool(torch.isfinite(p_i).all())
+        nan_win = torch.isnan(win[0].dv_tension).any(-1)
+        out["the windows that read it: NaN, the others finite"] = bool(
+            nan_win.any() and not nan_win.all())
+        out["the windows lose nothing"] = int(win[0].overflow) == 0
     elif name == "live_rows":
         p_pad = -(-c["pos"].shape[1] // c["cs"]) * c["cs"]
         n = chunked.live_chunks(c["live_rows"], p_pad, c["cs"])

@@ -13,11 +13,18 @@ overflow exact, NaN in the same places; the operators
 crate's plain version) under ``torch.func.vmap`` equal each crate alone bit
 for bit, with coefficients of their own; other devices raise.
 
+The kernels' skip rule (ops/pair_batch.py's torch mirror: the prologue's
+plain twin ``dense_order_plain``, ``dense_visits``, ``window_visits``, with
+the kernels' tile sizes) never skips a tile pair that holds a counted pair
+or a non-finite slot, on every case, and does skip tiles on
+``tiles_exact``.
+
 ``cuda``-marked tests (skipped without a card) hold D1 and D2
 (csrc/pair_batch.cu) against their plain versions on the card on every
 case and on a random batch of 1024 crates of 640 slots (counts exact, NaN
-places equal, floats at that tolerance), and check that a vmapped call
-launches each pass once and equals each crate alone bit for bit.  This
+places equal, floats at that tolerance), D1's prologue against its plain
+twin, and check that a vmapped call launches each kernel once and equals
+each crate alone bit for bit.  This
 module imports JAX only inside the tests that compare with it, so on the
 card:
 
@@ -109,6 +116,75 @@ def test_chunked_plain_matches_jax(case):
         ref_f = tuple(torch.as_tensor(np.array(getattr(ref, k))) for k in _names(c["spring"]))
         cases.assert_sums(_fields(got, c["spring"]), ref_f, _names(c["spring"]))
         assert int(got.overflow) == int(ref.overflow)
+
+
+def _tile_any(bad: torch.Tensor, size: int) -> torch.Tensor:
+    """(n,) bool -> (ceil(n / size),): the tiles of ``size`` holding one."""
+    return pair_batch._tiled(bad[None], size, False)[0].any(-1)
+
+
+def _held_by_visits(visit, full, counted, bad_self, bad_cand, ts):
+    """Every counted pair (i, j) of ``counted`` lies in a visited tile pair,
+    and every tile pair with a non-finite self or candidate is visited pair
+    by pair."""
+    i, j = counted.nonzero().unbind(1)
+    assert bool(visit[i // ts, j // pair_batch.TILE].all()), "a counted pair in a skipped tile"
+    computed = visit & full
+    assert bool(computed[_tile_any(bad_self, ts)].all()), "a non-finite self tile skipped"
+    assert bool(computed[:, _tile_any(bad_cand, pair_batch.TILE)].all()), \
+        "a non-finite candidate tile skipped"
+
+
+def _finite(*xs) -> torch.Tensor:
+    return torch.stack([torch.isfinite(x) for x in xs]).all(0)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_skip_rule_is_conservative(case):
+    """The rule the kernels skip candidate tiles by, as ops/pair_batch.py
+    mirrors it with their tile sizes: D1 on the prologue's order (both
+    passes: pass B's flags cover the velocities), D2 on each pass's slab and
+    chunk windows.  No skipped tile pair holds a counted pair (f32 d2 <=
+    diam^2, each product rounded, as the kernels take it) or a non-finite
+    slot; on ``tiles_exact`` the rule skips tiles of both kernels."""
+    c = cases.inputs(case)
+    od = pair_batch.dense_order_plain(*(c[k] for k in ("pos", "vel", "alive", "noise",
+                                                      "diameter")))
+    B, P = od.order.shape
+    assert all(torch.equal(od.order[b].sort().values, torch.arange(P, dtype=torch.int32))
+               for b in range(B))
+    skipped = {"dense": 0, "window": 0}
+    for mode in "ab":
+        visit, full = pair_batch.dense_visits(od, c["diameter"], mode)
+        for b in range(B):
+            alive = c["alive"][b][od.order[b].long()]
+            px, py, qx, qy = od.pq[b].unbind(-1)
+            diam = torch.clamp(c["diameter"][b], min=cellwise.EPS)
+            rx, ry = px[:, None] - px[None, :], py[:, None] - py[None, :]
+            counted = (rx * rx + ry * ry <= diam * diam) & alive[:, None] & alive[None, :]
+            counted.fill_diagonal_(False)
+            cand = (px, py, qx, qy) + (tuple(od.sv[b].unbind(-1)) if mode == "b" else ())
+            _held_by_visits(visit[b], full[b], counted, ~_finite(px, py), ~_finite(*cand),
+                            pair_batch.self_tile(P))
+        skipped["dense"] += int((~visit).sum())
+    for b in range(B):
+        for feat, (halo, _, mode, diam, *_, n_chunks, cs) in cases.window_slabs(c, b):
+            visit, full = pair_batch.window_visits(feat[None], diam[None], halo, cs, n_chunks)
+            featp = torch.nn.functional.pad(feat, (0, 0, halo, halo))
+            k = torch.arange(cs + 2 * halo)
+            for ch in range(n_chunks):
+                win, sf = featp[ch * cs: ch * cs + cs + 2 * halo], feat[ch * cs: ch * cs + cs]
+                rx, ry = sf[:, 0:1] - win[None, :, 0], sf[:, 1:2] - win[None, :, 1]
+                dr = win[None, :, 4] - sf[:, 4:5]
+                counted = ((rx * rx + ry * ry <= diam * diam) & (sf[:, 5:6] > 0)
+                           & (win[None, :, 5] > 0) & (dr >= -1.0) & (dr <= 1.0)
+                           & (torch.arange(cs)[:, None] + halo != k[None, :]))
+                _held_by_visits(visit[0, ch], full[0, ch], counted, ~_finite(sf[:, 0], sf[:, 1]),
+                                ~_finite(*win[:, :4].unbind(-1)),
+                                pair_batch.self_tile(feat.shape[0]))
+            skipped["window"] += int((~visit).sum())
+    if case == "tiles_exact":
+        assert skipped["dense"] > 0 and skipped["window"] > 0, skipped
 
 
 def test_dense_operator_vmap_equals_each_crate_alone():
@@ -248,19 +324,43 @@ def cuda():
     return torch.device("cuda")
 
 
+def _dense_launched(before: dict) -> dict:
+    """``before`` with D1's prologue and each pass launched once more."""
+    return {**before, **{k: before[k] + 1 for k in ("dense_order", "dense_a", "dense_b")}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_dense_order_kernel_matches_plain(cuda, case):
+    """D1's prologue on every case (all crates at once): the order and the
+    sorted fields bit for bit its plain twin's, the tile records equal (a
+    box's zero may differ in sign); one launch."""
+    c = cases.inputs(case, cuda)
+    args = tuple(c[k] for k in ("pos", "vel", "alive", "noise", "diameter"))
+    before = dict(pair_batch.LAUNCHES)
+    got = pair_batch.dense_order(*args)
+    assert pair_batch.LAUNCHES == {**before, "dense_order": before["dense_order"] + 1}
+    want = pair_batch.dense_order_plain(*args)
+    assert torch.equal(got.order, want.order)
+    _same_bits((got.pq, got.sv), (want.pq, want.sv), "sorted fields")
+    assert torch.equal(got.tiles[..., 6:], want.tiles[..., 6:])
+    boxes = (t.tiles[..., :6].view(torch.float32) for t in (got, want))
+    assert torch.equal(*boxes)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES)
 def test_dense_kernel_matches_plain(cuda, case):
-    """D1 on every case, crate by crate: one launch a pass, the plain
-    version's counts and NaN places, floats at the tolerance."""
+    """D1 on every case, crate by crate: one launch of the prologue and of
+    each pass, the plain version's counts and NaN places, floats at the
+    tolerance."""
     c = cases.inputs(case, cuda)
     sc = cases.scene(c)
     for b in range(cases.crates(c)):
         args = cases.dense_args(c, b)
         before = dict(pair_batch.LAUNCHES)
         got = pair_batch.neighbor_forces_dense(*args, sc)
-        assert pair_batch.LAUNCHES == {**before, "dense_a": before["dense_a"] + 1,
-                                       "dense_b": before["dense_b"] + 1}
+        assert pair_batch.LAUNCHES == _dense_launched(before)
         ref = cellwise.neighbor_forces_dense(*args, sc)
         cases.assert_sums(_fields(got), _fields(ref))
 
@@ -285,7 +385,7 @@ def test_window_kernel_matches_plain(cuda, case):
 @pytest.mark.cuda
 def test_dense_kernel_on_a_batch_of_1024(cuda):
     """A random batch of 1024 crates of 640 slots (run_datagen's), 10% dead,
-    coefficients of their own: one launch a pass for the whole batch,
+    coefficients of their own: one launch a kernel for the whole batch,
     against the plain version vmapped over the crates."""
     rng = np.random.default_rng(3)
     B, P = 1024, 640
@@ -298,8 +398,7 @@ def test_dense_kernel_on_a_batch_of_1024(cuda):
     coefs = [t(np.full(B, v) * (1.0 + 0.2 * rng.random(B))) for v in cases.COEF.values()]
     before = dict(pair_batch.LAUNCHES)
     got = torch.ops.sand_crate.dense_pairs(pos, vel, alive, noise, *coefs, 0)
-    assert pair_batch.LAUNCHES == {**before, "dense_a": before["dense_a"] + 1,
-                                   "dense_b": before["dense_b"] + 1}
+    assert pair_batch.LAUNCHES == _dense_launched(before)
     ref = torch.func.vmap(lambda *a: pair_batch.dense_pairs_plain(*a, False))(
         pos, vel, alive, noise, *coefs)
     cases.assert_sums(got, ref)
@@ -308,13 +407,12 @@ def test_dense_kernel_on_a_batch_of_1024(cuda):
 @pytest.mark.cuda
 def test_vmapped_dense_launches_once(cuda):
     """torch.func.vmap of the dense entry over the batch case's crates: one
-    launch a pass, each crate bit for bit its kernel run alone."""
+    launch a kernel, each crate bit for bit its kernel run alone."""
     c = cases.inputs("batch", cuda)
     sc = cases.scene(c)
     before = dict(pair_batch.LAUNCHES)
     out = cases.vmapped_dense(c)
-    assert pair_batch.LAUNCHES == {**before, "dense_a": before["dense_a"] + 1,
-                                   "dense_b": before["dense_b"] + 1}
+    assert pair_batch.LAUNCHES == _dense_launched(before)
     for b in range(cases.crates(c)):
         alone = pair_batch.neighbor_forces_dense(*cases.dense_args(c, b), sc)
         _same_bits(tuple(o[b] for o in out), alone[:6], f"crate {b}")
