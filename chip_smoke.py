@@ -320,6 +320,38 @@ prints its wall time as "[phase] name: s"):
    pair entries and the boundary wrappers swapped for their plain versions,
    as phase 6.
 
+(s) batched crates on every backend, after (j): (s0) K1/K2 (pm_pass_crates)
+   and the slab-order grid passes K4+K5 and K8+K9 (pair_pass_a_crates,
+   pair_pass_b_emit_crates) with a crate axis on the batched hard inputs of
+   ops/pmajor_cases.py and ops/grid_cases.py (every case padded to one
+   size, an empty crate, coefficients, noise and ticks of their own): one
+   launch a pass for the batch, bit for bit the plain version and each
+   crate's solo launch.  (s1) WAVE_CRATES wave_machine crates (capacity
+   4096, coefficients of their own, the emitter on), settled PAIR_SETTLE
+   ticks on dense, that state and generator state copied into a
+   BatchedCrates on each of BATCH_MODES: BATCH_SETTLE ticks (the eager tick
+   and the capture), BATCH_CHECK_TICKS replayed
+   ticks == the eager vmapped loop bit for bit (state, diagnostics, the
+   overflow's running max, the generator), non_finite 0, each crate's uids
+   unique, no particle lost but those culled outside the box, the pair
+   kernels once a pass a tick for the whole batch (D1, D2, K1/K2, K4+K5 and
+   K8+K9; none on gather and cellwise); BATCH_TIMED_TICKS replayed ticks:
+   crate-steps/s, step p50, the card memory the batch holds (its state and
+   its graph's pool), and under the profiler kernel ms,
+   launches and device kernels a tick; at the settled pmajor and pallas
+   batches the four crate-axis kernels against their plain versions and the
+   solo launches, bit for bit, their times and bounds for the batch (the
+   rows of the kernels line; their launches those of the timed ticks; the
+   plain versions, crate by crate, timed once on the host clock).
+   (s2) BIG_CRATES dam breaks of BIG_PARTICLES target particles (100,580
+   alive, no emitter) on pmajor, pallas and chunked, as (s1) with the alive
+   set kept; then the same crates one after another alone on pmajor
+   (physics.rollout), each bit for bit its row of the pmajor batch in every
+   state field, crate-steps/s beside the batches'.  (s3) run_datagen of
+   WAVE_CRATES wave_machine crates on pmajor and pallas, S_DATAGEN_TICKS
+   ticks in turns (pmajor, pallas, pallas, pmajor) beside a one-frame run
+   of each: crate-steps/s end to end and past the set-up, peak memory.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports neither JAX nor sand_crate_tpu.
 """
@@ -506,6 +538,7 @@ PAIR_REPLACES = {"dense": "sand_crate_tpu/cellwise.py:334",
                  "window": "sand_crate_tpu/ops/chunked.py:50"}
 # Each backend's pair kernels (kernel_counts keys), once a pass a tick.
 PAIR_KEYS = {"pmajor": ("pmajor.a", "pmajor.b"),
+             "pallas": ("grid.pair_pass_a", "grid.pair_pass_b_emit"),
              "dense": ("pairs.dense_order", "pairs.dense_a", "pairs.dense_b"),
              "chunked": ("pairs.window_a", "pairs.window_b")}
 PAIR_TOL = 1e-5  # (r): tests/test_torch_dense_chunked.py::_assert_sums
@@ -531,8 +564,8 @@ BOUNDARY_CRATES = 3  # (q): the vmapped batches
 # the ghost passes a tick per backend, (full, positions-only): the sorted
 # backends fix the positions alone before the sort and run the full pass on
 # the sorted order; the band step (spatial.py) runs the full pass once
-GHOSTS_A_TICK = {"pmajor": (1, 1), "pallas": (1, 1), "chunked": (1, 1), "dense": (1, 0),
-                 "band": (1, 0)}
+GHOSTS_A_TICK = {"pmajor": (1, 1), "pallas": (1, 1), "chunked": (1, 1), "cellwise": (1, 1),
+                 "dense": (1, 0), "gather": (1, 0), "band": (1, 0)}
 # (q2): ticks of the 1M dam break searched for particles that leave the box
 # (the first ESCAPE_TICKS of (n1)'s soak), and the rows printed
 ESCAPE_TICKS = 1000
@@ -545,6 +578,16 @@ MIDSCALE = dict(particles=65536, eq_ticks=40, settle_ticks=240, n_shards=8)
 BALANCE_SHARDS, BALANCE_TICKS = 8, 300
 FILL_CRATES = 64
 SMALL_N, SMALL_N_CHUNKS = 10_000, 2
+# (s) batched crates on every backend
+BATCH_MODES = ("dense", "chunked", "pmajor", "pallas", "gather", "cellwise")
+BATCH_SETTLE = 1  # (s1): ticks of each backend's batch before its check (eager, capture)
+BATCH_CHECK_TICKS = 4  # (s1), (s2): replayed ticks held against the eager vmapped loop
+BATCH_TIMED_TICKS = 20  # (s1), (s2): replayed ticks timed (crate-steps/s, p50)
+BIG_CRATES = 8  # (s2): dam-break crates of BIG_PARTICLES target particles
+BIG_PARTICLES = 100_000  # perf_probe's 100,580-particle dam break
+BIG_SETTLE = 10
+BIG_MODES = ("pmajor", "pallas", "chunked")
+S_DATAGEN_TICKS, S_DATAGEN_EVERY = 1000, 20  # (s3): run_datagen of WAVE_CRATES crates
 
 
 def check(ok: bool, what: str) -> None:
@@ -1879,10 +1922,12 @@ def profiled(run, ticks: int, top: int = 0) -> str:
                     if e.device_type == DeviceType.CUDA) / ticks / 1e3
     calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
     launches = sum(calls.values())
+    device_kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
     out = (f"profiled {ticks} ticks: wall {wall_ms:.3f} ms/tick (profiler on), kernels "
            f"{kernel_ms:.3f} ms/tick, busy share {kernel_ms / wall_ms:.3f}, "
            f"{launches / ticks:.0f} launches/tick "
-           f"({', '.join(f'{k} {v / ticks:g}' for k, v in sorted(calls.items()))})")
+           f"({', '.join(f'{k} {v / ticks:g}' for k, v in sorted(calls.items()))}), "
+           f"{device_kernels / ticks:.0f} device kernels/tick")
     if top:
         kernels = sorted(((e.self_device_time_total / ticks / 1e3, e.key) for e in events
                           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
@@ -2157,6 +2202,482 @@ def batched_crates(smi: str) -> dict:
         print(f"  {name} batch: BatchedCrates picks {first} at capacity {cap}; crate-steps/s "
               + ", ".join(f"{m} {r:.1f}" for m, (r, _) in runs.items()))
     return main
+
+# --------------------------------------------------------------------------
+# (s) batched crates on every backend: K1/K2, K4+K5 and K8+K9 with a crate axis
+# --------------------------------------------------------------------------
+
+
+def each_crate(fn, *xs):
+    """``fn`` on each crate's operands alone (the leading axis), stacked."""
+    from sand_crate_tpu_torch.ops.crate_axis import crates_plain
+
+    return crates_plain("each_crate", fn, xs)
+
+
+def timed_once(fn):
+    """(``fn()``, its ms on the host clock between two synchronizes): a
+    plain version crate by crate, whose runs read the host, timed in the
+    one run that its comparison needs."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def crate_axis_cases() -> None:
+    """(s0): K1/K2 and the slab-order grid passes on the batched hard inputs
+    of ops/pmajor_cases.py and ops/grid_cases.py (every case padded to one
+    size, an empty crate, coefficients, noise and ticks per crate): one
+    launch a pass for the batch, bit for bit the plain version and each
+    crate's solo launch."""
+    import torch
+
+    from sand_crate_tpu_torch.ops import grid_cases, pair_kernel, pmajor, pmajor_cases
+    from sand_crate_tpu_torch.scene import build_scene
+
+    scene = build_scene(dam_break_world(N_TARGET), device="cuda")
+    for name, cases, counter in (("K1/K2", pmajor_cases, pmajor.LAUNCHES),
+                                 ("K4+K5, K8+K9", grid_cases, pair_kernel.LAUNCHES)):
+        f = cases.batch_facts(scene, "cuda")
+        check(f["holds"], f"batched hard cases of {name}: alive counts {f['alive']} do not "
+                          "differ widely or hold no empty crate")
+        variants = cases.batch_variants(scene, "cuda")
+        for label, run, plain, solo in variants:
+            before = sum(counter.values())
+            got = run()
+            check(sum(counter.values()) == before + 1, f"{name} {label}: not one launch")
+            exact(f"batched hard cases, {name} {label}", got, plain())
+            check(torch.equal(got, solo()), f"batched hard cases, {name} {label}: the crate "
+                                            "axis differs from the solo launches")
+        print(f"  {name} on {len(f['alive'])} crates (alive {f['alive']}): {len(variants)} "
+              f"variants, one launch each, == plain and == each crate's solo launch bit for bit")
+
+
+def batch_gates(label: str, before, after, diag, radius, closed: bool) -> int:
+    """The batch's invariants after a run from ``before``: non_finite 0 in
+    every crate; uids unique among each crate's alive slots; every particle
+    alive before still alive (``closed``: and no particle came alive), but
+    those culled outside [-r, 1 + r], at most RUNAWAY_SHARE of the alive.
+    Returns the culled count."""
+    import torch
+
+    check(int(diag.non_finite.max()) == 0, f"{label}: non_finite {diag.non_finite.tolist()}")
+    for i in range(after.pos.shape[0]):
+        uids = torch.sort(after.uid[i][after.alive[i]]).values
+        check(bool((uids[1:] > uids[:-1]).all()), f"{label}: crate {i}'s uids are not unique")
+
+    def by_uid(st, values):
+        idx = st.uid.long().reshape(st.uid.shape + (1,) * (values.dim() - 2))
+        return torch.zeros_like(values).scatter(1, idx.expand_as(values), values)
+
+    a0 = by_uid(before, before.alive.to(torch.int8)) > 0
+    a1 = by_uid(after, after.alive.to(torch.int8)) > 0
+    lost = a0 & ~a1
+    if closed:
+        check(not bool((a1 & ~a0).any()), f"{label}: a particle came alive in a closed box")
+    culled = int(lost.sum())
+    if culled:
+        r = radius[:, None, None]
+        frozen = by_uid(after, after.pos)
+        outside = ((frozen < -r) | (frozen > 1.0 + r)).any(dim=-1)
+        check(bool(outside[lost].all()), f"{label}: a lost particle died inside the box")
+        check(culled <= RUNAWAY_SHARE * int(a0.sum()), f"{label}: {culled} particles lost")
+    return culled
+
+
+def batch_run(label: str, smi: str, config, params, mode: str, seed: int, settle: int,
+              closed: bool, start=None, crate_axis_rows=None) -> dict:
+    """One batch on ``mode`` through BatchedCrates, from ``start`` (a
+    (state, generator state) to copy in) if given: ``settle`` ticks (the
+    first eager, then the capture), BATCH_CHECK_TICKS replayed ticks held
+    bit for bit against the eager vmapped loop from the same state and
+    generator, the gates (batch_gates), then BATCH_TIMED_TICKS replayed
+    ticks timed (crate-steps/s on the host clock closed by a synchronize,
+    step p50 from CUDA events; the card memory the batch holds, its state
+    and its captured graph's pool: reserved after the timed ticks less
+    reserved before the batch, each after empty_cache; the peak allocated
+    over those ticks), the pair kernels counted once a pass a tick over
+    those ticks, and PROFILED_TICKS under the profiler.  With
+    ``crate_axis_rows``, that function's kernel rows at the settled batch.
+    Returns the figures and the ticks the batch ran."""
+    import torch
+
+    from sand_crate_tpu_torch import graphs
+    from sand_crate_tpu_torch.sweep import BatchedCrates
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    b = BatchedCrates(config, params, device="cuda", seed=seed, forces_mode=mode)
+    check(b.scene.forces_mode == mode, f"{label}: BatchedCrates runs {b.scene.forces_mode}")
+    if start is not None:
+        b.state = start[0]
+        b.generator.set_state(start[1])
+    b.run(settle)
+    s0, p0, g0 = clone_state(b.state), clone_state(b.params), b.generator.get_state()
+    live = b.live_rows(BATCH_CHECK_TICKS)
+    reset_kernel_counts()
+    reset(graphs.LAUNCHES)
+    diag = b.run(BATCH_CHECK_TICKS)
+    calls = dict(graphs.LAUNCHES)
+    g1 = b.generator.get_state()
+    b.generator.set_state(g0)
+    st, want, worst = eager_loop(s0, p0, b.scene, b.generator, BATCH_CHECK_TICKS, live,
+                                 batched=True)
+    check(torch.equal(b.generator.get_state(), g1), f"{label}: the generator advanced otherwise")
+    same_bits(label, b.state, st)
+    same_bits(label + " (diagnostics)", diag, want._replace(neighbor_overflow=worst))
+    del st, want
+    culled = batch_gates(label, s0, b.state, diag, p0.particle_radius, closed)
+    if mode == "pmajor":
+        check(int(diag.neighbor_overflow.max()) == 0, f"{label}: overflow on pmajor")
+    rows = crate_axis_rows(b) if crate_axis_rows else []
+    live = b.live_rows(BATCH_TIMED_TICKS + 1)
+    reset_kernel_counts()
+    b.graph.step(b.scene, b.generator, live)  # a new sweep bound captures here
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(BATCH_TIMED_TICKS + 1)]
+    del s0, p0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the replayed ticks' peak, not the checks'
+    t0 = time.perf_counter()
+    events[0].record()
+    for k in range(BATCH_TIMED_TICKS):
+        out_diag = b.graph.step(b.scene, b.generator, live)
+        events[k + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p50 = statistics.median(events[k].elapsed_time(events[k + 1])
+                            for k in range(BATCH_TIMED_TICKS))
+    launches = kernel_counts()
+    ticks = BATCH_TIMED_TICKS + 1
+    check(launches == pair_want(launches, mode, ticks),
+          f"{label}: launches {launches} (its pair kernels once a pass a tick for the batch)")
+    bounds = check_boundary(label, boundary_want(ticks, mode))
+    check(int(out_diag.non_finite.max()) == 0, f"{label}: non-finite particles in the timed run")
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - base
+    check(held > 0, f"{label}: the batch holds no card memory ({held} bytes)")
+
+    def replays(n):
+        for _ in range(n):
+            b.graph.step(b.scene, b.generator, live)
+
+    profile = profiled(replays, PROFILED_TICKS, top=3)
+    B = b.n
+    counts = b.particle_counts()
+    rate = B * BATCH_TIMED_TICKS / wall
+    print(f"  {label} ({smi}): replayed == eager bit for bit over {BATCH_CHECK_TICKS} ticks "
+          f"(graph calls {calls}, sweep bound {live}), culled {culled}; {rate:.1f} crate-steps/s "
+          f"({counts.sum() * BATCH_TIMED_TICKS / wall:.1f} particle-steps/s), replayed step "
+          f"p50 {p50:.4f} ms (CUDA events, {BATCH_TIMED_TICKS} ticks); card memory held "
+          f"(state and graph pool, memory_reserved) {held / 2**30:.3f} GiB, peak allocated "
+          f"over those ticks {peak / 2**30:.3f} GiB; alive per crate {int(counts.min())}-"
+          f"{int(counts.max())}; overflow max {int(worst.max())}; pair kernels a tick "
+          f"{ {k: v / ticks for k, v in launches.items() if v} }, {bounds}")
+    print(f"    {profile}")
+    return dict(b=b, rate=rate, p50=p50, held=held, launches=launches, rows=rows,
+                ticks=settle + BATCH_CHECK_TICKS + ticks + PROFILED_TICKS)
+
+
+def pm_crate_axis_rows(b) -> list:
+    """K1/K2's crate-axis rows at the batch's state, in each crate's sorted
+    order with the tick's noise and pass-B variant: the one launch for all
+    crates bit for bit the plain version and each crate's solo launch;
+    kernel, plain and bound times for the batch."""
+    import torch
+
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+    from sand_crate_tpu_torch.ops import pmajor
+
+    st, pr, sc = b.state, b.params, b.scene
+    nx, ny, symm = sc.grid_nx, sc.grid_ny, sc.pmajor_symm
+
+    def one(pos, vel, alive, tick, diam, noise, tp, bal):
+        scid, order = torch.sort(cell_ids_grid(pos, alive, sc), stable=True)
+        al = alive[order]
+        slab = pmajor.pass_a_slab(pos[order], vel[order], al, scid, diam * noise, tick, sc,
+                                  symm=symm)
+        return slab, pmajor.candidate_ranges(scid, al, nx, ny), pmajor.coef_stack(diam, tp, bal)
+
+    slab_a, ranges, coef = torch.func.vmap(one)(
+        st.pos, st.vel, st.alive, st.tick, pr.diameter, pr.collider_noise_level,
+        pr.target_pressure, pr.spring_overlap_balance)
+    B, P = slab_a.shape[:2]
+    fold, spring = sc.fold_pairs and not sc.enable_spring, sc.enable_spring
+    rows = []
+    for mode, name in (("a", "pm_pass_a_crates"), ("b", "pm_pass_b_crates")):
+        if mode == "a":
+            slab, kw = slab_a, dict(symm=symm)
+        else:
+            cp = pmajor.finalize_cp(out_a[:, 0], out_a[:, 3], pr.ignored_pressure[:, None])
+            cp = cp * (1.0 + pr.pressure_amplifier[:, None]) if fold else cp
+            slab = torch.func.vmap(pmajor.pass_b_slab)(slab_a, out_a, cp, pr.surface_smoothing)
+            kw = dict(symm=symm, fold=fold, spring=spring)
+
+        def run(slab=slab, mode=mode, kw=kw):
+            return pmajor.pm_pass_crates(slab, ranges, coef, mode, **kw)
+
+        def plain(slab=slab, mode=mode, kw=kw):
+            return each_crate(lambda s, r, c: pmajor.pm_pass_plain(s, r, c, mode, **kw),
+                              slab, ranges, coef)
+
+        before = pmajor.LAUNCHES[mode]
+        got = run()
+        check(pmajor.LAUNCHES[mode] == before + 1, f"{name}: not one launch for the batch")
+        want, plain_ms = timed_once(plain)
+        err = exact(f"{name} at {B} settled crates", got, want)
+        check(torch.equal(got, each_crate(lambda s, r, c: pmajor.pm_pass(s, r, c, mode, **kw),
+                                          slab, ranges, coef)),
+              f"{name}: the crate axis differs from the solo launches")
+        if mode == "a":
+            out_a = got
+            pairs = float(got[:, 3].sum())
+        rows.append(kernel_row(name, SOURCE, REPLACES, err, cuda_ms(run, 20), plain_ms,
+                               B * (8 + 6 + got.shape[1]) * 4 * P, pairs * PAIR_FLOPS))
+    print(f"  K1/K2 at {B} settled crates of {P} slots (symm {symm}, fold {fold}, spring "
+          f"{spring}), {pairs:.0f} directed pairs: == plain and == each crate's solo launch bit "
+          "for bit; " + "; ".join(f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.2f}, "
+                                 f"bound {r['bound_ms']:.4f} {r['bound_by']})" for r in rows))
+    return rows
+
+
+def grid_crate_axis_rows(b) -> list:
+    """K4+K5 and K8+K9's crate-axis rows at the batch's state, as
+    pm_crate_axis_rows."""
+    import torch
+
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+    from sand_crate_tpu_torch.ops import pair_kernel as pk
+    from sand_crate_tpu_torch.ops import placement as pl
+
+    st, pr, sc = b.state, b.params, b.scene
+    M, nx, ny, spring = sc.cell_capacity, sc.grid_nx, sc.grid_ny, sc.enable_spring
+
+    def one(pos, vel, alive):
+        scid, order = torch.sort(cell_ids_grid(pos, alive, sc), stable=True)
+        return pl.slab_from_sorted(pos[order], alive[order], vel[order], scid, M, nx, ny)[:2]
+
+    slab, row_start = torch.func.vmap(one)(st.pos, st.vel, st.alive)
+    amp = pr.diameter * pr.collider_noise_level
+    coef_a = torch.stack([pr.diameter, amp], dim=1)
+    coef_b = torch.stack([pr.diameter, pr.surface_smoothing, pr.target_pressure,
+                          pr.spring_overlap_balance, amp, pr.ignored_pressure], dim=1)
+    tick = st.tick.to(torch.int32)
+    B, p_pad = slab.shape[0], slab.shape[2]
+
+    def run_a():
+        return pk.pair_pass_a_crates(slab, row_start, M, nx, coef_a, tick)
+
+    def plain_a():
+        return each_crate(lambda s, r, c, t: pk.pair_pass_a_slab_plain(s, r, M, nx, c[0], c[1], t),
+                          slab, row_start, coef_a, tick)
+
+    def solo_a():
+        return each_crate(lambda s, r, c, t: pk.pair_pass_a(s, r, M, nx, c[0], c[1], t),
+                          slab, row_start, coef_a, tick)
+
+    before = pk.LAUNCHES["pair_pass_a"]
+    ps = run_a()
+    check(pk.LAUNCHES["pair_pass_a"] == before + 1, "pair_pass_a: not one launch for the batch")
+    want, plain_a_ms = timed_once(plain_a)
+    err_a = exact(f"pair_pass_a at {B} settled crates", ps, want)
+    check(torch.equal(ps, solo_a()), "pair_pass_a: the crate axis differs from the solo launches")
+    pairs = float(ps[:, pk.CNT].sum())
+
+    def run_b():
+        return pk.pair_pass_b_emit_crates(slab, ps, row_start, M, nx, coef_b, tick,
+                                          enable_spring=spring)
+
+    def b_args(s, p, r, c, t):  # c: coef_b's order
+        return (s, p, r, M, nx, c[0], c[1], c[2], c[3], c[5], c[4], t)
+
+    def plain_b():
+        return each_crate(lambda *a: pk.pair_pass_b_emit_plain(*b_args(*a), enable_spring=spring),
+                          slab, ps, row_start, coef_b, tick)
+
+    before = pk.LAUNCHES["pair_pass_b_emit"]
+    out = run_b()
+    check(pk.LAUNCHES["pair_pass_b_emit"] == before + 1,
+          "pair_pass_b_emit: not one launch for the batch")
+    want, plain_b_ms = timed_once(plain_b)
+    err_b = exact(f"pair_pass_b_emit at {B} settled crates", out, want)
+    check(torch.equal(out, each_crate(
+        lambda *a: pk.pair_pass_b_emit(*b_args(*a), enable_spring=spring),
+        slab, ps, row_start, coef_b, tick)),
+        "pair_pass_b_emit: the crate axis differs from the solo launches")
+    f32, rs_bytes, nb = 4, 4 * (ny + 1), out.shape[1]
+    rows = [
+        kernel_row("pair_pass_a_crates", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:193",
+                   err_a, cuda_ms(run_a, 20), plain_a_ms,
+                   B * (f32 * (6 + 4) * p_pad + rs_bytes), pairs * PAIR_FLOPS),
+        kernel_row("pair_pass_b_emit_crates", GRID_SOURCE,
+                   "sand_crate_tpu/ops/pair_kernel.py:707", err_b, cuda_ms(run_b, 20),
+                   plain_b_ms, B * (f32 * (8 + 4 + nb) * p_pad + rs_bytes),
+                   pairs * PAIR_FLOPS),
+    ]
+    print(f"  K4+K5, K8+K9 at {B} settled crates (slab {p_pad} columns, {M} slots a cell, "
+          f"spring {spring}), {pairs:.0f} directed pairs: == plain and == each crate's solo "
+          "launch bit for bit; " + "; ".join(
+              f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.2f}, bound "
+              f"{r['bound_ms']:.4f} {r['bound_by']})" for r in rows))
+    return rows
+
+
+def wave_backends(smi: str) -> list:
+    """(s1): WAVE_CRATES wave_machine crates (capacity 4096, coefficients of
+    their own, the emitter on) through BatchedCrates on every backend;
+    returns the crate-axis kernel rows at the settled pmajor and pallas
+    batches, their launches those of the batch's timed ticks."""
+    import copy
+
+    import torch
+
+    from sand_crate_tpu_torch import Params, load_config_dict
+    from sand_crate_tpu_torch.bench import WAVE_MACHINE
+    from sand_crate_tpu_torch.sweep import DEFAULT_RANDOM_RANGES, BatchedCrates, random_params
+
+    config = load_config_dict(copy.deepcopy(WAVE_MACHINE))
+    base = Params.from_coefficients(config.world_config.coefficients, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    params = random_params(gen, base, DEFAULT_RANDOM_RANGES, WAVE_CRATES)
+    # One settled batch (phase (r)'s PAIR_SETTLE ticks, on dense), its state
+    # and generator copied into every backend's batch.
+    settled = BatchedCrates(config, params, device="cuda", seed=5, forces_mode="dense")
+    settled.run(PAIR_SETTLE)
+    start = (clone_state(settled.state), settled.generator.get_state())
+    counts = settled.particle_counts()
+    print(f"  settled {PAIR_SETTLE} ticks on dense: alive per crate {int(counts.min())}-"
+          f"{int(counts.max())} of {settled.scene.capacity}")
+    del settled
+    row_fns = {"pmajor": pm_crate_axis_rows, "pallas": grid_crate_axis_rows}
+    rates, rows = {}, []
+    for mode in BATCH_MODES:
+        out = batch_run(f"{WAVE_CRATES} wave_machine crates on {mode}", smi, config, params,
+                        mode, 5, BATCH_SETTLE, closed=False, start=start,
+                        crate_axis_rows=row_fns.get(mode))
+        for r in out["rows"]:
+            key = ("pmajor." + r["name"][8]) if r["name"].startswith("pm_") else \
+                "grid." + r["name"][:-len("_crates")]
+            r["launches"] = out["launches"][key]
+        rows += out["rows"]
+        rates[mode] = (out["rate"], out["p50"])
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    lead = max(rates, key=lambda m: rates[m][0])
+    print(f"  {WAVE_CRATES} x 4096 wave_machine ({smi}): crate-steps/s (replayed p50 ms) "
+          + ", ".join(f"{m} {r:.1f} ({q:.4f})" for m, (r, q) in rates.items())
+          + f"; leads: {lead}")
+    return rows
+
+
+def big_batches(smi: str) -> None:
+    """(s2): BIG_CRATES dam breaks of BIG_PARTICLES target particles (no
+    emitter, closed box) on pmajor, pallas and chunked, then the same crates
+    one after another alone on pmajor (physics.rollout: replays), timed
+    over the same ticks; each crate alone equals its row of the pmajor batch
+    in every state field, bit for bit."""
+    import torch
+
+    from sand_crate_tpu_torch import Config, Params
+    from sand_crate_tpu_torch.config import PlaybackConfig
+    from sand_crate_tpu_torch.physics import rollout
+    from sand_crate_tpu_torch.scene import init_state
+    from sand_crate_tpu_torch.sweep import grid_params
+
+    world = dam_break_world(BIG_PARTICLES)
+    config = Config(world_config=world, playback_config=PlaybackConfig())
+    base = Params.from_coefficients(world.coefficients, "cuda")
+    params = grid_params(base, {"viscosity": [6.0, 8.0, 10.0, 12.0],
+                                "pressure_amplifier": [25.0, 30.0]})
+    rates, pm_state, scene, ticks = {}, None, None, 0
+    for mode in BIG_MODES:
+        out = batch_run(f"{BIG_CRATES} x {BIG_PARTICLES} dam break crates on {mode}", smi,
+                        config, params, mode, 9, BIG_SETTLE, closed=True)
+        rates[mode] = (out["rate"], out["p50"])
+        if mode == "pmajor":
+            pm_state, scene, ticks = clone_state(out["b"].state), out["b"].scene, out["ticks"]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    # Each crate alone runs the pmajor batch's ticks, BATCH_TIMED_TICKS of them timed.
+    first = ticks - BATCH_TIMED_TICKS
+    gen = torch.Generator(device="cuda")
+    wall, worst = 0.0, 0
+    for i in range(BIG_CRATES):
+        pr = Params(*(x[i] for x in params))
+        st, _ = rollout(init_state(world, scene, seed=9 + i), pr, scene, first, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, diag = rollout(st, pr, scene, BATCH_TIMED_TICKS, gen)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        for name, a, b in zip(st._fields, st, pm_state):
+            check(torch.equal(a, b[i]), f"{BIG_PARTICLES} dam break crate {i} alone differs from "
+                                        f"its row of the pmajor batch in {name}")
+        worst = max(worst, int(diag.neighbor_overflow))
+    solo = BIG_CRATES * BATCH_TIMED_TICKS / wall
+    print(f"  {BIG_CRATES} x {BIG_PARTICLES} dam break ({smi}): crate-steps/s (replayed p50 ms) "
+          + ", ".join(f"{m} batch {r:.2f} ({q:.4f})" for m, (r, q) in rates.items())
+          + f"; pmajor alone, one crate after another (physics.rollout, replays): {solo:.2f}, "
+          f"every crate bit for bit its row of the pmajor batch; leads: "
+          f"{max(rates, key=lambda m: rates[m][0])}")
+
+
+def wave_datagen(smi: str) -> None:
+    """(s3): run_datagen with WAVE_CRATES wave_machine crates on pmajor and
+    pallas.  Per backend one frame alone (S_DATAGEN_EVERY ticks: the set-up,
+    the capture and one shard frame), then S_DATAGEN_TICKS ticks in turns
+    (pmajor, pallas, pallas, pmajor), each from a fresh start: crate-steps/s
+    end to end, the steady rate past the set-up (the long run less the
+    one-frame run), and the peak memory of the run."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from sand_crate_tpu_torch import load_config_dict
+    from sand_crate_tpu_torch.bench import WAVE_MACHINE
+    from sand_crate_tpu_torch.sweep import run_datagen
+
+    config = load_config_dict(copy.deepcopy(WAVE_MACHINE))
+
+    def timed(mode, ticks):
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            out = run_datagen(config, WAVE_CRATES, ticks, S_DATAGEN_EVERY, tmp, seed=4,
+                              forces_mode=mode, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        check(launches == pair_want(launches, mode, ticks),
+              f"run_datagen on {mode}: launches {launches}")
+        check(out["frames"] == ticks // S_DATAGEN_EVERY, f"run_datagen on {mode}: frames")
+        check(out["non_finite"] == 0, f"run_datagen on {mode}: non_finite {out['non_finite']}")
+        check(mode != "pmajor" or out["overflow"] == 0, "run_datagen on pmajor: overflow")
+        return wall, torch.cuda.max_memory_allocated(), out["overflow"]
+
+    setup = {mode: timed(mode, S_DATAGEN_EVERY)[0] for mode in ("pmajor", "pallas")}
+    for mode in ("pmajor", "pallas", "pallas", "pmajor"):
+        wall, peak, overflow = timed(mode, S_DATAGEN_TICKS)
+        steady = WAVE_CRATES * (S_DATAGEN_TICKS - S_DATAGEN_EVERY) / (wall - setup[mode])
+        print(f"  run_datagen ({smi}): {WAVE_CRATES} wave_machine crates x {S_DATAGEN_TICKS} "
+              f"ticks, sampled every {S_DATAGEN_EVERY}, {mode}: {wall:.3f} s end to end, "
+              f"{WAVE_CRATES * S_DATAGEN_TICKS / wall:.1f} crate-steps/s; one frame alone "
+              f"{setup[mode]:.3f} s, past it {steady:.1f} crate-steps/s; peak memory "
+              f"{peak / 2**30:.3f} GiB, overflow {overflow}")
+
 
 # --------------------------------------------------------------------------
 # (r) the batched pair kernels: D1 and D2 (csrc/pair_batch.cu)
@@ -4588,6 +5109,22 @@ def main() -> int:
             check(all(r["launches"] > 0 for r in pair_rows),
                   f"a pair kernel launched no time on its batched path: {pair_rows}")
 
+        # -- (s) batched crates on every backend: the crate-axis kernels ----------
+        with phase("crate-axis hard cases"):
+            print("(s0) K1/K2, K4+K5 and K8+K9 with a crate axis on the batched hard inputs:")
+            crate_axis_cases()
+        with phase("batched backends, wave_machine"):
+            print(f"(s1) {WAVE_CRATES} wave_machine crates on every backend of BatchedCrates:")
+            axis_rows = wave_backends(smi)
+            check(all(r["launches"] > 0 for r in axis_rows),
+                  f"a crate-axis kernel launched no time on its batched path: {axis_rows}")
+        with phase("batched backends, 100k dam break"):
+            print(f"(s2) {BIG_CRATES} dam breaks of {BIG_PARTICLES} target particles:")
+            big_batches(smi)
+        with phase("batched datagen, pmajor and pallas"):
+            print(f"(s3) run_datagen of {WAVE_CRATES} wave_machine crates:")
+            wave_datagen(smi)
+
         # -- (k) the command line's main path, rendering, replay, gather, cellwise --
         with phase("CLI main path"):
             cli_path(smi, traj_dir.parent)
@@ -4621,7 +5158,8 @@ def main() -> int:
     with phase("band graphs"):
         band_graphs(smi)
 
-    print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows + b_rows + pair_rows}))
+    print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows + b_rows + pair_rows
+                      + axis_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

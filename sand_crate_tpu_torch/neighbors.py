@@ -40,16 +40,17 @@ def build_cell_table(cid: torch.Tensor, scene: Scene) -> tuple[torch.Tensor, tor
     """(table, overflow): the (NC + 1, M) int32 table of particle indices per
     cell, the sentinel P in empty slots and in the whole last row, and the
     count of alive particles past their cell's capacity.  Ranks within a
-    cell come from :func:`cellwise.slot_assignment`."""
+    cell come from :func:`cellwise.slot_assignment`.  Built out of place
+    (a scatter into a new table), so it vmaps over a crate axis."""
     P = cid.shape[0]
     M = scene.cell_capacity
     NC = scene.num_cells
     sorted_cid, order = torch.sort(cid, stable=True)
     _, _, slot_sorted, _, overflow = slot_assignment(sorted_cid, M, NC)
-    table = torch.full(((NC + 1) * M,), P, dtype=torch.int32, device=cid.device)
-    table[slot_sorted.long()] = order.to(torch.int32)  # slot NC * M: a dump, reset below
-    table = table.reshape(NC + 1, M)
-    table[NC].fill_(P)
+    empty = torch.full(((NC + 1) * M,), P, dtype=torch.int32, device=cid.device)
+    # slot NC * M: a dump for the dead and over-cap particles, reset below
+    flat = empty.scatter(0, slot_sorted.long(), order.to(torch.int32))
+    table = torch.cat([flat[:NC * M], empty[NC * M:]]).reshape(NC + 1, M)
     return table, overflow
 
 

@@ -19,6 +19,14 @@ emit-mode pass B with the spring off and on; and grid-mode pass B
 stages each occupied tile's neighbourhood) on G and PS placed from the
 case's slab, spring off and on, row offsets 0 and 5
 (:func:`grid_variants`).
+
+The batched inputs (:func:`batch_variants`) stack the cases on a crate axis
+for the passes' crate-axis launch, at one cell capacity
+(``BATCH_SLOTS``): each case padded with dead slots to the largest case's
+size (so the alive counts differ widely), then a crate with no alive
+particle, each crate with coefficients, noise and a tick of its own; the
+crate-axis launch is held to the plain version and to the solo launch of
+each crate.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 from ..cellwise import cell_ids_grid
 from . import pair_kernel as pk
 from . import placement
+from .crate_axis import EMPTY, crates_plain, padded_crates, spread_widely
 
 
 class Case(NamedTuple):
@@ -187,4 +196,88 @@ def grid_variants(case: str, scene, device):
             out.append((f"grid pass B spring={spring} row offset {off}",
                         lambda kw=kw: pk.pair_pass_b(*args, **kw),
                         lambda kw=kw: pk.pair_pass_b_plain(*args, **kw)))
+    return out
+
+
+# The batched inputs: the cases on a crate axis at one cell capacity, then
+# an empty crate.
+BATCH = tuple(CASES) + (EMPTY,)
+BATCH_SLOTS = 8
+
+
+def batch_slabs(scene, device, names=BATCH):
+    """(slab (B, 8, P_pad), row_start (B, ny + 1)) of the cases ``names``
+    (EMPTY: no alive particle) at BATCH_SLOTS slots a cell, each padded with
+    dead particles (cell id NC, sorted last) to the largest case's size."""
+    nx, ny = scene.grid_nx, scene.grid_ny
+    crates = padded_crates(names, lambda name: sorted_particles(name, scene, device), nx * ny,
+                           device)
+    slabs = [placement.slab_from_sorted(pos, alive, vel, cid, BATCH_SLOTS, nx, ny)[:2]
+             for pos, vel, alive, cid in crates]
+    return tuple(torch.stack(x) for x in zip(*slabs))
+
+
+def batch_coefs(B: int, d: float, device):
+    """Each crate's (pass A coefficients (B, 2), pass B coefficients (B, 6),
+    tick (B,)): diameters up to the cell size d, noise, smoothing, target
+    pressures, balances, ignored pressures and ticks that differ per
+    crate (the rows of pair_kernel.coef_a / coef_b)."""
+    i = torch.arange(B, dtype=torch.float32, device=device)
+    diam = d * (1.0 - 0.1 * (i % 3))
+    amp = NOISE * d * (1.0 + 0.2 * i)
+    coef_b = torch.stack([diam, 100.0 - 5.0 * i, -2.0 + 0.5 * i, 0.5 + 0.05 * i, amp,
+                          0.3 + 0.02 * i], dim=1)
+    return torch.stack([diam, amp], dim=1), coef_b, (TICK + 3 * i).to(torch.int32)
+
+
+def batch_facts(scene, device, names=BATCH) -> dict:
+    """The batch's alive counts and whether they differ widely, with an
+    empty crate among them (``"holds"``)."""
+    slab, row_start = batch_slabs(scene, device, names)
+    counts = row_start[:, -1].tolist()
+    return dict(P_pad=slab.shape[-1], alive=counts, holds=spread_widely(counts))
+
+
+def batch_variants(scene, device, names=BATCH):
+    """(label, crate-axis call, plain calls, solo kernel calls) for pass A
+    at row offsets 0 and 5 and emit-mode pass B with the spring off and on,
+    on the batched inputs; the plain and solo calls run each crate alone
+    and stack the results.  Pass B's pass-A columns come from the plain
+    pass A."""
+    m, nx = BATCH_SLOTS, scene.grid_nx
+    slab, row_start = batch_slabs(scene, device, names)
+    coef_a, coef_b, tick = batch_coefs(len(names), scene.cell_size, device)
+
+    def each(fn, *xs):
+        return crates_plain("batch_variants", fn, xs)
+
+    out = []
+    for off in ROW_OFFSETS:
+        def plain_a(s, r, c, t, o=off):
+            return pk.pair_pass_a_slab_plain(s, r, m, nx, c[0], c[1], t, row_offset=o)
+
+        def solo_a(s, r, c, t, o=off):
+            return pk.pair_pass_a(s, r, m, nx, c[0], c[1], t, row_offset=o)
+
+        out.append((f"pass A row offset {off}",
+                    lambda o=off: pk.pair_pass_a_crates(slab, row_start, m, nx, coef_a, tick,
+                                                        row_offset=o),
+                    lambda f=plain_a: each(f, slab, row_start, coef_a, tick),
+                    lambda f=solo_a: each(f, slab, row_start, coef_a, tick)))
+    ps = each(lambda s, r, c, t: pk.pair_pass_a_slab_plain(s, r, m, nx, c[0], c[1], t),
+              slab, row_start, coef_a, tick)
+    for spring in (False, True):
+        def plain_b(s, p, r, c, t, sp=spring):  # c: coef_b's order
+            return pk.pair_pass_b_emit_plain(s, p, r, m, nx, c[0], c[1], c[2], c[3], c[5], c[4],
+                                             t, enable_spring=sp)
+
+        def solo_b(s, p, r, c, t, sp=spring):
+            return pk.pair_pass_b_emit(s, p, r, m, nx, c[0], c[1], c[2], c[3], c[5], c[4], t,
+                                       enable_spring=sp)
+
+        out.append((f"emit spring={spring}",
+                    lambda sp=spring: pk.pair_pass_b_emit_crates(
+                        slab, ps, row_start, m, nx, coef_b, tick, enable_spring=sp),
+                    lambda f=plain_b: each(f, slab, ps, row_start, coef_b, tick),
+                    lambda f=solo_b: each(f, slab, ps, row_start, coef_b, tick)))
     return out

@@ -62,6 +62,7 @@ import torch
 from .. import cellwise
 from ..cellwise import EPS, PairSums
 from . import cuda_build
+from .crate_axis import crates_plain, on_cpu_or_cuda, register_crate_vmap
 
 # Kernel launches since the last reset, counted where each kernel launches.
 LAUNCHES = {"dense_order": 0, "dense_a": 0, "dense_b": 0, "window_a": 0, "window_b": 0}
@@ -492,14 +493,6 @@ _WINDOW_SCHEMA = ("(Tensor feat, " + ", ".join(f"Tensor {k}" for k in WINDOW_COE
 _MODES = ("a", "b")
 
 
-def _crates_plain(plain, per_crate, *rest):
-    """An operator's plain version: each crate alone, stacked."""
-    outs = [plain(*(x[b] for x in per_crate), *rest) for b in range(per_crate[0].shape[0])]
-    if isinstance(outs[0], torch.Tensor):
-        return torch.stack(outs)
-    return tuple(torch.stack(o) for o in zip(*outs))
-
-
 @torch.library.custom_op("sand_crate::dense_pairs", mutates_args=(), schema=_DENSE_SCHEMA)
 def _dense_op(pos, vel, alive, noise, diameter, surface_smoothing, target_pressure,
               ignored_pressure, spring_overlap_balance, spring):
@@ -514,9 +507,7 @@ def _dense_op(pos, vel, alive, noise, diameter, surface_smoothing, target_pressu
                                       target_pressure, spring_overlap_balance, bool(spring))
         return p_i, dv, pr, sp, vs, cnt
     if pos.device.type == "cpu":
-        if pos.shape[0] == 0:
-            raise ValueError("dense_pairs: a batch of no crates")
-        return _crates_plain(dense_pairs_plain, per_crate, bool(spring))
+        return crates_plain("dense_pairs", dense_pairs_plain, per_crate, bool(spring))
     raise ValueError(f"dense_pairs: tensors on {pos.device}; expected cpu or cuda")
 
 
@@ -528,42 +519,14 @@ def _window_op(feat, diameter, surface_smoothing, target_pressure, spring_overla
     if feat.device.type == "cuda":
         return window_kernel(*per_crate, halo, cs, n_chunks, _MODES[mode], bool(spring))
     if feat.device.type == "cpu":
-        if feat.shape[0] == 0:
-            raise ValueError("window_pairs: a batch of no crates")
-        return _crates_plain(window_pairs_plain, per_crate, halo, cs, n_chunks, _MODES[mode],
+        return crates_plain("window_pairs", window_pairs_plain, per_crate, halo, cs, n_chunks,
+                            _MODES[mode],
                              bool(spring))
     raise ValueError(f"window_pairs: tensors on {feat.device}; expected cpu or cuda")
 
 
-def _fold(x, dim, n):
-    """A per-crate operand under vmap as (n * B, ...): the vmapped dim moved
-    to the front (an unbatched operand expanded to the n vmapped crates),
-    merged with the operator's own crate axis B."""
-    x = x.unsqueeze(0).expand((n,) + x.shape) if dim is None else x.movedim(dim, 0)
-    return x.reshape((-1,) + tuple(x.shape[2:]))
-
-
-def _unfold(out, n):
-    return out.reshape((n, out.shape[0] // n) + tuple(out.shape[1:]))
-
-
-def _dense_vmap(info, in_dims, *args):
-    n_per = 9
-    n = info.batch_size
-    folded = [_fold(x, d, n) for x, d in zip(args[:n_per], in_dims[:n_per])]
-    out = _dense_op(*folded, *args[n_per:])
-    return tuple(_unfold(o, n) for o in out), (0,) * 6
-
-
-def _window_vmap(info, in_dims, *args):
-    n_per = 5
-    n = info.batch_size
-    folded = [_fold(x, d, n) for x, d in zip(args[:n_per], in_dims[:n_per])]
-    return _unfold(_window_op(*folded, *args[n_per:]), n), 0
-
-
-_dense_op.register_vmap(_dense_vmap)
-_window_op.register_vmap(_window_vmap)
+register_crate_vmap(_dense_op, 9)
+register_crate_vmap(_window_op, 5)
 
 
 # --------------------------------------------------------------------------
@@ -576,11 +539,6 @@ def _one(x):
     return x.reshape((1,) + tuple(x.shape))
 
 
-def _on_cpu_or_cuda(what: str, t: torch.Tensor) -> None:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: tensors on {t.device}; expected cpu or cuda")
-
-
 def neighbor_forces_dense(pos, vel, alive, noise, diameter, surface_smoothing, target_pressure,
                           ignored_pressure, spring_overlap_balance, scene) -> PairSums:
     """The dense backend's pair sums of one crate (the arguments of
@@ -588,7 +546,7 @@ def neighbor_forces_dense(pos, vel, alive, noise, diameter, surface_smoothing, t
     dense_pairs`` operator: CPU tensors run that plain version; CUDA tensors
     launch D1's two passes (under vmap once for all crates); tensors
     elsewhere raise."""
-    _on_cpu_or_cuda("dense_pairs", pos)
+    on_cpu_or_cuda("dense_pairs", pos)
     out = torch.ops.sand_crate.dense_pairs(
         *(_one(x) for x in (pos, vel, alive, noise, diameter, surface_smoothing,
                             target_pressure, ignored_pressure, spring_overlap_balance)),
@@ -605,7 +563,7 @@ def window_pass(feat, halo, n_out, mode, diam, smoothing, target_p, balance, ena
     ``sand_crate::window_pairs`` operator: CPU tensors run that plain
     version; CUDA tensors launch D2 (under vmap once for all crates);
     tensors elsewhere raise."""
-    _on_cpu_or_cuda("window_pairs", feat)
+    on_cpu_or_cuda("window_pairs", feat)
     spring = bool(enable_spring) and mode == "b"
     if n_out != window_outputs(mode, spring):
         raise ValueError(f"window_pairs: mode {mode!r} (spring {spring}) writes "

@@ -27,6 +27,15 @@ rows 0-3 replaced by pass A's columns):
   occupied slots, compacted) and streams the dense output, zeros past each
   cell's count; NXP must be a multiple of ``GRID_BLOCK_COLS``.
 
+The two slab-order passes go through the custom operators
+``torch.ops.sand_crate.pair_pass_a`` and ``.pair_pass_b_emit`` on one crate
+as a batch of one.  The operators take a leading crate axis (slab (B, 8,
+P_pad), row_start (B, ny + 1), per-crate coefficient rows and ticks) and
+their vmap rules fold a vmapped batch into it, so batched crates
+(``sweep.batched_step``) launch each pass once for every crate; on CPU
+tensors they run the plain versions crate by crate (whose host reads of
+the alive count happen there, not under ``vmap``).
+
 On CUDA tensors each launches its kernel of ``csrc/grid_pair.cu`` (counted
 in :data:`LAUNCHES`); on CPU tensors it runs the plain torch version beside
 it, which gives the kernel's bits (same operations, same summation order:
@@ -63,6 +72,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .crate_axis import crates_plain, on_cpu_or_cuda, register_crate_vmap
 from .pmajor import _u01
 
 EPS = 1e-12
@@ -84,7 +94,8 @@ GRID_TILE = 32  # grid-mode pass B: the cells (columns) of one warp tile
 GRID_BLOCK_COLS = 128  # and the columns of a block of four tiles
 
 # Kernel launches since the last reset, counted by the wrappers where they
-# launch a CUDA kernel (never for the plain versions).
+# launch a CUDA kernel (one for a whole crate axis; never for the plain
+# versions).
 LAUNCHES = {"place_grid": 0, "pair_pass_a": 0, "pair_pass_b_grid": 0, "pair_pass_b_emit": 0}
 
 
@@ -98,8 +109,8 @@ def load_lib():
     if lib.sc_pass_b.argtypes is None:  # pointers as c_void_p, never 32-bit ints
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.sc_place_grid.argtypes = [vp, vp, i, i, i, i, vp]
-        lib.sc_pass_a.argtypes = [vp] * 5 + [i] * 4 + [vp]
-        lib.sc_pass_b_emit.argtypes = [vp] * 6 + [i] * 5 + [vp]
+        lib.sc_pass_a.argtypes = [vp] * 5 + [i] * 5 + [vp]
+        lib.sc_pass_b_emit.argtypes = [vp] * 6 + [i] * 6 + [vp]
         lib.sc_pass_b.argtypes = [vp] * 5 + [i] * 5 + [vp]
         for fn in (lib.sc_place_grid, lib.sc_pass_a, lib.sc_pass_b_emit, lib.sc_pass_b):
             fn.restype = ctypes.c_int
@@ -526,30 +537,112 @@ def cell_ranges(slab, row_start, nx):
 # --------------------------------------------------------------------------
 
 
+def _slab_batch(fn, slab, row_start, m_slots, nx):
+    """(B, P_pad, ny) of a crate-axis slab (B, 8, P_pad) and its row starts
+    (B, ny + 1) on the card; raises on what the kernels do not take."""
+    if slab.dim() != 3 or row_start.dim() != 2 or row_start.shape[0] != slab.shape[0]:
+        raise ValueError(f"{fn}: slab (B, 8, P_pad) and row_start (B, ny + 1) expected, got "
+                         f"{tuple(slab.shape)} and {tuple(row_start.shape)}")
+    p_pad, ny = _slab_dims(slab[0], row_start[0], m_slots, nx)
+    B = slab.shape[0]
+    check_cuda(f"{fn}: slab", slab, torch.float32, (B, SLAB_F, p_pad))
+    check_cuda(f"{fn}: row_start", row_start, torch.int32, (B, ny + 1))
+    return B, p_pad, ny
+
+
+@torch.library.custom_op(
+    "sand_crate::pair_pass_a", mutates_args=(),
+    schema="(Tensor slab, Tensor row_start, Tensor coef, Tensor tick, int m_slots, int nx, "
+           "int row_offset) -> Tensor")
+def _pass_a_op(slab, row_start, coef, tick, m_slots, nx, row_offset):
+    """K4+K5 over a leading crate axis: slab (B, 8, P_pad), row_start (B,
+    ny + 1), coef (B, 2) [diameter, noise amplitude], tick (B,) ->
+    (B, 4, P_pad)."""
+    if slab.device.type == "cpu":
+        return crates_plain(
+            "pair_pass_a",
+            lambda sl, rs, c, t: pair_pass_a_slab_plain(sl, rs, m_slots, nx, c[0], c[1], t,
+                                                        row_offset=row_offset),
+            (slab, row_start, coef, tick))
+    if slab.device.type != "cuda":
+        raise ValueError(f"pair_pass_a: tensors on {slab.device}; expected cpu or cuda")
+    B, p_pad, ny = _slab_batch("pair_pass_a", slab, row_start, m_slots, nx)
+    dev = slab.device
+    check_cuda("pair_pass_a: coef", coef, torch.float32, (B, 2))
+    check_cuda("pair_pass_a: tick", tick, torch.int32, (B,))
+    ps = torch.empty((B, NUM_A, p_pad), dtype=torch.float32, device=dev)
+    if B:
+        run_kernel("pair_pass_a", load_lib().sc_pass_a, slab.data_ptr(), row_start.data_ptr(),
+                   coef.data_ptr(), tick.data_ptr(), ps.data_ptr(), p_pad, ny, nx,
+                   int(row_offset), B, device=dev)
+    return ps
+
+
+@torch.library.custom_op(
+    "sand_crate::pair_pass_b_emit", mutates_args=(),
+    schema="(Tensor slab, Tensor ps, Tensor row_start, Tensor coef, Tensor tick, int m_slots, "
+           "int nx, int spring) -> Tensor")
+def _pass_b_emit_op(slab, ps, row_start, coef, tick, m_slots, nx, spring):
+    """K8+K9 over a leading crate axis: slab (B, 8, P_pad), ps (B, 4,
+    P_pad), row_start (B, ny + 1), coef (B, 6) in coef_b's order, tick (B,)
+    -> (B, 8|10, P_pad)."""
+    if slab.device.type == "cpu":
+        return crates_plain(
+            "pair_pass_b_emit",
+            lambda sl, p, rs, c, t: pair_pass_b_emit_plain(  # c in coef_b's order
+                sl, p, rs, m_slots, nx, c[0], c[1], c[2], c[3], c[5], c[4], t,
+                enable_spring=bool(spring)),
+            (slab, ps, row_start, coef, tick))
+    if slab.device.type != "cuda":
+        raise ValueError(f"pair_pass_b_emit: tensors on {slab.device}; expected cpu or cuda")
+    B, p_pad, ny = _slab_batch("pair_pass_b_emit", slab, row_start, m_slots, nx)
+    dev = slab.device
+    check_cuda("pair_pass_b_emit: ps", ps, torch.float32, (B, NUM_A, p_pad))
+    check_cuda("pair_pass_b_emit: coef", coef, torch.float32, (B, 6))
+    check_cuda("pair_pass_b_emit: tick", tick, torch.int32, (B,))
+    if not (ps.device == row_start.device == coef.device == tick.device == dev):
+        raise ValueError("pair_pass_b_emit: the operands must share one device")
+    out = torch.empty((B, num_b(bool(spring)), p_pad), dtype=torch.float32, device=dev)
+    if B:
+        run_kernel("pair_pass_b_emit", load_lib().sc_pass_b_emit, slab.data_ptr(),
+                   ps.data_ptr(), row_start.data_ptr(), coef.data_ptr(), tick.data_ptr(),
+                   out.data_ptr(), p_pad, ny, nx, m_slots, int(spring), B, device=dev)
+    return out
+
+
+register_crate_vmap(_pass_a_op, 4)
+register_crate_vmap(_pass_b_emit_op, 5)
+
+
 def pair_pass_a(slab, row_start, m_slots, nx, diameter, noise_amp, tick, *, row_offset=0):
     """Pass A in slab order: (4, P_pad) [w_sum, s_x, s_y, cnt] of each
     in-cap column of the cell-sorted ``slab`` (8, P_pad), 0 elsewhere;
     ``row_start`` (ny + 1,) int32 holds its grid rows' first columns and
-    ``m_slots`` is the cell capacity the slab was built with.
+    ``m_slots`` is the cell capacity the slab was built with.  Through the
+    ``sand_crate::pair_pass_a`` operator as a batch of one (under
+    ``torch.func.vmap``, one launch for the whole batch).
 
     ``row_offset``: the global padded-row index of the grid's row 0
     (nonzero only for a spatial band); it keys the collider noise."""
-    if slab.device.type == "cpu":
-        return pair_pass_a_slab_plain(slab, row_start, m_slots, nx, diameter, noise_amp, tick,
-                                      row_offset=row_offset)
-    p_pad, ny = _slab_dims(slab, row_start, m_slots, nx)
-    check_cuda("pair_pass_a: slab", slab, torch.float32, (SLAB_F, p_pad))
-    check_cuda("pair_pass_a: row_start", row_start, torch.int32, (ny + 1,))
     dev = slab.device
-    coef = coef_a(diameter, noise_amp, dev)
+    _slab_dims(slab, row_start, m_slots, nx)
     # The tick's own device tensor, and the row offset as a kernel argument:
     # a host scalar copied to the card waits for the stream to drain.
+    coef = coef_a(diameter, noise_amp, dev)
     tick = _tensor(tick, dev, torch.int32)
-    ps = torch.empty((NUM_A, p_pad), dtype=torch.float32, device=dev)
-    run_kernel("pair_pass_a", load_lib().sc_pass_a, slab.data_ptr(), row_start.data_ptr(),
-               coef.data_ptr(), tick.data_ptr(), ps.data_ptr(), p_pad, ny, nx, int(row_offset),
-               device=dev)
-    return ps
+    return pair_pass_a_crates(slab[None], row_start[None], m_slots, nx, coef[None], tick[None],
+                              row_offset=row_offset)[0]
+
+
+def pair_pass_a_crates(slab, row_start, m_slots, nx, coef, tick, *, row_offset=0):
+    """Pass A of B crates at once: slab (B, 8, P_pad), row_start (B, ny + 1)
+    int32, coef (B, 2) f32 rows of :func:`coef_a`, tick (B,) int32 ->
+    (B, 4, P_pad), through the ``sand_crate::pair_pass_a`` operator: one
+    launch for all B crates on the card, the plain version crate by crate
+    on the CPU."""
+    on_cpu_or_cuda("pair_pass_a", slab)
+    return torch.ops.sand_crate.pair_pass_a(slab, row_start, coef, tick, m_slots, nx,
+                                            int(row_offset))
 
 
 def pair_pass_b_emit(
@@ -557,30 +650,32 @@ def pair_pass_b_emit(
     spring_overlap_balance, ignored_pressure, noise_amp, tick, *, enable_spring=False,
 ):
     """Pass B emitting results in slab (= sorted state) order: (NB, P_pad)
-    from the slab, its pass-A columns ``ps`` (4, P_pad) and ``row_start``.
+    from the slab, its pass-A columns ``ps`` (4, P_pad) and ``row_start``,
+    through the ``sand_crate::pair_pass_b_emit`` operator as a batch of one
+    (under ``torch.func.vmap``, one launch for the whole batch).
 
     Column p of an alive particle holds the sums of its slot (row, rank,
     cx + 1) — an over-cap particle its cellmate's of rank % M, as
     ``slot_assignment``'s gather_slot — and every other column is 0."""
-    args = (diameter, surface_smoothing, target_pressure, spring_overlap_balance,
-            ignored_pressure, noise_amp, tick)
-    if slab.device.type == "cpu":
-        return pair_pass_b_emit_plain(slab, ps, row_start, m_slots, nx, *args,
-                                      enable_spring=enable_spring)
-    p_pad, ny = _slab_dims(slab, row_start, m_slots, nx)
-    check_cuda("pair_pass_b_emit: slab", slab, torch.float32, (SLAB_F, p_pad))
-    check_cuda("pair_pass_b_emit: ps", ps, torch.float32, (NUM_A, p_pad))
-    check_cuda("pair_pass_b_emit: row_start", row_start, torch.int32, (ny + 1,))
     dev = slab.device
-    if ps.device != dev:
-        raise ValueError("pair_pass_b_emit: the operands must share one device")
-    coef = coef_b(*args[:6], dev)
+    _slab_dims(slab, row_start, m_slots, nx)
+    coef = coef_b(diameter, surface_smoothing, target_pressure, spring_overlap_balance,
+                  ignored_pressure, noise_amp, dev)
     tick = _tensor(tick, dev, torch.int32)
-    out = torch.empty((num_b(enable_spring), p_pad), dtype=torch.float32, device=dev)
-    run_kernel("pair_pass_b_emit", load_lib().sc_pass_b_emit, slab.data_ptr(), ps.data_ptr(),
-               row_start.data_ptr(), coef.data_ptr(), tick.data_ptr(), out.data_ptr(),
-               p_pad, ny, nx, m_slots, int(enable_spring), device=dev)
-    return out
+    return pair_pass_b_emit_crates(slab[None], ps[None], row_start[None], m_slots, nx,
+                                   coef[None], tick[None], enable_spring=enable_spring)[0]
+
+
+def pair_pass_b_emit_crates(slab, ps, row_start, m_slots, nx, coef, tick, *,
+                            enable_spring=False):
+    """Emit-mode pass B of B crates at once: slab (B, 8, P_pad), ps (B, 4,
+    P_pad), row_start (B, ny + 1) int32, coef (B, 6) f32 rows of
+    :func:`coef_b`, tick (B,) int32 -> (B, 8|10, P_pad), through the
+    ``sand_crate::pair_pass_b_emit`` operator: one launch for all B crates
+    on the card, the plain version crate by crate on the CPU."""
+    on_cpu_or_cuda("pair_pass_b_emit", slab)
+    return torch.ops.sand_crate.pair_pass_b_emit(slab, ps, row_start, coef, tick, m_slots, nx,
+                                                 int(enable_spring))
 
 
 def pair_pass_b(

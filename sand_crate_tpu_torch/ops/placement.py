@@ -65,18 +65,18 @@ def slab_from_sorted(pos, alive, vel, sorted_cid, M: int, nx: int, ny: int):
 
     Returns (slab (8, P_pad) f32, row_start (ny + 1,) int32, gather_slot (P,)
     int32 in sorted order, overflow () int32).  Dead particles carry cx 0,
-    row ny and in_cap 0; the padding columns are zero."""
+    row ny and in_cap 0; the padding columns are zero.  Built out of place,
+    so it vmaps over a crate axis."""
     P = pos.shape[0]
     rank, in_cap, _, gather_slot, overflow = slot_assignment(sorted_cid, M, nx * ny)
     off = ALIVE_OFFSET * alive.to(pos.dtype)[:, None]
     f32 = torch.float32
-    slab = torch.zeros((SLAB_F, slab_width(P)), dtype=f32, device=pos.device)
-    slab[0:2, :P] = (pos + off).to(f32).T
-    slab[2:4, :P] = vel.to(f32).T
-    slab[4, :P] = (sorted_cid % nx).to(f32)
-    slab[5, :P] = rank.to(f32)
-    slab[6, :P] = (sorted_cid // nx).to(f32)
-    slab[7, :P] = in_cap.to(f32)
+    cols = torch.cat([
+        (pos + off).to(f32).T,
+        vel.to(f32).T,
+        torch.stack([sorted_cid % nx, rank, sorted_cid // nx, in_cap]).to(f32),
+    ])
+    slab = torch.nn.functional.pad(cols, (0, slab_width(P) - P))
     starts = torch.arange(ny + 1, dtype=sorted_cid.dtype, device=pos.device) * nx
     row_start = torch.searchsorted(sorted_cid, starts, out_int32=True)
     return slab, row_start, gather_slot, overflow

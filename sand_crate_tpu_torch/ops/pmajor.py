@@ -17,7 +17,14 @@ vectorised torch versions, which CPU tensors run:
   exact candidate ranges (:func:`candidate_ranges`, ``torch.searchsorted``
   on the sorted cell ids) out of shared memory, where each warp of
   ``PM_TILE`` selves stages its windows (:func:`tile_windows`); plain
-  version :func:`pm_pass_plain`.
+  version :func:`pm_pass_plain`.  It calls the custom operator
+  ``torch.ops.sand_crate.pm_pass`` on one crate as a batch of one; the
+  operator takes a leading crate axis (slab (B, P, 8), ranges (B, 6, P) in
+  crate-local slab positions, coef (B, 3) -> (B, n_out, P)) and its vmap
+  rule folds a vmapped batch into that axis, so batched crates
+  (``sweep.batched_step``) launch K1/K2 once a pass for every crate.  On
+  CPU tensors the operator runs the plain version crate by crate (its
+  host read of the span happens there, not under ``vmap``).
 * :func:`pms_pass` (K10, ``SAND_CRATE_PMSUB=1``): chunks of ``PMS_CHUNK``
   consecutive selves share one candidate window per row offset
   (:func:`chunk_windows`); each self finds its exact ranges inside its
@@ -34,7 +41,8 @@ call time, as JAX reads them at trace time (ops/pmajor.py:1138-1147, 1183):
 K1/K2 (the gate branch of the JAX kernel skips tiles past the window span;
 the per-thread exact walk already visits only those candidates); both turn
 the two-sided ``pmajor_symm`` noise off, so the jitter is one-sided at the
-full amplitude.  ``SAND_CRATE_PMSUB_G`` (the TPU kernel's candidate rows per
+full amplitude.  K10 takes no crate axis yet: a vmapped step under
+``SAND_CRATE_PMSUB=1`` raises (``sweep.batched_step``).  ``SAND_CRATE_PMSUB_G`` (the TPU kernel's candidate rows per
 vreg group) changes no result and has no counterpart.  Nor do the other TPU
 tactics: 128-lane window anchoring, VMEM residency, ``split`` tiles, the
 searchsorted-by-sorting merge and the j-side staging merge.
@@ -50,6 +58,7 @@ import torch
 from ..cellwise import PairSums, cell_ids_grid
 from ..state import Scene
 from . import cuda_build
+from .crate_axis import crates_plain, on_cpu_or_cuda, register_crate_vmap
 
 # ops/pair_kernel.py:73-84: alive positions carry +ALIVE_OFFSET, so every
 # alive-dead pair is ~2 units apart and fails the cutoff; EPS floors the
@@ -63,8 +72,8 @@ B_PX, B_PY, B_NPX, B_NPY, B_CP, B_SX, B_SY, B_ROW = 0, 1, 2, 3, 4, 5, 6, 7
 SLAB_F = 8
 
 # Kernel launches per pass since the last reset, counted by pm_pass (K1/K2:
-# "a", "b") and pms_pass (K10: "sub_a", "sub_b") where they launch a CUDA
-# kernel (never for the plain versions).
+# "a", "b"; one for a whole crate axis) and pms_pass (K10: "sub_a",
+# "sub_b") where they launch a CUDA kernel (never for the plain versions).
 LAUNCHES = {"a": 0, "b": 0, "sub_a": 0, "sub_b": 0}
 
 # Selves per chunk of the plain versions (bounds their (selves, span, 8)
@@ -392,7 +401,7 @@ def _check(fn, name, t, dtype, shape):
 def _lib():
     lib = cuda_build.load("pmajor")
     if lib.sc_pm_pass.argtypes is None:  # pointers as c_void_p: ctypes would cut them to int
-        lib.sc_pm_pass.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.sc_pm_pass.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.sc_pm_pass.restype = ctypes.c_int
         lib.sc_pms_pass.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -406,35 +415,75 @@ def _check_mode(fn, mode):
         raise ValueError(f"{fn}: mode must be 'a' or 'b', got {mode!r}")
 
 
+def _launch_pm(slab, ranges, coef, mode, fold, spring, symm):
+    """K1/K2 over a crate axis: one launch of csrc/pmajor.cu's pm_kernel for
+    all B crates, counted in ``LAUNCHES``."""
+    B, P = slab.shape[:2]
+    _check("pm_pass", "slab", slab, torch.float32, (B, P, SLAB_F))
+    _check("pm_pass", "ranges", ranges, torch.int32, (B, 6, P))
+    _check("pm_pass", "coef", coef, torch.float32, (B, 3))
+    if not (slab.device == ranges.device == coef.device):
+        raise ValueError("pm_pass: slab, ranges and coef must share one device")
+    n_out = _n_out(mode, fold, spring)
+    out = torch.empty((B, n_out, P), dtype=torch.float32, device=slab.device)
+    with torch.cuda.device(slab.device):  # launch on the tensors' card
+        err = _lib().sc_pm_pass(
+            slab.data_ptr(), ranges.data_ptr(), coef.data_ptr(), out.data_ptr(),
+            P, B, 0 if mode == "a" else 1, n_out, int(symm),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pm_pass kernel (mode {mode}, {B} crates) failed: cudaError {err}")
+    LAUNCHES[mode] += 1
+    return out
+
+
+_MODES = ("a", "b")
+
+
+@torch.library.custom_op(
+    "sand_crate::pm_pass", mutates_args=(),
+    schema="(Tensor slab, Tensor ranges, Tensor coef, int mode, int fold, int spring, "
+           "int symm) -> Tensor")
+def _pm_op(slab, ranges, coef, mode, fold, spring, symm):
+    """K1/K2 over a leading crate axis: slab (B, P, 8), ranges (B, 6, P),
+    coef (B, 3) -> (B, n_out, P).  CPU tensors run :func:`pm_pass_plain`
+    crate by crate; CUDA tensors launch the kernel once."""
+    m, kw = _MODES[mode], dict(fold=bool(fold), spring=bool(spring), symm=bool(symm))
+    if slab.device.type == "cuda":
+        return _launch_pm(slab, ranges, coef, m, **kw)
+    if slab.device.type == "cpu":
+        return crates_plain("pm_pass", lambda s, r, c: pm_pass_plain(s, r, c, m, **kw),
+                            (slab, ranges, coef))
+    raise ValueError(f"pm_pass: tensors on {slab.device}; expected cpu or cuda")
+
+
+register_crate_vmap(_pm_op, 3)
+
+
 def pm_pass(slab, ranges, coef, mode, *, fold=False, spring=False, symm=False):
     """One K1/K2 pair pass over the sorted slab -> (n_out, P) f32 sums.
 
     ``mode`` "a" sums (w_sum, s_x, s_y, count, vsum_x, vsum_y); "b" sums
     the folded force (2 rows) or tension and pressure (4) plus the spring
-    (6).  CPU tensors run :func:`pm_pass_plain`; CUDA tensors launch the
+    (6).  Through the ``sand_crate::pm_pass`` operator as a batch of one
+    (under ``torch.func.vmap`` its vmap rule launches once for the whole
+    batch): CPU tensors run :func:`pm_pass_plain`; CUDA tensors launch the
     kernel of ``csrc/pmajor.cu`` on the current stream (and count it in
     ``LAUNCHES``); tensors elsewhere raise."""
+    return pm_pass_crates(slab[None], ranges[None], coef[None], mode, fold=fold,
+                          spring=spring, symm=symm)[0]
+
+
+def pm_pass_crates(slab, ranges, coef, mode, *, fold=False, spring=False, symm=False):
+    """K1/K2 over a leading crate axis: slab (B, P, 8), ranges (B, 6, P) in
+    crate-local slab positions, coef (B, 3) -> (B, n_out, P), through the
+    ``sand_crate::pm_pass`` operator: one launch for all B crates on the
+    card, :func:`pm_pass_plain` crate by crate on the CPU."""
     _check_mode("pm_pass", mode)
-    if slab.device.type == "cpu":
-        return pm_pass_plain(slab, ranges, coef, mode, fold=fold, spring=spring, symm=symm)
-    P = slab.shape[0]
-    _check("pm_pass", "slab", slab, torch.float32, (P, SLAB_F))
-    _check("pm_pass", "ranges", ranges, torch.int32, (6, P))
-    _check("pm_pass", "coef", coef, torch.float32, (3,))
-    if not (slab.device == ranges.device == coef.device):
-        raise ValueError("pm_pass: slab, ranges and coef must share one device")
-    n_out = _n_out(mode, fold, spring)
-    out = torch.empty((n_out, P), dtype=torch.float32, device=slab.device)
-    with torch.cuda.device(slab.device):  # launch on the tensors' card
-        err = _lib().sc_pm_pass(
-            slab.data_ptr(), ranges.data_ptr(), coef.data_ptr(), out.data_ptr(),
-            P, 0 if mode == "a" else 1, n_out, int(symm),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pm_pass kernel (mode {mode}) failed: cudaError {err}")
-    LAUNCHES[mode] += 1
-    return out
+    on_cpu_or_cuda("pm_pass", slab)
+    return torch.ops.sand_crate.pm_pass(slab, ranges, coef, _MODES.index(mode), int(fold),
+                                        int(spring), int(symm))
 
 
 def pms_pass(slab, cid, windows, coef, mode, *, nx, chunk, fold=False, spring=False):

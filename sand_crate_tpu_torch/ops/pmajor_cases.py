@@ -13,6 +13,13 @@ the kernel's bits.  K10 (``pms_pass``) runs the same walk on ranges it
 finds inside each chunk's window (:func:`pmajor.window_ranges`); it runs on
 every case at both chunk sizes (:func:`k10_variants`), held to its plain
 version and to K1/K2 one-sided.
+
+The batched inputs (:func:`batch_variants`) stack the cases on a crate axis
+for K1/K2's crate-axis launch: each case padded with dead slots to the
+largest case's size (so the alive counts differ widely), then a crate with
+no alive particle, each crate with coefficients, noise and a tick of its
+own; the crate-axis launch is held to the plain version and to the solo
+launch of each crate.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from ..cellwise import cell_ids_grid
 from . import pmajor
+from .crate_axis import EMPTY, crates_plain, padded_crates, spread_widely
 
 
 class Case(NamedTuple):
@@ -142,3 +150,72 @@ def k10_variants(case: str, scene, device):
                         lambda a=run: pmajor.pms_pass_plain(**a),
                         lambda s=slab, m=mode, kw=kw: pmajor.pm_pass(s, ranges, coef, m, **kw)))
     return out
+
+
+# The batched inputs: the cases on a crate axis, then an empty crate.
+BATCH = tuple(CASES) + (EMPTY,)
+
+
+def batch_particles(scene, device, names=BATCH):
+    """(pos, vel, alive, sorted cell ids), each (B, P, ...): the cases
+    ``names`` (EMPTY: no alive particle), each padded with dead particles
+    (cell id NC, sorted last) to the largest case's size."""
+    crates = padded_crates(names, lambda name: sorted_particles(name, scene, device),
+                           scene.grid_nx * scene.grid_ny, device)
+    return tuple(torch.stack(x) for x in zip(*crates))
+
+
+def batch_coefs(B: int, d: float, device):
+    """Each crate's (coef (B, 3), noise amplitude (B,), tick (B,)): diameters
+    up to the cell size d, target pressures, balances, noise and ticks that
+    differ per crate."""
+    i = torch.arange(B, dtype=torch.float32, device=device)
+    coef = torch.stack([d * (1.0 - 0.1 * (i % 3)), -2.0 + 0.5 * i, 0.5 + 0.05 * i], dim=1)
+    return coef, 0.1 * d * (1.0 + 0.2 * i), (5 + 3 * i).to(torch.int32)
+
+
+def batch_facts(scene, device, names=BATCH) -> dict:
+    """The batch's alive counts and whether they differ widely, with an
+    empty crate among them (``"holds"``)."""
+    _, _, alive, _ = batch_particles(scene, device, names)
+    counts = alive.sum(dim=1).tolist()
+    return dict(P=alive.shape[1], alive=counts, holds=spread_widely(counts))
+
+
+def batch_variants(scene, device, names=BATCH):
+    """(label, crate-axis call, plain calls, solo kernel calls), each
+    (B, n_out, P), for pass A and pass B folded, split and split with the
+    spring, with two-sided and one-sided noise, on the batched inputs.  The
+    plain and solo calls run each crate alone and stack the results; pass
+    B's slab is made from the plain pass A."""
+    pos, vel, alive, cid = batch_particles(scene, device, names)
+    nx, ny = scene.grid_nx, scene.grid_ny
+    coef, amp, tick = batch_coefs(len(names), scene.cell_size, device)
+    ranges = torch.func.vmap(lambda c, a: pmajor.candidate_ranges(c, a, nx, ny))(cid, alive)
+    ign = torch.tensor(0.3, device=device)
+    smooth = torch.tensor(100.0, device=device)
+
+    def each(fn, *xs):
+        return crates_plain("batch_variants", fn, xs)
+
+    out = []
+    for symm in (True, False):
+        slab_a = torch.func.vmap(
+            lambda p, v, a, c, m, t: pmajor.pass_a_slab(p, v, a, c, m, t, scene, symm=symm)
+        )(pos, vel, alive, cid, amp, tick)
+        out.append((f"symm={symm} pass A", slab_a, "a", dict(symm=symm)))
+        out_a = each(lambda s, r, c: pmajor.pm_pass_plain(s, r, c, "a", symm=symm),
+                     slab_a, ranges, coef)
+        cp = pmajor.finalize_cp(out_a[:, 0], out_a[:, 3], ign)
+        slab_b = torch.func.vmap(lambda s, o, c: pmajor.pass_b_slab(s, o, c, smooth))(
+            slab_a, out_a, cp)
+        for name, kw in (("fold", dict(fold=True)), ("split", {}),
+                         ("split+spring", dict(spring=True))):
+            out.append((f"symm={symm} pass B {name}", slab_b, "b", dict(symm=symm, **kw)))
+    return [(label,
+             lambda s=slab, m=mode, kw=kw: pmajor.pm_pass_crates(s, ranges, coef, m, **kw),
+             lambda s=slab, m=mode, kw=kw: each(
+                 lambda a, r, c: pmajor.pm_pass_plain(a, r, c, m, **kw), s, ranges, coef),
+             lambda s=slab, m=mode, kw=kw: each(
+                 lambda a, r, c: pmajor.pm_pass(a, r, c, m, **kw), s, ranges, coef))
+            for label, slab, mode, kw in out]

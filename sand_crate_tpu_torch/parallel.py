@@ -11,10 +11,13 @@ plain GSPMD and exists to exercise that sharding for correctness; splitting
 one crate is ``spatial.py``'s job, so the port does not run it.
 :func:`make_mesh` keeps the JAX axis sizes in ``Mesh.shape`` (crates x
 space over n devices), and the crates go over every device of the mesh.
-With the vmapped backends (dense, chunked) and no random draw that matters
-(no emitter, no collider noise), the sharded step equals the unsharded
-vmap; otherwise each device's generator draws other numbers than one
-generator over the whole batch, and the two agree in their invariants.
+Every backend of the vmapped step runs (dense, chunked, cellwise, gather,
+pmajor and pallas; the JAX mesh test's is cellwise).  With no random draw
+that matters (no emitter; no collider noise on dense, cellwise and gather,
+while pmajor, pallas and chunked hash theirs from the slot and the tick),
+the sharded step equals the unsharded vmap; otherwise each device's
+generator draws other numbers than one generator over the whole batch, and
+the two agree in their invariants.
 
 Every entry point runs on the card unless the caller asks for the CPU.
 """
@@ -119,7 +122,8 @@ def sharded_batched_step(mesh: Mesh, scene: Scene, *, seed: int = 0):
     """The batched step over the mesh: ``fn(states, params) -> (states,
     diagnostics)`` on ShardedBatches, each device's block advanced one tick
     by the vmapped step on that device (its scene copy, its generator,
-    seeded ``seed + i``).  The blocks are replaced, never written in place
+    seeded ``seed + i``), on the scene's backend, any that
+    ``sweep.batched_step`` takes.  The blocks are replaced, never written in place
     (the JAX step's ``donate`` has nothing to do here)."""
     devices = mesh.flat
     scenes, generators = {}, []

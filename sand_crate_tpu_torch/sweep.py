@@ -9,12 +9,19 @@ batched datagen mode of BASELINE.json config #5 (1024 crates, randomized
 coefficients).  Params and states are stacked (every leaf gains the crate
 axis), so every coefficient can differ per crate; the scene is shared.
 
-Only the dense and chunked backends vmap: neither reads a tensor back to
-the host, and the chunked sweep bound is a host int that is the same for
-every crate.  The emitters and the dense collider noise draw from one
-``torch.Generator`` with ``randomness="different"``, so every crate draws
-numbers of its own.  The JAX package draws from ``jax.random``, so the two
-agree in their invariants and ranges, not in their draws.
+Every backend of the JAX package's vmapped step vmaps here too: dense,
+chunked, cellwise, gather, pmajor and pallas.  None reads a tensor back to
+the host (the chunked sweep bound is a host int that is the same for every
+crate), and each pair kernel takes a crate axis through a custom operator
+whose vmap rule launches it once for every crate of the batch (ops/
+pair_batch.py: D1, D2; ops/pmajor.py: K1/K2; ops/pair_kernel.py: K4+K5,
+K8+K9).  K10 takes no crate axis yet: under ``SAND_CRATE_PMSUB=1`` a
+batched pmajor step raises.  The emitters and the dense, cellwise and
+gather collider noise draw from one ``torch.Generator`` with
+``randomness="different"``, so every crate draws numbers of its own; the
+JAX package draws from ``jax.random``, so there the two agree in their
+invariants and ranges, not in their draws.  pmajor and pallas hash their
+noise from the slot and tick as JAX does.
 
 On the card the vmapped tick is captured once as a CUDA graph over static
 buffers and replayed (graphs.py), the counterpart of the JAX package's
@@ -35,6 +42,7 @@ import torch
 
 from .config import Config
 from .graphs import StepGraph, clone, rollout_graph
+from .ops import pmajor
 from .physics import step
 from .recording import TrajectoryWriter
 from .scene import build_scene, default_capacity, init_state
@@ -118,11 +126,7 @@ class BatchedCrates:
                 "forces_mode", "dense" if cap <= DENSE_MAX_CAPACITY else "chunked"
             )
             scene = build_scene(world, device=device, **scene_kwargs)
-        if scene.forces_mode not in ("dense", "chunked"):
-            raise ValueError(
-                f"BatchedCrates vmaps the dense and chunked backends only, not "
-                f"forces_mode={scene.forces_mode!r} (its pair passes read the host)"
-            )
+        check_batchable(scene)
         self.scene = scene
         device = scene.segments0.device
         params = Params(*(x.to(device) for x in batched_params))
@@ -168,9 +172,10 @@ class BatchedCrates:
     def run(self, num_ticks: int) -> Diagnostics:
         """Advance all crates ``num_ticks``; returns stacked Diagnostics of
         the last tick, but ``neighbor_overflow``, each crate's largest over
-        the call's ticks (a static running max, reset here).  The sweep
-        bound ``live_rows`` is computed once per call, and a new bound
-        captures the tick anew."""
+        the call's ticks (a static running max, reset here): on pallas the
+        alive particles past their cell's capacity, on pmajor 0 (its ranges
+        are exact).  The sweep bound ``live_rows`` is computed once per
+        call, and a new bound captures the tick anew."""
         if num_ticks < 1:
             raise ValueError(f"num_ticks must be at least 1, got {num_ticks}")
         live_rows = self.live_rows(num_ticks)
@@ -186,10 +191,22 @@ class BatchedCrates:
         return self.state.pos.cpu().numpy()
 
 
+def check_batchable(scene: Scene) -> None:
+    """Raise where the vmapped step cannot run the scene: the pmajor
+    backend under ``SAND_CRATE_PMSUB=1`` (K10 takes no crate axis yet; the
+    schedule is read at each call, as the solo step reads it)."""
+    if scene.forces_mode == "pmajor" and pmajor.schedule() == "pmsub":
+        raise ValueError("batched crates: K10 (SAND_CRATE_PMSUB=1) takes no crate axis yet; "
+                         "unset SAND_CRATE_PMSUB to vmap the pmajor backend on K1/K2")
+
+
 def batched_step(state, params, scene, generator, live_rows=None):
     """One tick of every crate: ``physics.step`` vmapped over the crate
     axis, each crate drawing numbers of its own.  ``live_rows`` is a host
-    int, the same for every crate."""
+    int, the same for every crate.  Every backend vmaps; the pmajor
+    backend under ``SAND_CRATE_PMSUB=1`` raises (:func:`check_batchable`)."""
+    check_batchable(scene)
+
     def one(st, pr):
         return step(st, pr, scene, generator, live_rows)
 

@@ -270,6 +270,81 @@ def test_grid_wrappers_reject_mixed_inputs(cuda):
                                      z, z, z, z, z, z, z)
 
 
+# ---- the crate axis: K1/K2, K4+K5 and K8+K9 for every crate of a batch -----------
+
+
+@pytest.mark.cuda
+def test_crate_axis_k1k2_bit_identical(cuda):
+    """K1/K2's crate-axis launch on the batched hard inputs of
+    ops/pmajor_cases.py (every case, padded to one size, and an empty crate;
+    coefficients, noise and ticks per crate): one launch a pass, equal bit
+    for bit to the plain version and to each crate's solo launch; the
+    solo wrapper vmapped over the crates launches once too."""
+    scene = Crate(_world(), device=cuda).scene
+    facts = pmajor_cases.batch_facts(scene, cuda)
+    assert facts["holds"], facts
+    for label, run, plain, solo in pmajor_cases.batch_variants(scene, cuda):
+        before = dict(pmajor.LAUNCHES)
+        got = run()
+        mode = "a" if label.endswith("pass A") else "b"
+        assert pmajor.LAUNCHES[mode] == before[mode] + 1, label
+        assert torch.equal(got, plain()), label
+        assert torch.equal(got, solo()), label
+    _, run, plain, _ = pmajor_cases.batch_variants(scene, cuda)[0]
+    pos, vel, alive, cid = pmajor_cases.batch_particles(scene, cuda)
+    coef, amp, tick = pmajor_cases.batch_coefs(cid.shape[0], scene.cell_size, cuda)
+    nx, ny = scene.grid_nx, scene.grid_ny
+    ranges = torch.func.vmap(lambda c, a: pmajor.candidate_ranges(c, a, nx, ny))(cid, alive)
+    slab = torch.func.vmap(lambda p, v, a, c, m, t: pmajor.pass_a_slab(
+        p, v, a, c, m, t, scene, symm=True))(pos, vel, alive, cid, amp, tick)
+    before = pmajor.LAUNCHES["a"]
+    vm = torch.func.vmap(lambda s, r, c: pmajor.pm_pass(s, r, c, "a", symm=True))(
+        slab, ranges, coef)
+    assert pmajor.LAUNCHES["a"] == before + 1
+    assert torch.equal(vm, run())
+
+
+@pytest.mark.cuda
+def test_crate_axis_grid_passes_bit_identical(cuda):
+    """K4+K5 and K8+K9's crate-axis launches on the batched hard inputs of
+    ops/grid_cases.py (every case at 8 slots a cell, and an empty crate):
+    one launch a pass, equal bit for bit to the plain version and to each
+    crate's solo launch."""
+    scene = Crate(_world(), device=cuda, forces_mode="pallas", cell_capacity=8).scene
+    facts = grid_cases.batch_facts(scene, cuda)
+    assert facts["holds"], facts
+    for label, run, plain, solo in grid_cases.batch_variants(scene, cuda):
+        key = "pair_pass_a" if label.startswith("pass A") else "pair_pass_b_emit"
+        before = pair_kernel.LAUNCHES[key]
+        got = run()
+        assert pair_kernel.LAUNCHES[key] == before + 1, label
+        assert torch.equal(got, plain()), label
+        assert torch.equal(got, solo()), label
+
+
+@pytest.mark.cuda
+def test_crate_axis_wrappers_reject_bad_inputs(cuda):
+    """The crate-axis entries raise on what the kernels do not take."""
+    slab = torch.zeros((2, 64, 8), device=cuda)
+    ranges = torch.zeros((2, 6, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # one coefficient row for two crates
+        pmajor.pm_pass_crates(slab, ranges, torch.zeros((1, 3), device=cuda), "a")
+    with pytest.raises(ValueError):  # ranges of another crate count
+        pmajor.pm_pass_crates(slab, ranges[:1], torch.zeros((2, 3), device=cuda), "a")
+    gslab = torch.zeros((2, 8, 1152), device=cuda)
+    row_start = torch.zeros((2, 5), dtype=torch.int32, device=cuda)
+    tick = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # the coefficients of one crate
+        pair_kernel.pair_pass_a_crates(gslab, row_start, 8, 3, torch.zeros(2, device=cuda), tick)
+    with pytest.raises(ValueError):  # row starts of one crate
+        pair_kernel.pair_pass_a_crates(gslab, row_start[0], 8, 3,
+                                       torch.zeros((2, 2), device=cuda), tick)
+    with pytest.raises(ValueError):  # the ticks on the CPU
+        pair_kernel.pair_pass_b_emit_crates(gslab, torch.zeros((2, 4, 1152), device=cuda),
+                                            row_start, 8, 3, torch.zeros((2, 6), device=cuda),
+                                            tick.cpu())
+
+
 # ---- the probe kernels of csrc/probes.cu (P1-P4) --------------------------------
 
 

@@ -206,7 +206,7 @@ def test_state_assignment_copies_into_the_buffers():
         crate.state = crate.state._replace(pos=crate.state.pos[:-1])
 
 
-@pytest.mark.parametrize("mode", ["dense", "chunked"])
+@pytest.mark.parametrize("mode", MODES + ("gather",))  # cellwise: seconds a CPU tick here
 def test_batched_body_equals_vmapped_loop(mode):
     """BatchedCrates.run (the vmapped tick on static buffers, the overflow's
     running max in a static buffer reset each run) == a plain loop of the
@@ -227,7 +227,7 @@ def test_batched_body_equals_vmapped_loop(mode):
     state, want, worst = _eager(s0, p0, batch.scene, batch.generator, 8, live, batched_step)
     _assert_same(batch.state, state)
     _assert_same(diag, want._replace(neighbor_overflow=worst))
-    assert (live is None) == (mode == "dense")
+    assert (live is None) == (mode != "chunked")
 
 
 def test_rollout_buffers_copy_in_and_out():
@@ -314,10 +314,11 @@ def test_new_key_captures_anew_and_graphs_are_bounded(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["dense", "chunked"])
+@pytest.mark.parametrize("mode", MODES + ("cellwise", "gather"))
 def test_batched_replay_equals_eager_on_the_card(cuda, mode):
     """BatchedCrates.run replays the captured vmapped tick: == the eager
-    vmapped loop bit for bit, the overflow's running max included."""
+    vmapped loop bit for bit, the overflow's running max included; the
+    p-major and slot-grid passes launch once a tick for the whole batch."""
     raw = copy.deepcopy(load_config(REPO / "configs" / "stirring_cup.yaml").raw)
     config = load_config_dict(raw)
     base = Params.from_coefficients(config.world_config.coefficients, cuda)
@@ -328,7 +329,14 @@ def test_batched_replay_equals_eager_on_the_card(cuda, mode):
     batch.run(10)
     s0, p0, g0 = _clone(batch.state), _clone(batch.params), batch.generator.get_state()
     live = batch.live_rows(10)
+    _reset_counts()
     diag = batch.run(10)
+    fresh = int(mode == "chunked")  # a new sweep bound captures anew
+    assert graphs.LAUNCHES == {"replay": 10 - fresh, "capture": fresh}
+    want = {"pmajor": {"a": 10, "b": 10}}.get(mode, {})
+    assert {k: v for k, v in pmajor.LAUNCHES.items() if v} == want
+    grid = {"pallas": {"pair_pass_a": 10, "pair_pass_b_emit": 10}}.get(mode, {})
+    assert {k: v for k, v in pair_kernel.LAUNCHES.items() if v} == grid
     batch.generator.set_state(g0)
     state, want, worst = _eager(s0, p0, batch.scene, batch.generator, 10, live, batched_step)
     _assert_same(batch.state, state)

@@ -7,9 +7,10 @@ the sharded step runs each device's block through the vmapped step and
 advances every crate one tick; with nothing random that matters (no
 emitter, no collider noise) it equals the unsharded vmap; and the port's
 ``dryrun_multichip(8)`` runs its five legs.  The "devices" are 8 entries of
-the CPU.  The JAX batched setup runs the cellwise backend, which the
-port's vmap does not take (``sweep.py``: dense and chunked only); these
-run chunked, the dry run's backend.
+the CPU.  The JAX batched setup runs the cellwise backend; these run
+chunked, the dry run's backend, and the sharded-equals-unsharded check runs
+on cellwise too, the JAX test's own backend (the port's vmapped step takes
+every backend, ``sweep.py``).
 """
 
 import copy
@@ -36,7 +37,7 @@ torch.set_num_threads(1)
 CPU8 = ["cpu"] * 8
 
 
-def _batch(raw, emitters=True, noise=None):
+def _batch(raw, emitters=True, noise=None, forces_mode="chunked"):
     raw = copy.deepcopy(raw)
     w = load_config_dict(raw).world_config
     w.coefficients = dict(w.coefficients)
@@ -49,7 +50,7 @@ def _batch(raw, emitters=True, noise=None):
         w.particle_sources = []
         w.initial_particles = [InitialParticlesConfig(x0=0.3, y0=0.2, x1=0.7, y1=0.7,
                                                       spacing=0.05, jitter=0.3)]
-    scene = build_scene(w, capacity=128, forces_mode="chunked", device="cpu")
+    scene = build_scene(w, capacity=128, forces_mode=forces_mode, device="cpu")
     mesh = make_mesh(8, devices=CPU8)
     n_batch = mesh.shape["crates"] * 2
     base = Params.from_coefficients(w.coefficients, "cpu")
@@ -123,6 +124,22 @@ def test_sharded_step_matches_unsharded_vmap(raw):
     new_states, _ = sharded_batched_step(mesh, scene)(sh_states, sh_params)
     merged = new_states.gather()
     assert int(merged.alive.sum()) > 100
+    np.testing.assert_allclose(merged.pos.numpy(), ref.pos.numpy(), atol=1e-6)
+    np.testing.assert_allclose(merged.vel.numpy(), ref.vel.numpy(), atol=1e-6)
+
+
+def test_sharded_step_matches_unsharded_vmap_cellwise(raw):
+    """The same on the cellwise backend, the JAX mesh test's own
+    (tests/test_parallel.py:28-31)."""
+    scene, mesh, states, params = _batch(raw, emitters=False, noise=0.0, forces_mode="cellwise")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    ref, _ = _batched_rollout(states, params, scene, 1, gen)
+    sh_states, sh_params, _ = shard_batched(mesh, states, params)
+    new_states, diags = sharded_batched_step(mesh, scene)(sh_states, sh_params)
+    merged = new_states.gather()
+    assert int(merged.alive.sum()) > 100
+    assert all(int(d.non_finite.max()) == 0 for d in diags)
     np.testing.assert_allclose(merged.pos.numpy(), ref.pos.numpy(), atol=1e-6)
     np.testing.assert_allclose(merged.vel.numpy(), ref.vel.numpy(), atol=1e-6)
 

@@ -282,16 +282,21 @@ def test_run_vmapped_sweep_prints_every_variant(capsys):
     assert "viscosity" in capsys.readouterr().out
 
 
-def test_errors_and_the_card_default():
-    """pmajor and pallas do not vmap: BatchedCrates refuses them rather than
-    looping over crates.  The sweep entry points run on the card unless the
-    caller asks for the CPU, and raise without one."""
+def test_errors_and_the_card_default(monkeypatch):
+    """Every backend vmaps, but K10 takes no crate axis: under
+    SAND_CRATE_PMSUB=1 BatchedCrates refuses pmajor rather than switching
+    schedule.  The sweep entry points run on the card unless the caller
+    asks for the CPU, and raise without one."""
     cfg = _stirring_cup(max_particles=32)
     base = Params.from_coefficients(cfg.world_config.coefficients, "cpu")
     batched = sweep.stack_params([base, base])
-    for mode in ("pmajor", "pallas"):
-        with pytest.raises(ValueError, match="dense and chunked"):
-            sweep.BatchedCrates(cfg, batched, forces_mode=mode, device="cpu")
+    for mode in ("pmajor", "pallas", "cellwise", "gather"):
+        assert sweep.BatchedCrates(cfg, batched, forces_mode=mode,
+                                   device="cpu").scene.forces_mode == mode
+    monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
+    with pytest.raises(ValueError, match="K10"):
+        sweep.BatchedCrates(cfg, batched, forces_mode="pmajor", device="cpu")
+    monkeypatch.delenv("SAND_CRATE_PMSUB")
     with pytest.raises(ValueError, match="num_ticks"):
         sweep.BatchedCrates(cfg, batched, device="cpu").run(0)
     calls = (lambda: sweep.BatchedCrates(cfg, batched),
