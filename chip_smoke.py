@@ -280,6 +280,10 @@ prints its wall time as "[phase] name: s"):
    crate alone, kernel and plain.  The boundary counters of (f), (j), (o)
    and (p) rise by their per-tick counts (the instrumented tick: the update
    once a kick phase and once to integrate).
+(q3) after (q): the seven per-kick functions of physics (apply_tension
+   ... apply_continuous_collision) on every solo case of ops/kick_cases.py:
+   one launch of B2 each, counted as its kind (a single stage, the clamp
+   as ccd), bit for bit the plain update of its single stage.
 (q2) queue 3's open check, after (f): the 1M dam break of (n1) for
    ESCAPE_TICKS ticks, a replay a tick; each tick that leaves an alive
    particle outside [-r, 1 + r] is run again eagerly from the state before
@@ -320,7 +324,8 @@ prints its wall time as "[phase] name: s"):
    pair entries and the boundary wrappers swapped for their plain versions,
    as phase 6.
 
-(s) batched crates on every backend, after (j): (s0) K1/K2 (pm_pass_crates)
+(s) batched crates on every backend, after (j): (s0) K1/K2 (pm_pass_crates),
+   K10 (pms_pass_crates, chunks of 32 and 128)
    and the slab-order grid passes K4+K5 and K8+K9 (pair_pass_a_crates,
    pair_pass_b_emit_crates) with a crate axis on the batched hard inputs of
    ops/pmajor_cases.py and ops/grid_cases.py (every case padded to one
@@ -329,22 +334,25 @@ prints its wall time as "[phase] name: s"):
    crate's solo launch.  (s1) WAVE_CRATES wave_machine crates (capacity
    4096, coefficients of their own, the emitter on), settled PAIR_SETTLE
    ticks on dense, that state and generator state copied into a
-   BatchedCrates on each of BATCH_MODES: BATCH_SETTLE ticks (the eager tick
+   BatchedCrates on each of BATCH_MODES (pmajor twice: K1/K2, then K10
+   under SAND_CRATE_PMSUB=1): BATCH_SETTLE ticks (the eager tick
    and the capture), BATCH_CHECK_TICKS replayed
    ticks == the eager vmapped loop bit for bit (state, diagnostics, the
    overflow's running max, the generator), non_finite 0, each crate's uids
    unique, no particle lost but those culled outside the box, the pair
-   kernels once a pass a tick for the whole batch (D1, D2, K1/K2, K4+K5 and
-   K8+K9; none on gather and cellwise); BATCH_TIMED_TICKS replayed ticks:
+   kernels once a pass a tick for the whole batch (D1, D2, K1/K2, K10, K4+K5
+   and K8+K9; none on gather and cellwise); BATCH_TIMED_TICKS replayed ticks:
    crate-steps/s, step p50, the card memory the batch holds (its state and
    its graph's pool), and under the profiler kernel ms,
-   launches and device kernels a tick; at the settled pmajor and pallas
-   batches the four crate-axis kernels against their plain versions and the
+   launches and device kernels a tick; at the settled pmajor (both
+   schedules) and pallas batches the six crate-axis kernels against their
+   plain versions and the
    solo launches, bit for bit, their times and bounds for the batch (the
    rows of the kernels line; their launches those of the timed ticks; the
    plain versions, crate by crate, timed once on the host clock).
    (s2) BIG_CRATES dam breaks of BIG_PARTICLES target particles (100,580
-   alive, no emitter) on pmajor, pallas and chunked, as (s1) with the alive
+   alive, no emitter) on pmajor, pmajor PMSUB, pallas and chunked, as (s1)
+   with the alive
    set kept; then the same crates one after another alone on pmajor
    (physics.rollout), each bit for bit its row of the pmajor batch in every
    state field, crate-steps/s beside the batches'.  (s3) run_datagen of
@@ -538,6 +546,7 @@ PAIR_REPLACES = {"dense": "sand_crate_tpu/cellwise.py:334",
                  "window": "sand_crate_tpu/ops/chunked.py:50"}
 # Each backend's pair kernels (kernel_counts keys), once a pass a tick.
 PAIR_KEYS = {"pmajor": ("pmajor.a", "pmajor.b"),
+             "pmajor PMSUB": ("pmajor.sub_a", "pmajor.sub_b"),
              "pallas": ("grid.pair_pass_a", "grid.pair_pass_b_emit"),
              "dense": ("pairs.dense_order", "pairs.dense_a", "pairs.dense_b"),
              "chunked": ("pairs.window_a", "pairs.window_b")}
@@ -564,7 +573,7 @@ BOUNDARY_CRATES = 3  # (q): the vmapped batches
 # the ghost passes a tick per backend, (full, positions-only): the sorted
 # backends fix the positions alone before the sort and run the full pass on
 # the sorted order; the band step (spatial.py) runs the full pass once
-GHOSTS_A_TICK = {"pmajor": (1, 1), "pallas": (1, 1), "chunked": (1, 1), "cellwise": (1, 1),
+GHOSTS_A_TICK = {"pmajor": (1, 1), "pmajor PMSUB": (1, 1), "pallas": (1, 1), "chunked": (1, 1), "cellwise": (1, 1),
                  "dense": (1, 0), "gather": (1, 0), "band": (1, 0)}
 # (q2): ticks of the 1M dam break searched for particles that leave the box
 # (the first ESCAPE_TICKS of (n1)'s soak), and the rows printed
@@ -579,14 +588,20 @@ BALANCE_SHARDS, BALANCE_TICKS = 8, 300
 FILL_CRATES = 64
 SMALL_N, SMALL_N_CHUNKS = 10_000, 2
 # (s) batched crates on every backend
-BATCH_MODES = ("dense", "chunked", "pmajor", "pallas", "gather", "cellwise")
+# (s1), (s2): the batches as (label, BatchedCrates' forces_mode, the knob
+# they run under): the backends of BatchedCrates, and pmajor again under
+# SAND_CRATE_PMSUB=1 (K10)
+PMAJOR, PMSUB = ("pmajor", "pmajor", None), ("pmajor PMSUB", "pmajor", "SAND_CRATE_PMSUB")
+PALLAS, CHUNKED = ("pallas", "pallas", None), ("chunked", "chunked", None)
+BATCH_MODES = (("dense", "dense", None), CHUNKED, PMAJOR, PMSUB, PALLAS,
+               ("gather", "gather", None), ("cellwise", "cellwise", None))
 BATCH_SETTLE = 1  # (s1): ticks of each backend's batch before its check (eager, capture)
 BATCH_CHECK_TICKS = 4  # (s1), (s2): replayed ticks held against the eager vmapped loop
 BATCH_TIMED_TICKS = 20  # (s1), (s2): replayed ticks timed (crate-steps/s, p50)
 BIG_CRATES = 8  # (s2): dam-break crates of BIG_PARTICLES target particles
 BIG_PARTICLES = 100_000  # perf_probe's 100,580-particle dam break
 BIG_SETTLE = 10
-BIG_MODES = ("pmajor", "pallas", "chunked")
+BIG_MODES = (PMAJOR, PMSUB, PALLAS, CHUNKED)
 S_DATAGEN_TICKS, S_DATAGEN_EVERY = 1000, 20  # (s3): run_datagen of WAVE_CRATES crates
 
 
@@ -2229,18 +2244,18 @@ def timed_once(fn):
 
 
 def crate_axis_cases() -> None:
-    """(s0): K1/K2 and the slab-order grid passes on the batched hard inputs
-    of ops/pmajor_cases.py and ops/grid_cases.py (every case padded to one
-    size, an empty crate, coefficients, noise and ticks per crate): one
-    launch a pass for the batch, bit for bit the plain version and each
-    crate's solo launch."""
+    """(s0): K1/K2, K10 (both chunk sizes) and the slab-order grid passes on
+    the batched hard inputs of ops/pmajor_cases.py and ops/grid_cases.py
+    (every case padded to one size, an empty crate, coefficients, noise and
+    ticks per crate): one launch a pass for the batch, bit for bit the plain
+    version and each crate's solo launch."""
     import torch
 
     from sand_crate_tpu_torch.ops import grid_cases, pair_kernel, pmajor, pmajor_cases
     from sand_crate_tpu_torch.scene import build_scene
 
     scene = build_scene(dam_break_world(N_TARGET), device="cuda")
-    for name, cases, counter in (("K1/K2", pmajor_cases, pmajor.LAUNCHES),
+    for name, cases, counter in (("K1/K2, K10", pmajor_cases, pmajor.LAUNCHES),
                                  ("K4+K5, K8+K9", grid_cases, pair_kernel.LAUNCHES)):
         f = cases.batch_facts(scene, "cuda")
         check(f["holds"], f"batched hard cases of {name}: alive counts {f['alive']} do not "
@@ -2289,9 +2304,11 @@ def batch_gates(label: str, before, after, diag, radius, closed: bool) -> int:
     return culled
 
 
-def batch_run(label: str, smi: str, config, params, mode: str, seed: int, settle: int,
-              closed: bool, start=None, crate_axis_rows=None) -> dict:
-    """One batch on ``mode`` through BatchedCrates, from ``start`` (a
+def batch_run(label: str, smi: str, config, params, mode: str, forces_mode: str, seed: int,
+              settle: int, closed: bool, start=None, crate_axis_rows=None) -> dict:
+    """One batch on ``forces_mode`` through BatchedCrates (``mode``: its
+    label in BATCH_MODES, which names its pair kernels and ghost passes;
+    the caller sets its knob), from ``start`` (a
     (state, generator state) to copy in) if given: ``settle`` ticks (the
     first eager, then the capture), BATCH_CHECK_TICKS replayed ticks held
     bit for bit against the eager vmapped loop from the same state and
@@ -2302,7 +2319,8 @@ def batch_run(label: str, smi: str, config, params, mode: str, seed: int, settle
     reserved before the batch, each after empty_cache; the peak allocated
     over those ticks), the pair kernels counted once a pass a tick over
     those ticks, and PROFILED_TICKS under the profiler.  With
-    ``crate_axis_rows``, that function's kernel rows at the settled batch.
+    ``crate_axis_rows``, that function's (kernel_counts key, kernel row)
+    pairs at the settled batch.
     Returns the figures and the ticks the batch ran."""
     import torch
 
@@ -2312,8 +2330,8 @@ def batch_run(label: str, smi: str, config, params, mode: str, seed: int, settle
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_reserved()
-    b = BatchedCrates(config, params, device="cuda", seed=seed, forces_mode=mode)
-    check(b.scene.forces_mode == mode, f"{label}: BatchedCrates runs {b.scene.forces_mode}")
+    b = BatchedCrates(config, params, device="cuda", seed=seed, forces_mode=forces_mode)
+    check(b.scene.forces_mode == forces_mode, f"{label}: BatchedCrates runs {b.scene.forces_mode}")
     if start is not None:
         b.state = start[0]
         b.generator.set_state(start[1])
@@ -2333,7 +2351,7 @@ def batch_run(label: str, smi: str, config, params, mode: str, seed: int, settle
     same_bits(label + " (diagnostics)", diag, want._replace(neighbor_overflow=worst))
     del st, want
     culled = batch_gates(label, s0, b.state, diag, p0.particle_radius, closed)
-    if mode == "pmajor":
+    if forces_mode == "pmajor":
         check(int(diag.neighbor_overflow.max()) == 0, f"{label}: overflow on pmajor")
     rows = crate_axis_rows(b) if crate_axis_rows else []
     live = b.live_rows(BATCH_TIMED_TICKS + 1)
@@ -2386,71 +2404,91 @@ def batch_run(label: str, smi: str, config, params, mode: str, seed: int, settle
                 ticks=settle + BATCH_CHECK_TICKS + ticks + PROFILED_TICKS)
 
 
-def pm_crate_axis_rows(b) -> list:
-    """K1/K2's crate-axis rows at the batch's state, in each crate's sorted
-    order with the tick's noise and pass-B variant: the one launch for all
-    crates bit for bit the plain version and each crate's solo launch;
-    kernel, plain and bound times for the batch."""
+def pm_crate_axis_rows(b, k10: bool = False) -> list:
+    """The p-major crate-axis rows at the batch's state, in each crate's
+    sorted order with the tick's noise and pass-B variant: K1/K2
+    (pm_pass_crates) or, with ``k10`` (the batch runs under
+    SAND_CRATE_PMSUB=1), K10 (pms_pass_crates, one-sided noise, each crate's
+    chunk windows at PMS_CHUNK).  The one launch for all crates bit for bit
+    the plain version and each crate's solo launch; kernel, plain and bound
+    times for the batch.  Returns (kernel_counts key, row) pairs."""
     import torch
 
     from sand_crate_tpu_torch.cellwise import cell_ids_grid
     from sand_crate_tpu_torch.ops import pmajor
 
     st, pr, sc = b.state, b.params, b.scene
-    nx, ny, symm = sc.grid_nx, sc.grid_ny, sc.pmajor_symm
+    nx, ny, chunk = sc.grid_nx, sc.grid_ny, pmajor.PMS_CHUNK
+    symm = sc.pmajor_symm and not k10
+    check(pmajor.schedule() == ("pmsub" if k10 else "default"),
+          f"p-major crate-axis rows under schedule {pmajor.schedule()}")
 
     def one(pos, vel, alive, tick, diam, noise, tp, bal):
         scid, order = torch.sort(cell_ids_grid(pos, alive, sc), stable=True)
         al = alive[order]
         slab = pmajor.pass_a_slab(pos[order], vel[order], al, scid, diam * noise, tick, sc,
                                   symm=symm)
-        return slab, pmajor.candidate_ranges(scid, al, nx, ny), pmajor.coef_stack(diam, tp, bal)
+        where = (pmajor.chunk_windows(scid, al, nx, ny, chunk) if k10
+                 else pmajor.candidate_ranges(scid, al, nx, ny))
+        return slab, scid, where, pmajor.coef_stack(diam, tp, bal)
 
-    slab_a, ranges, coef = torch.func.vmap(one)(
+    slab_a, cid, where, coef = torch.func.vmap(one)(
         st.pos, st.vel, st.alive, st.tick, pr.diameter, pr.collider_noise_level,
         pr.target_pressure, pr.spring_overlap_balance)
     B, P = slab_a.shape[:2]
     fold, spring = sc.fold_pairs and not sc.enable_spring, sc.enable_spring
+    if k10:
+        prefix, key = "pms", "sub_"
+        crates, plain_fn, solo_fn = pmajor.pms_pass_crates, pmajor.pms_pass_plain, pmajor.pms_pass
+        ops, base_kw = (cid, where, coef), dict(nx=nx, chunk=chunk)
+        extra_bytes = 4 * P + 7 * 4 * where.shape[2]  # the cell ids and the windows
+    else:
+        prefix, key = "pm", ""
+        crates, plain_fn, solo_fn = pmajor.pm_pass_crates, pmajor.pm_pass_plain, pmajor.pm_pass
+        ops, base_kw = (where, coef), dict(symm=symm)
+        extra_bytes = 6 * 4 * P  # the ranges
     rows = []
-    for mode, name in (("a", "pm_pass_a_crates"), ("b", "pm_pass_b_crates")):
+    for mode in ("a", "b"):
+        name = f"{prefix}_pass_{mode}_crates"
         if mode == "a":
-            slab, kw = slab_a, dict(symm=symm)
+            slab, kw = slab_a, base_kw
         else:
             cp = pmajor.finalize_cp(out_a[:, 0], out_a[:, 3], pr.ignored_pressure[:, None])
             cp = cp * (1.0 + pr.pressure_amplifier[:, None]) if fold else cp
             slab = torch.func.vmap(pmajor.pass_b_slab)(slab_a, out_a, cp, pr.surface_smoothing)
-            kw = dict(symm=symm, fold=fold, spring=spring)
+            kw = dict(base_kw, fold=fold, spring=spring)
 
         def run(slab=slab, mode=mode, kw=kw):
-            return pmajor.pm_pass_crates(slab, ranges, coef, mode, **kw)
+            return crates(slab, *ops, mode, **kw)
 
         def plain(slab=slab, mode=mode, kw=kw):
-            return each_crate(lambda s, r, c: pmajor.pm_pass_plain(s, r, c, mode, **kw),
-                              slab, ranges, coef)
+            return each_crate(lambda *a: plain_fn(*a, mode, **kw), slab, *ops)
 
-        before = pmajor.LAUNCHES[mode]
+        before = pmajor.LAUNCHES[key + mode]
         got = run()
-        check(pmajor.LAUNCHES[mode] == before + 1, f"{name}: not one launch for the batch")
+        check(pmajor.LAUNCHES[key + mode] == before + 1, f"{name}: not one launch for the batch")
         want, plain_ms = timed_once(plain)
         err = exact(f"{name} at {B} settled crates", got, want)
-        check(torch.equal(got, each_crate(lambda s, r, c: pmajor.pm_pass(s, r, c, mode, **kw),
-                                          slab, ranges, coef)),
+        check(torch.equal(got, each_crate(lambda *a: solo_fn(*a, mode, **kw), slab, *ops)),
               f"{name}: the crate axis differs from the solo launches")
         if mode == "a":
             out_a = got
             pairs = float(got[:, 3].sum())
-        rows.append(kernel_row(name, SOURCE, REPLACES, err, cuda_ms(run, 20), plain_ms,
-                               B * (8 + 6 + got.shape[1]) * 4 * P, pairs * PAIR_FLOPS))
-    print(f"  K1/K2 at {B} settled crates of {P} slots (symm {symm}, fold {fold}, spring "
-          f"{spring}), {pairs:.0f} directed pairs: == plain and == each crate's solo launch bit "
-          "for bit; " + "; ".join(f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.2f}, "
-                                 f"bound {r['bound_ms']:.4f} {r['bound_by']})" for r in rows))
+        rows.append((f"pmajor.{key}{mode}", kernel_row(
+            name, SOURCE, REPLACES_K10 if k10 else REPLACES, err, cuda_ms(run, 20), plain_ms,
+            B * ((8 + got.shape[1]) * 4 * P + extra_bytes), pairs * PAIR_FLOPS)))
+    print(f"  {'K10' if k10 else 'K1/K2'} at {B} settled crates of {P} slots (symm {symm}, fold "
+          f"{fold}, spring {spring}), {pairs:.0f} directed pairs: == plain and == each crate's "
+          "solo launch bit for bit; " + "; ".join(
+              f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.2f}, bound "
+              f"{r['bound_ms']:.4f} {r['bound_by']}, share {r['bound_ms'] / r['ms']:.2f})"
+              for _, r in rows))
     return rows
 
 
 def grid_crate_axis_rows(b) -> list:
-    """K4+K5 and K8+K9's crate-axis rows at the batch's state, as
-    pm_crate_axis_rows."""
+    """K4+K5 and K8+K9's crate-axis (kernel_counts key, row) pairs at the
+    batch's state, as pm_crate_axis_rows."""
     import torch
 
     from sand_crate_tpu_torch.cellwise import cell_ids_grid
@@ -2514,27 +2552,29 @@ def grid_crate_axis_rows(b) -> list:
         "pair_pass_b_emit: the crate axis differs from the solo launches")
     f32, rs_bytes, nb = 4, 4 * (ny + 1), out.shape[1]
     rows = [
-        kernel_row("pair_pass_a_crates", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:193",
-                   err_a, cuda_ms(run_a, 20), plain_a_ms,
-                   B * (f32 * (6 + 4) * p_pad + rs_bytes), pairs * PAIR_FLOPS),
-        kernel_row("pair_pass_b_emit_crates", GRID_SOURCE,
-                   "sand_crate_tpu/ops/pair_kernel.py:707", err_b, cuda_ms(run_b, 20),
-                   plain_b_ms, B * (f32 * (8 + 4 + nb) * p_pad + rs_bytes),
-                   pairs * PAIR_FLOPS),
+        ("grid.pair_pass_a", kernel_row(
+            "pair_pass_a_crates", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:193", err_a,
+            cuda_ms(run_a, 20), plain_a_ms, B * (f32 * (6 + 4) * p_pad + rs_bytes),
+            pairs * PAIR_FLOPS)),
+        ("grid.pair_pass_b_emit", kernel_row(
+            "pair_pass_b_emit_crates", GRID_SOURCE, "sand_crate_tpu/ops/pair_kernel.py:707",
+            err_b, cuda_ms(run_b, 20), plain_b_ms, B * (f32 * (8 + 4 + nb) * p_pad + rs_bytes),
+            pairs * PAIR_FLOPS)),
     ]
     print(f"  K4+K5, K8+K9 at {B} settled crates (slab {p_pad} columns, {M} slots a cell, "
           f"spring {spring}), {pairs:.0f} directed pairs: == plain and == each crate's solo "
           "launch bit for bit; " + "; ".join(
               f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.2f}, bound "
-              f"{r['bound_ms']:.4f} {r['bound_by']})" for r in rows))
+              f"{r['bound_ms']:.4f} {r['bound_by']})" for _, r in rows))
     return rows
 
 
 def wave_backends(smi: str) -> list:
     """(s1): WAVE_CRATES wave_machine crates (capacity 4096, coefficients of
-    their own, the emitter on) through BatchedCrates on every backend;
-    returns the crate-axis kernel rows at the settled pmajor and pallas
-    batches, their launches those of the batch's timed ticks."""
+    their own, the emitter on) through BatchedCrates on every backend, and
+    on pmajor under SAND_CRATE_PMSUB=1; returns the crate-axis kernel rows
+    at the settled pmajor (K1/K2, and K10 under PMSUB) and pallas batches,
+    their launches those of the batch's timed ticks."""
     import copy
 
     import torch
@@ -2557,17 +2597,18 @@ def wave_backends(smi: str) -> list:
     print(f"  settled {PAIR_SETTLE} ticks on dense: alive per crate {int(counts.min())}-"
           f"{int(counts.max())} of {settled.scene.capacity}")
     del settled
-    row_fns = {"pmajor": pm_crate_axis_rows, "pallas": grid_crate_axis_rows}
+    row_fns = {"pmajor": pm_crate_axis_rows,
+               "pmajor PMSUB": lambda b: pm_crate_axis_rows(b, k10=True),
+               "pallas": grid_crate_axis_rows}
     rates, rows = {}, []
-    for mode in BATCH_MODES:
-        out = batch_run(f"{WAVE_CRATES} wave_machine crates on {mode}", smi, config, params,
-                        mode, 5, BATCH_SETTLE, closed=False, start=start,
-                        crate_axis_rows=row_fns.get(mode))
-        for r in out["rows"]:
-            key = ("pmajor." + r["name"][8]) if r["name"].startswith("pm_") else \
-                "grid." + r["name"][:-len("_crates")]
+    for mode, forces_mode, knob_name in BATCH_MODES:
+        with knob(knob_name):
+            out = batch_run(f"{WAVE_CRATES} wave_machine crates on {mode}", smi, config, params,
+                            mode, forces_mode, 5, BATCH_SETTLE, closed=False, start=start,
+                            crate_axis_rows=row_fns.get(mode))
+        for key, r in out["rows"]:
             r["launches"] = out["launches"][key]
-        rows += out["rows"]
+            rows.append(r)
         rates[mode] = (out["rate"], out["p50"])
         del out
         gc.collect()
@@ -2581,7 +2622,8 @@ def wave_backends(smi: str) -> list:
 
 def big_batches(smi: str) -> None:
     """(s2): BIG_CRATES dam breaks of BIG_PARTICLES target particles (no
-    emitter, closed box) on pmajor, pallas and chunked, then the same crates
+    emitter, closed box) on pmajor (K1/K2, then K10 under SAND_CRATE_PMSUB=1),
+    pallas and chunked, then the same crates
     one after another alone on pmajor (physics.rollout: replays), timed
     over the same ticks; each crate alone equals its row of the pmajor batch
     in every state field, bit for bit."""
@@ -2599,9 +2641,10 @@ def big_batches(smi: str) -> None:
     params = grid_params(base, {"viscosity": [6.0, 8.0, 10.0, 12.0],
                                 "pressure_amplifier": [25.0, 30.0]})
     rates, pm_state, scene, ticks = {}, None, None, 0
-    for mode in BIG_MODES:
-        out = batch_run(f"{BIG_CRATES} x {BIG_PARTICLES} dam break crates on {mode}", smi,
-                        config, params, mode, 9, BIG_SETTLE, closed=True)
+    for mode, forces_mode, knob_name in BIG_MODES:
+        with knob(knob_name):
+            out = batch_run(f"{BIG_CRATES} x {BIG_PARTICLES} dam break crates on {mode}", smi,
+                            config, params, mode, forces_mode, 9, BIG_SETTLE, closed=True)
         rates[mode] = (out["rate"], out["p50"])
         if mode == "pmajor":
             pm_state, scene, ticks = clone_state(out["b"].state), out["b"].scene, out["ticks"]
@@ -4344,6 +4387,31 @@ def vmapped_vs_alone(label: str, g, v) -> None:
           f"(kernel and plain)")
 
 
+def apply_functions() -> None:
+    """(q3): the seven per-kick functions of physics (apply_tension ...
+    apply_continuous_collision, the JAX package's public per-kick entry
+    points) on every solo case of ops/kick_cases.py: each call one launch of
+    B2 of its launch kind (velocity_update_stage; the clamp ccd) and no
+    other boundary launch, its velocity and mean |dv| bit for bit the plain
+    update of its single stage."""
+    from sand_crate_tpu_torch.ops import kick, kick_cases
+
+    cases = [c for c in kick_cases.CASES if c != "batch"]
+    for name, (stage, _) in kick_cases.APPLY.items():
+        kind = kick.launch_kind(stage)
+        for case in cases:
+            c = kick_cases.inputs(case, "cuda")
+            fn, args = kick_cases.apply_call(name, c)
+            before = boundary_counts()
+            got = fn(*args)
+            rise = {k: v - before[k] for k, v in boundary_counts().items() if v != before[k]}
+            check(rise == {"kick." + kind: 1}, f"(q3) apply_{name} on {case}: launches {rise}")
+            same_values(f"(q3) apply_{name} on {case}", got, kick_cases.apply_plain(name, c))
+    print(f"  (q3) physics.apply_* ({', '.join(kick_cases.APPLY)}) on {len(cases)} cases of "
+          "ops/kick_cases.py: one B2 launch each of its kind, == the plain single stage bit "
+          "for bit (velocity and mean |dv|)")
+
+
 def escape_check(smi: str) -> None:
     """(q2) Queue 3's open check: the 1M dam break of (n1)'s soak (fresh, on
     auto: p-major) for ESCAPE_TICKS ticks, one replay at a time.  After each
@@ -4937,6 +5005,10 @@ def main() -> int:
               "state, on the hard inputs (ops/boundary_cases.py) and vmapped:")
         b_rows = boundary_rows(crate, smi)
 
+    # -- (q3) the per-kick functions of physics, one B2 launch each ---------------------
+    with phase("per-kick functions"):
+        apply_functions()
+
     # -- (h) P1 at the settled state: vs its plain version, then its main ---------
     with phase("P1 probe"):
         print("P1 (tools/pmajor_probe.py) vs its plain version at the settled 1M state:")
@@ -5111,7 +5183,8 @@ def main() -> int:
 
         # -- (s) batched crates on every backend: the crate-axis kernels ----------
         with phase("crate-axis hard cases"):
-            print("(s0) K1/K2, K4+K5 and K8+K9 with a crate axis on the batched hard inputs:")
+            print("(s0) K1/K2, K10, K4+K5 and K8+K9 with a crate axis on the batched hard "
+                  "inputs:")
             crate_axis_cases()
         with phase("batched backends, wave_machine"):
             print(f"(s1) {WAVE_CRATES} wave_machine crates on every backend of BatchedCrates:")

@@ -28,6 +28,12 @@ the update also returns the new positions and pressures, ``max_speed``,
 ``non_finite`` and ``cnt`` (the alive count, at least 1: the means'
 denominator).
 
+:func:`single_stage` runs one stage alone (the operands it does not read
+None) with its norm row and returns the velocity and the mean |dv| over the
+alive slots: ``physics.apply_tension`` ... ``apply_continuous_collision``,
+the JAX package's per-kick functions, are calls of it (one launch each on
+the card).
+
 On the card each launch goes through the custom operator
 ``torch.ops.sand_crate.velocity_update``, whose kernel takes a leading crate
 axis: ``torch.func.vmap`` (batched crates, ``sweep.py``) reaches its vmap
@@ -336,7 +342,7 @@ def _crates_plain(per_crate, seg_valid, stages):
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
-_SCHEMA = ("(" + ", ".join(f"Tensor{'' if k in ('vel', 'pos', 'alive', 'dt') else '?'} {k}"
+_SCHEMA = ("(" + ", ".join(f"Tensor{'' if k in ('vel', 'alive', 'dt') else '?'} {k}"
                            for k in PER_CRATE)
            + ", Tensor? seg_valid, int stages) -> "
            "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
@@ -446,6 +452,23 @@ def velocity_update(stages: int, vel, pos, alive, sums, ghost, segments, params,
     """The tick's velocity update over ``stages`` (see :func:`fused`) from
     the tick's operands (:func:`operands`); :func:`update`'s dispatch."""
     return update(stages, *operands(vel, pos, alive, sums, ghost, segments, params, seg_valid))
+
+
+def single_stage(stage: int, params, seg_valid=None, run=None, **named):
+    """One stage of the update alone, with its norm row -> (vel, the mean
+    |dv| over the alive slots): the sum of the row over max(alive count, 1),
+    as :func:`force_dv` takes it.  The operands the stage reads
+    (:func:`_needs`) come from ``named`` (``PER_CRATE`` names: vel, alive,
+    pos, the pair and ghost sums, segments), ``params`` (an object with the
+    coefficients as attributes, a ``state.Params``) and ``seg_valid``; every
+    other one is None.  ``run`` is :func:`update` unless given
+    (:func:`update_plain` for a comparison)."""
+    need = _needs(stage)
+    have = {**named, **{k: getattr(params, k) for k in _COEF_FIELDS if k in need}}
+    operands = tuple(have[k] if k in need else None for k in PER_CRATE)
+    out = (run or update)(stage | NORMS, *operands, seg_valid if "seg_valid" in need else None)
+    cnt = torch.clamp(named["alive"].sum(dtype=torch.int32).to(out.vel.dtype), min=1.0)
+    return out.vel, force_dv(out.norms, cnt)[0]
 
 
 def _ccd_operands(pos, vel, alive, segments, particle_radius, dt, seg_valid):

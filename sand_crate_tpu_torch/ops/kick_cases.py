@@ -15,10 +15,14 @@ p-major layout (sums as transposed views, an expanded zero plane), a crate
 of one slot, and three crates at once with coefficients of their own.
 Inputs are made from a numpy seed; ``tests/test_torch_kicks.py`` and
 ``chip_smoke.py`` run every case and :func:`facts` checks that each holds
-what it claims.
+what it claims.  :func:`apply_call` makes the case's call of each per-kick
+function of ``physics`` (``APPLY``), :func:`apply_plain` its single stage
+through the plain update.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -297,3 +301,49 @@ def facts_of(c: dict) -> dict:
         strided=c["dv_tension"].stride() == (1, vel.shape[0]),
         expanded=pr.stride() == (0, 0),
     )
+
+
+# The per-kick functions of physics.py: name -> (the stage it runs, its
+# arguments by name: sums and ghost are the case's PairSums and GhostInfo,
+# params and scene namespaces of its coefficients and seg_valid).
+APPLY = {
+    "tension": (kick.TENSION, ("vel", "alive", "sums", "params")),
+    "gravity": (kick.GRAVITY, ("vel", "alive", "params")),
+    "pressure_force": (kick.PRESSURE, ("vel", "alive", "sums", "ghost", "params")),
+    "spring": (kick.SPRING, ("vel", "alive", "sums", "ghost", "params")),
+    "viscosity": (kick.VISCOSITY, ("vel", "alive", "sums", "params")),
+    "wall_bounce": (kick.WALL_BOUNCE, ("vel", "alive", "ghost", "params")),
+    "continuous_collision": (kick.CCD, ("pos", "vel", "alive", "segments", "params", "scene")),
+}
+
+
+def apply_arguments(name: str, t: dict, sums_type, ghost_type, overflow) -> tuple:
+    """The arguments of ``apply_<name>`` from a solo case's arrays ``t``
+    (torch or another array type), its sums and ghost as ``sums_type`` and
+    ``ghost_type`` (a package's PairSums and GhostInfo)."""
+    x = dict(vel=t["vel"], pos=t["pos"], alive=t["alive"], segments=t["segments"],
+             sums=sums_type(*(t[k] for k in sums_type._fields[:-1]), overflow=overflow),
+             ghost=ghost_type(t["pos"], t["g_cnt"], t["gsum"], t["gvel_sum"]),
+             params=SimpleNamespace(**{k: t[k] for k in COEF}),
+             scene=SimpleNamespace(seg_valid=t["seg_valid"]))
+    return tuple(x[k] for k in APPLY[name][1])
+
+
+def apply_call(name: str, c: dict):
+    """(``physics.apply_<name>``, its arguments) on the solo case ``c``."""
+    from .. import physics
+    from ..cellwise import PairSums
+
+    t = {k: v for k, v in c.items() if isinstance(v, torch.Tensor)}
+    overflow = torch.zeros((), dtype=torch.int32, device=c["vel"].device)
+    return (getattr(physics, "apply_" + name),
+            apply_arguments(name, t, PairSums, physics.GhostInfo, overflow))
+
+
+def apply_plain(name: str, c: dict):
+    """``apply_<name>``'s single stage through the plain update on the solo
+    case ``c`` -> (vel, mean |dv| over the alive slots)."""
+    stage = APPLY[name][0]
+    named = {k: c[k] for k in PER_CRATE}
+    return kick.single_stage(stage, SimpleNamespace(**named), c["seg_valid"], kick.update_plain,
+                             **named)

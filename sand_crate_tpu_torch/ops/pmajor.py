@@ -31,7 +31,12 @@ vectorised torch versions, which CPU tensors run:
   chunk's window in the kernel (:func:`window_ranges` finds the same bounds)
   and walks them as K1/K2 do, so no P-sized search runs before it; plain
   version :func:`pms_pass_plain`.  The same pairs in the same order as
-  K1/K2 with one-sided noise, so the same bits.
+  K1/K2 with one-sided noise, so the same bits.  It calls the custom
+  operator ``torch.ops.sand_crate.pms_pass`` as a batch of one, which takes
+  a leading crate axis as ``pm_pass``'s does (slab (B, P, 8), cell ids
+  (B, P), windows (B, 7, nchunks), coef (B, 3) -> (B, n_out, P)), so a
+  vmapped step under ``SAND_CRATE_PMSUB=1`` launches K10 once a pass for
+  every crate.
 
 Both visit every candidate, so no pair is lost and ``PairSums.overflow`` is
 0 — where the JAX kernels' fixed window budgets (``w``, ``VCAP_SUB``) can
@@ -41,8 +46,7 @@ call time, as JAX reads them at trace time (ops/pmajor.py:1138-1147, 1183):
 K1/K2 (the gate branch of the JAX kernel skips tiles past the window span;
 the per-thread exact walk already visits only those candidates); both turn
 the two-sided ``pmajor_symm`` noise off, so the jitter is one-sided at the
-full amplitude.  K10 takes no crate axis yet: a vmapped step under
-``SAND_CRATE_PMSUB=1`` raises (``sweep.batched_step``).  ``SAND_CRATE_PMSUB_G`` (the TPU kernel's candidate rows per
+full amplitude.  ``SAND_CRATE_PMSUB_G`` (the TPU kernel's candidate rows per
 vreg group) changes no result and has no counterpart.  Nor do the other TPU
 tactics: 128-lane window anchoring, VMEM residency, ``split`` tiles, the
 searchsorted-by-sorting merge and the j-side staging merge.
@@ -192,7 +196,8 @@ def chunk_windows(sorted_cid: torch.Tensor, alive: torch.Tensor, nx: int, ny: in
     in the cell id, so the window covers every self's range exactly);
     row 6 is one past the chunk's last alive self.  Alive particles are the
     sorted prefix (dead ones sort to the cell id NC), and dead chunks get
-    empty windows."""
+    empty windows.  No value is read back to the host, so it runs under
+    ``torch.func.vmap`` (a crate each) and inside a CUDA graph capture."""
     P = sorted_cid.shape[0]
     dev = sorted_cid.device
     NC = nx * ny
@@ -404,7 +409,7 @@ def _lib():
         lib.sc_pm_pass.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.sc_pm_pass.restype = ctypes.c_int
         lib.sc_pms_pass.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
         lib.sc_pms_pass.restype = ctypes.c_int
     return lib
@@ -486,41 +491,79 @@ def pm_pass_crates(slab, ranges, coef, mode, *, fold=False, spring=False, symm=F
                                         int(spring), int(symm))
 
 
+def _launch_pms(slab, cid, windows, coef, mode, nx, chunk, fold, spring):
+    """K10 over a crate axis: one launch of csrc/pmajor.cu's pms_kernel for
+    all B crates, counted in ``LAUNCHES["sub_a"]`` / ``["sub_b"]``."""
+    B, P = slab.shape[:2]
+    nchunks = -(-P // chunk)
+    _check("pms_pass", "slab", slab, torch.float32, (B, P, SLAB_F))
+    _check("pms_pass", "cid", cid, torch.int32, (B, P))
+    _check("pms_pass", "windows", windows, torch.int32, (B, 7, nchunks))
+    _check("pms_pass", "coef", coef, torch.float32, (B, 3))
+    if not (slab.device == cid.device == windows.device == coef.device):
+        raise ValueError("pms_pass: slab, cid, windows and coef must share one device")
+    n_out = _n_out(mode, fold, spring)
+    out = torch.empty((B, n_out, P), dtype=torch.float32, device=slab.device)
+    with torch.cuda.device(slab.device):
+        err = _lib().sc_pms_pass(
+            slab.data_ptr(), cid.data_ptr(), windows.data_ptr(), coef.data_ptr(),
+            out.data_ptr(), P, B, nchunks, chunk, nx, 0 if mode == "a" else 1, n_out,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pms_pass kernel (mode {mode}, {B} crates) failed: cudaError {err}")
+    LAUNCHES["sub_" + mode] += 1
+    return out
+
+
+@torch.library.custom_op(
+    "sand_crate::pms_pass", mutates_args=(),
+    schema="(Tensor slab, Tensor cid, Tensor windows, Tensor coef, int mode, int nx, int chunk, "
+           "int fold, int spring) -> Tensor")
+def _pms_op(slab, cid, windows, coef, mode, nx, chunk, fold, spring):
+    """K10 over a leading crate axis: slab (B, P, 8), cid (B, P), windows
+    (B, 7, nchunks), coef (B, 3) -> (B, n_out, P).  CPU tensors run
+    :func:`pms_pass_plain` crate by crate; CUDA tensors launch the kernel
+    once."""
+    m, kw = _MODES[mode], dict(nx=nx, chunk=chunk, fold=bool(fold), spring=bool(spring))
+    if slab.device.type == "cuda":
+        return _launch_pms(slab, cid, windows, coef, m, **kw)
+    if slab.device.type == "cpu":
+        return crates_plain("pms_pass", lambda s, c, w, k: pms_pass_plain(s, c, w, k, m, **kw),
+                            (slab, cid, windows, coef))
+    raise ValueError(f"pms_pass: tensors on {slab.device}; expected cpu or cuda")
+
+
+register_crate_vmap(_pms_op, 4)
+
+
 def pms_pass(slab, cid, windows, coef, mode, *, nx, chunk, fold=False, spring=False):
     """One K10 chunk-window pair pass -> (n_out, P) f32 sums, one-sided
     collider noise; outputs as :func:`pm_pass`.
 
     ``cid`` is the sorted cell ids (P,) int32, ``windows`` the
     :func:`chunk_windows` of ``chunk`` (32 or 128) selves, ``nx`` the grid
-    width.  CPU tensors run :func:`pms_pass_plain`; CUDA tensors launch the
+    width.  Through the ``sand_crate::pms_pass`` operator as a batch of one
+    (under ``torch.func.vmap`` its vmap rule launches once for the whole
+    batch): CPU tensors run :func:`pms_pass_plain`; CUDA tensors launch the
     kernel of ``csrc/pmajor.cu`` on the current stream (and count it in
     ``LAUNCHES["sub_a"]`` / ``["sub_b"]``); tensors elsewhere raise."""
+    return pms_pass_crates(slab[None], cid[None], windows[None], coef[None], mode, nx=nx,
+                           chunk=chunk, fold=fold, spring=spring)[0]
+
+
+def pms_pass_crates(slab, cid, windows, coef, mode, *, nx, chunk, fold=False, spring=False):
+    """K10 over a leading crate axis: slab (B, P, 8), sorted cell ids
+    (B, P), each crate's :func:`chunk_windows` (B, 7, nchunks) in
+    crate-local slab positions, coef (B, 3) -> (B, n_out, P), through the
+    ``sand_crate::pms_pass`` operator: one launch for all B crates on the
+    card, :func:`pms_pass_plain` crate by crate on the CPU."""
     _check_mode("pms_pass", mode)
     if chunk not in PMS_CHUNKS:
         raise ValueError(f"pms_pass: chunk must be one of {PMS_CHUNKS}, got {chunk}")
-    if slab.device.type == "cpu":
-        return pms_pass_plain(slab, cid, windows, coef, mode, nx=nx, chunk=chunk,
-                              fold=fold, spring=spring)
-    P = slab.shape[0]
-    nchunks = -(-P // chunk)
-    _check("pms_pass", "slab", slab, torch.float32, (P, SLAB_F))
-    _check("pms_pass", "cid", cid, torch.int32, (P,))
-    _check("pms_pass", "windows", windows, torch.int32, (7, nchunks))
-    _check("pms_pass", "coef", coef, torch.float32, (3,))
-    if not (slab.device == cid.device == windows.device == coef.device):
-        raise ValueError("pms_pass: slab, cid, windows and coef must share one device")
-    n_out = _n_out(mode, fold, spring)
-    out = torch.empty((n_out, P), dtype=torch.float32, device=slab.device)
-    with torch.cuda.device(slab.device):
-        err = _lib().sc_pms_pass(
-            slab.data_ptr(), cid.data_ptr(), windows.data_ptr(), coef.data_ptr(),
-            out.data_ptr(), P, nchunks, chunk, nx, 0 if mode == "a" else 1, n_out,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pms_pass kernel (mode {mode}) failed: cudaError {err}")
-    LAUNCHES["sub_" + mode] += 1
-    return out
+    on_cpu_or_cuda("pms_pass", slab)
+    return torch.ops.sand_crate.pms_pass(slab, cid, windows, coef, _MODES.index(mode), nx, chunk,
+                                         int(fold), int(spring))
 
 
 def pass_a_slab(pos, vel, alive, sorted_cid, noise_amp, tick, scene: Scene, *, symm: bool):

@@ -15,11 +15,11 @@ every case at both chunk sizes (:func:`k10_variants`), held to its plain
 version and to K1/K2 one-sided.
 
 The batched inputs (:func:`batch_variants`) stack the cases on a crate axis
-for K1/K2's crate-axis launch: each case padded with dead slots to the
-largest case's size (so the alive counts differ widely), then a crate with
-no alive particle, each crate with coefficients, noise and a tick of its
-own; the crate-axis launch is held to the plain version and to the solo
-launch of each crate.
+for the crate-axis launches of K1/K2 and K10: each case padded with dead
+slots to the largest case's size (so the alive counts differ widely), then
+a crate with no alive particle, each crate with coefficients, noise and a
+tick of its own; the crate-axis launch is held to the plain version and to
+the solo launch of each crate.
 """
 
 from __future__ import annotations
@@ -184,10 +184,12 @@ def batch_facts(scene, device, names=BATCH) -> dict:
 
 def batch_variants(scene, device, names=BATCH):
     """(label, crate-axis call, plain calls, solo kernel calls), each
-    (B, n_out, P), for pass A and pass B folded, split and split with the
-    spring, with two-sided and one-sided noise, on the batched inputs.  The
-    plain and solo calls run each crate alone and stack the results; pass
-    B's slab is made from the plain pass A."""
+    (B, n_out, P), on the batched inputs: K1/K2 for pass A and pass B
+    folded, split and split with the spring, with two-sided and one-sided
+    noise; then K10 (labels "K10 chunk ...") for pass A, pass B folded and
+    pass B split with the spring at both chunk sizes, one-sided.  The plain
+    and solo calls run each crate alone and stack the results; pass B's slab
+    is made from the plain pass A."""
     pos, vel, alive, cid = batch_particles(scene, device, names)
     nx, ny = scene.grid_nx, scene.grid_ny
     coef, amp, tick = batch_coefs(len(names), scene.cell_size, device)
@@ -198,7 +200,7 @@ def batch_variants(scene, device, names=BATCH):
     def each(fn, *xs):
         return crates_plain("batch_variants", fn, xs)
 
-    out = []
+    out, slabs = [], {}
     for symm in (True, False):
         slab_a = torch.func.vmap(
             lambda p, v, a, c, m, t: pmajor.pass_a_slab(p, v, a, c, m, t, scene, symm=symm)
@@ -209,13 +211,31 @@ def batch_variants(scene, device, names=BATCH):
         cp = pmajor.finalize_cp(out_a[:, 0], out_a[:, 3], ign)
         slab_b = torch.func.vmap(lambda s, o, c: pmajor.pass_b_slab(s, o, c, smooth))(
             slab_a, out_a, cp)
+        slabs[symm] = slab_a, slab_b
         for name, kw in (("fold", dict(fold=True)), ("split", {}),
                          ("split+spring", dict(spring=True))):
             out.append((f"symm={symm} pass B {name}", slab_b, "b", dict(symm=symm, **kw)))
-    return [(label,
+    rows = [(label,
              lambda s=slab, m=mode, kw=kw: pmajor.pm_pass_crates(s, ranges, coef, m, **kw),
              lambda s=slab, m=mode, kw=kw: each(
                  lambda a, r, c: pmajor.pm_pass_plain(a, r, c, m, **kw), s, ranges, coef),
              lambda s=slab, m=mode, kw=kw: each(
                  lambda a, r, c: pmajor.pm_pass(a, r, c, m, **kw), s, ranges, coef))
             for label, slab, mode, kw in out]
+    slab_a, slab_b = slabs[False]
+    for chunk in pmajor.PMS_CHUNKS:
+        win = torch.func.vmap(lambda c, a: pmajor.chunk_windows(c, a, nx, ny, chunk))(cid, alive)
+        for name, slab, mode, kw in (("pass A", slab_a, "a", {}),
+                                     ("pass B fold", slab_b, "b", dict(fold=True)),
+                                     ("pass B split+spring", slab_b, "b", dict(spring=True))):
+            kw = dict(kw, nx=nx, chunk=chunk)
+            rows.append((
+                f"K10 chunk {chunk} {name}",
+                lambda s=slab, w=win, m=mode, kw=kw: pmajor.pms_pass_crates(s, cid, w, coef, m,
+                                                                              **kw),
+                lambda s=slab, w=win, m=mode, kw=kw: each(
+                    lambda a, c, w, k: pmajor.pms_pass_plain(a, c, w, k, m, **kw),
+                    s, cid, w, coef),
+                lambda s=slab, w=win, m=mode, kw=kw: each(
+                    lambda a, c, w, k: pmajor.pms_pass(a, c, w, k, m, **kw), s, cid, w, coef)))
+    return rows

@@ -22,7 +22,9 @@ crate.py:91-129):
   5.  tension, gravity, pressure, spring (flag-gated), viscosity, wall
       bounce, continuous collision kicks
   6.  integrate positions
-  (5 and 6 are one velocity update, ops/kick.py: on the card one kernel)
+  (5 and 6 are one velocity update, ops/kick.py: on the card one kernel;
+  the JAX package's public per-kick functions apply_tension ...
+  apply_continuous_collision run one stage of it each)
 
 The sorted backends keep the state permanently cell-sorted (``uid``
 carries identity), as in the JAX package.  The dense, cellwise and gather
@@ -580,3 +582,58 @@ def trajectory(
             frames[k].append(getattr(state, k))
         frames["force_dv"].append(diag.force_dv)
     return state, {k: torch.stack(v) for k, v in frames.items()}
+
+
+# --------------------------------------------------------------------------
+# 4. the kicks one at a time (the JAX package's public per-kick functions)
+# --------------------------------------------------------------------------
+# Each runs one stage of ops/kick.py's velocity update alone (on the card one
+# launch of csrc/kick.cu's kernel, counted as "velocity_update_stage", the
+# clamp as "ccd") and returns (vel, mean |dv| over the alive slots), as
+# sand_crate_tpu/physics.py:680-750 does; physics.step runs them all in one
+# launch instead.
+
+
+def apply_tension(vel, alive, sums: PairSums, params: Params):
+    """Surface tension kick (crate.py:335-358)."""
+    return kick.single_stage(kick.TENSION, params, vel=vel, alive=alive,
+                             dv_tension=sums.dv_tension)
+
+
+def apply_gravity(vel, alive, params: Params):
+    """Gravity on particles (crate.py:309-310)."""
+    return kick.single_stage(kick.GRAVITY, params, vel=vel, alive=alive)
+
+
+def apply_pressure_force(vel, alive, sums: PairSums, ghost: GhostInfo, params: Params):
+    """Pressure force incl. ghost push-off (crate.py:286-307)."""
+    return kick.single_stage(
+        kick.PRESSURE, params, vel=vel, alive=alive, p_i=sums.p_i,
+        pressure_real=sums.pressure_real, gsum=ghost.gsum)
+
+
+def apply_spring(vel, alive, sums: PairSums, ghost: GhostInfo, params: Params):
+    """Spring force (crate.py:325-333; the reference ships it disabled)."""
+    return kick.single_stage(
+        kick.SPRING, params, vel=vel, alive=alive, spring_real=sums.spring_real,
+        nbr_cnt=sums.nbr_cnt, g_cnt=ghost.g_cnt, gsum=ghost.gsum)
+
+
+def apply_viscosity(vel, alive, sums: PairSums, params: Params):
+    """Viscosity: stale v_j snapshot, fresh v_i (crate.py:316-323)."""
+    return kick.single_stage(
+        kick.VISCOSITY, params, vel=vel, alive=alive, visc_vsum=sums.visc_vsum,
+        nbr_cnt=sums.nbr_cnt)
+
+
+def apply_wall_bounce(vel, alive, ghost: GhostInfo, params: Params):
+    """Wall bounce against the moving-wall contact velocity (crate.py:245-259)."""
+    return kick.single_stage(
+        kick.WALL_BOUNCE, params, vel=vel, alive=alive, g_cnt=ghost.g_cnt, gsum=ghost.gsum,
+        gvel_sum=ghost.gvel_sum)
+
+
+def apply_continuous_collision(pos, vel, alive, segments, params: Params, scene: Scene):
+    """Continuous collision velocity clamp (crate.py:177-200)."""
+    return kick.single_stage(
+        kick.CCD, params, scene.seg_valid, vel=vel, alive=alive, pos=pos, segments=segments)

@@ -14,9 +14,8 @@ chunked, cellwise, gather, pmajor and pallas.  None reads a tensor back to
 the host (the chunked sweep bound is a host int that is the same for every
 crate), and each pair kernel takes a crate axis through a custom operator
 whose vmap rule launches it once for every crate of the batch (ops/
-pair_batch.py: D1, D2; ops/pmajor.py: K1/K2; ops/pair_kernel.py: K4+K5,
-K8+K9).  K10 takes no crate axis yet: under ``SAND_CRATE_PMSUB=1`` a
-batched pmajor step raises.  The emitters and the dense, cellwise and
+pair_batch.py: D1, D2; ops/pmajor.py: K1/K2, and K10 under
+``SAND_CRATE_PMSUB=1``; ops/pair_kernel.py: K4+K5, K8+K9).  The emitters and the dense, cellwise and
 gather collider noise draw from one ``torch.Generator`` with
 ``randomness="different"``, so every crate draws numbers of its own; the
 JAX package draws from ``jax.random``, so there the two agree in their
@@ -42,7 +41,6 @@ import torch
 
 from .config import Config
 from .graphs import StepGraph, clone, rollout_graph
-from .ops import pmajor
 from .physics import step
 from .recording import TrajectoryWriter
 from .scene import build_scene, default_capacity, init_state
@@ -126,7 +124,6 @@ class BatchedCrates:
                 "forces_mode", "dense" if cap <= DENSE_MAX_CAPACITY else "chunked"
             )
             scene = build_scene(world, device=device, **scene_kwargs)
-        check_batchable(scene)
         self.scene = scene
         device = scene.segments0.device
         params = Params(*(x.to(device) for x in batched_params))
@@ -191,21 +188,12 @@ class BatchedCrates:
         return self.state.pos.cpu().numpy()
 
 
-def check_batchable(scene: Scene) -> None:
-    """Raise where the vmapped step cannot run the scene: the pmajor
-    backend under ``SAND_CRATE_PMSUB=1`` (K10 takes no crate axis yet; the
-    schedule is read at each call, as the solo step reads it)."""
-    if scene.forces_mode == "pmajor" and pmajor.schedule() == "pmsub":
-        raise ValueError("batched crates: K10 (SAND_CRATE_PMSUB=1) takes no crate axis yet; "
-                         "unset SAND_CRATE_PMSUB to vmap the pmajor backend on K1/K2")
-
-
 def batched_step(state, params, scene, generator, live_rows=None):
     """One tick of every crate: ``physics.step`` vmapped over the crate
     axis, each crate drawing numbers of its own.  ``live_rows`` is a host
-    int, the same for every crate.  Every backend vmaps; the pmajor
-    backend under ``SAND_CRATE_PMSUB=1`` raises (:func:`check_batchable`)."""
-    check_batchable(scene)
+    int, the same for every crate.  Every backend vmaps, the pmajor
+    backend on each of its pair schedules (``pmajor.schedule()``, read at
+    each call as the solo step reads it)."""
 
     def one(st, pr):
         return step(st, pr, scene, generator, live_rows)

@@ -1,8 +1,9 @@
 """Batched crates on every backend the JAX vmapped step takes, on the CPU.
 
 The port's vmapped step (``sweep.batched_step``: ``torch.func.vmap`` of
-``physics.step``) on cellwise, gather, pmajor (default and
-``SAND_CRATE_PMAJOR_GATE=1``) and pallas against ``jax.jit(jax.vmap(step))``
+``physics.step``) on cellwise, gather, pmajor (default,
+``SAND_CRATE_PMAJOR_GATE=1`` and ``SAND_CRATE_PMSUB=1``) and pallas against
+``jax.jit(jax.vmap(step))``
 of the JAX package: 4 crates of capacity 128 with coefficients of their
 own, the same inputs carried across (``state_from_numpy`` /
 ``params_from_numpy``), 3 ticks, no emitter.  Collider noise is off for
@@ -15,12 +16,13 @@ velocities uid-aligned at rtol 2e-3, atol 2e-4 (tests/test_pmajor.py:
 371-374), the alive set and the counters exactly.
 
 Also: the vmapped step equals each crate stepped alone, bit for bit, on
-all six backends; the batched plain twins of K1/K2, K4+K5 and K8+K9
-(the crate-axis operators on CPU tensors, and ``torch.func.vmap`` of the
-solo wrappers) equal per-crate plain calls bit for bit on the batched hard
-inputs of ops/pmajor_cases.py and ops/grid_cases.py; ``BatchedCrates``
-takes all six backends, keeps the default rule (dense up to 1024 slots,
-chunked above) and refuses pmajor under ``SAND_CRATE_PMSUB=1``.
+all six backends and on pmajor under ``SAND_CRATE_PMSUB=1``; the batched
+plain twins of K1/K2, K10, K4+K5 and K8+K9 (the crate-axis operators on
+CPU tensors, and ``torch.func.vmap`` of the solo wrappers) equal per-crate
+plain calls bit for bit on the batched hard inputs of ops/pmajor_cases.py
+and ops/grid_cases.py; ``BatchedCrates`` takes all six backends, pmajor
+under ``SAND_CRATE_PMSUB=1`` too, and keeps the default rule (dense up to
+1024 slots, chunked above).
 """
 
 import copy
@@ -57,9 +59,13 @@ JAX_MODES = {
     "gather": (0.0, {}),
     "pmajor": (0.1, {}),
     "pmajor_gate": (0.1, {}),
+    "pmajor_pmsub": (0.1, {}),
     "pallas": (0.1, {"cell_capacity": 8}),
 }
 ALL_MODES = ("dense", "chunked", "cellwise", "gather", "pmajor", "pallas")
+# The environment knob each case name ends in (read by JAX at trace time, by
+# the port at call time).
+KNOBS = {"gate": "SAND_CRATE_PMAJOR_GATE", "pmsub": "SAND_CRATE_PMSUB"}
 # The pmajor hard cases that fit the 72 x 72-cell scene below and run in
 # seconds on the CPU (the card runs every case).
 PM_NAMES = ("ragged_tile", "under_one_tile", "dead_tail", pmajor_cases.EMPTY)
@@ -117,15 +123,33 @@ def _port_batch(raw, mode, scene_kw, jstates=None, jparams=None):
     return scene, states, params
 
 
+@pytest.fixture
+def knob_of(monkeypatch):
+    """Sets the knob a case name ends in, if any; JAX reads it at trace
+    time, so its compile caches are cleared around a test that sets one."""
+    set_any = []
+
+    def set_knob(case):
+        name = KNOBS.get(case.split("_")[-1])
+        if name:
+            monkeypatch.setenv(name, "1")
+            jax.clear_caches()
+            set_any.append(name)
+
+    yield set_knob
+    if set_any:
+        jax.clear_caches()
+
+
 @pytest.mark.parametrize("case", sorted(JAX_MODES))
-def test_vmapped_step_matches_jax(case, monkeypatch):
+def test_vmapped_step_matches_jax(case, knob_of):
     """jax.jit(jax.vmap(step)) and the port's vmapped step, 3 ticks from the
     same stacked state and params: uid-aligned positions and velocities of
     every crate at the solo tests' tolerance, the same alive sets, particle
-    counts, overflow and non-finite counts; pmajor's overflow 0."""
+    counts, overflow and non-finite counts; pmajor's overflow 0 (K10's
+    under SAND_CRATE_PMSUB=1 too)."""
     mode = case.split("_")[0]
-    if case.endswith("gate"):  # read by JAX at trace time, by the port at call time
-        monkeypatch.setenv("SAND_CRATE_PMAJOR_GATE", "1")
+    knob_of(case)
     noise, scene_kw = JAX_MODES[case]
     raw = _world(noise)
     jscene, jstates, jparams = _jax_batch(raw, mode, scene_kw)
@@ -155,12 +179,16 @@ def test_vmapped_step_matches_jax(case, monkeypatch):
                                        rtol=2e-3, atol=2e-4, err_msg=f"{name} crate {i}")
 
 
-@pytest.mark.parametrize("mode", ALL_MODES)
-def test_vmapped_equals_each_crate_alone(mode):
+@pytest.mark.parametrize("mode", ALL_MODES + ("pmajor_pmsub",))
+def test_vmapped_equals_each_crate_alone(mode, monkeypatch):
     """The vmapped step equals each crate stepped alone with its own params,
     bit for bit, every field and every diagnostic.  Noise on where it is
     hashed (chunked, pmajor, pallas), off where each crate draws its own
-    (dense, cellwise, gather)."""
+    (dense, cellwise, gather).  "pmajor_pmsub": pmajor under
+    SAND_CRATE_PMSUB=1 (K10)."""
+    if mode.endswith("pmsub"):
+        monkeypatch.setenv(KNOBS["pmsub"], "1")
+        mode = "pmajor"
     noise = 0.1 if mode in ("chunked", "pmajor", "pallas") else 0.0
     kw = {"cell_capacity": 8} if mode == "pallas" else {}
     scene, states, params = _port_batch(_world(noise), mode, kw)
@@ -192,7 +220,8 @@ def test_pmajor_plain_twins_over_the_crate_axis():
     coef, _, _ = pmajor_cases.batch_coefs(len(PM_NAMES), scene.cell_size, "cpu")
     ranges = torch.func.vmap(
         lambda c, a: pmajor.candidate_ranges(c, a, scene.grid_nx, scene.grid_ny))(cid, alive)
-    variants = pmajor_cases.batch_variants(scene, "cpu", PM_NAMES)
+    variants = [v for v in pmajor_cases.batch_variants(scene, "cpu", PM_NAMES)
+                if not v[0].startswith("K10")]
     assert len(variants) == 8
     for label, run, plain, solo in variants:
         got = run()
@@ -208,6 +237,37 @@ def test_pmajor_plain_twins_over_the_crate_axis():
                         for b in range(len(PM_NAMES))])
     assert torch.equal(vm, want)
     assert float(vm[:, 3].max()) > 3
+
+
+def test_k10_plain_twins_over_the_crate_axis():
+    """K10's crate-axis operator on CPU tensors, and torch.func.vmap of the
+    solo wrapper (the operator's vmap rule; chunk_windows vmapped too),
+    equal per-crate pms_pass_plain bit for bit on the batched hard inputs:
+    pass A, pass B folded and pass B split with the spring, at both chunk
+    sizes; the empty crate's sums are zero."""
+    scene = build_scene(dam_break_world(2000), forces_mode="pmajor", device="cpu")
+    variants = [v for v in pmajor_cases.batch_variants(scene, "cpu", PM_NAMES)
+                if v[0].startswith("K10")]
+    assert len(variants) == 3 * len(pmajor.PMS_CHUNKS)
+    for label, run, plain, solo in variants:
+        got = run()
+        assert torch.equal(got, plain()), label
+        assert torch.equal(got, solo()), label
+        assert torch.equal(got[-1], torch.zeros_like(got[-1])), label
+    pos, vel, alive, cid = pmajor_cases.batch_particles(scene, "cpu", PM_NAMES)
+    coef, amp, tick = pmajor_cases.batch_coefs(len(PM_NAMES), scene.cell_size, "cpu")
+    nx, ny = scene.grid_nx, scene.grid_ny
+    slab = torch.func.vmap(lambda p, v, a, c, m, t: pmajor.pass_a_slab(
+        p, v, a, c, m, t, scene, symm=False))(pos, vel, alive, cid, amp, tick)
+    for chunk in pmajor.PMS_CHUNKS:
+        vm = torch.func.vmap(lambda s, c, a, k: pmajor.pms_pass(
+            s, c, pmajor.chunk_windows(c, a, nx, ny, chunk), k, "a", nx=nx, chunk=chunk))(
+            slab, cid, alive, coef)
+        want = torch.stack([pmajor.pms_pass_plain(
+            slab[b], cid[b], pmajor.chunk_windows(cid[b], alive[b], nx, ny, chunk), coef[b], "a",
+            nx=nx, chunk=chunk) for b in range(len(PM_NAMES))])
+        assert torch.equal(vm, want), chunk
+        assert float(vm[:, 3].max()) > 3
 
 
 def test_grid_plain_twins_over_the_crate_axis():
@@ -257,9 +317,9 @@ def test_gather_pair_sums_vmaps():
 
 def test_batched_crates_take_every_backend(monkeypatch):
     """BatchedCrates runs all six backends (pmajor's overflow 0); the
-    default rule is unchanged; under
-    SAND_CRATE_PMSUB=1 the pmajor batch raises, at construction and at the
-    step, rather than switching schedule."""
+    default rule is unchanged; under SAND_CRATE_PMSUB=1 the pmajor batch
+    constructs, runs 2 ticks on K10 with overflow 0, and
+    _batched_rollout takes it, equal to the batch's own ticks."""
     cfg = load_config_dict(_world(0.1))
     base = Params.from_coefficients(cfg.world_config.coefficients, "cpu")
     batched = sweep.grid_params(base, {"viscosity": VISCOSITIES[:2]})
@@ -276,16 +336,19 @@ def test_batched_crates_take_every_backend(monkeypatch):
     assert sweep.BatchedCrates(cfg, batched, capacity=1152, device="cpu").scene.forces_mode \
         == "chunked"
     assert sweep.DENSE_MAX_CAPACITY == 1024
+    monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
+    assert pmajor.schedule() == "pmsub"
     crates = sweep.BatchedCrates(cfg, batched, forces_mode="pmajor", capacity=CAPACITY,
                                  device="cpu")
-    monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
-    with pytest.raises(ValueError, match="K10"):
-        crates.run(1)
-    with pytest.raises(ValueError, match="K10"):
-        sweep.BatchedCrates(cfg, batched, forces_mode="pmajor", capacity=CAPACITY,
-                            device="cpu")
-    with pytest.raises(ValueError, match="K10"):
-        sweep._batched_rollout(crates.state, crates.params, crates.scene, 1, torch.Generator())
+    start = crates.state
+    state, rolled = sweep._batched_rollout(start, crates.params, crates.scene, 2,
+                                           torch.Generator())
+    diag = crates.run(2)
+    assert int(diag.non_finite.max()) == 0 and (crates.particle_counts() > 80).all()
+    assert int(diag.neighbor_overflow.max()) == 0 and int(rolled.neighbor_overflow.max()) == 0
+    for name, a, b in zip(CrateState._fields, state, crates.state):
+        assert torch.equal(a, b), name
+    assert not hasattr(sweep, "check_batchable")
 
 
 def test_pallas_overflow_is_each_crates_largest():

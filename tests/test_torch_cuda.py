@@ -283,7 +283,8 @@ def test_crate_axis_k1k2_bit_identical(cuda):
     scene = Crate(_world(), device=cuda).scene
     facts = pmajor_cases.batch_facts(scene, cuda)
     assert facts["holds"], facts
-    for label, run, plain, solo in pmajor_cases.batch_variants(scene, cuda):
+    variants = [v for v in pmajor_cases.batch_variants(scene, cuda) if not v[0].startswith("K10")]
+    for label, run, plain, solo in variants:
         before = dict(pmajor.LAUNCHES)
         got = run()
         mode = "a" if label.endswith("pass A") else "b"
@@ -302,6 +303,43 @@ def test_crate_axis_k1k2_bit_identical(cuda):
         slab, ranges, coef)
     assert pmajor.LAUNCHES["a"] == before + 1
     assert torch.equal(vm, run())
+
+
+@pytest.mark.cuda
+def test_crate_axis_k10_bit_identical(cuda):
+    """K10's crate-axis launch on the batched hard inputs of
+    ops/pmajor_cases.py (every case padded to one size, an empty crate;
+    coefficients, noise and ticks per crate), pass A, pass B folded and
+    pass B split with the spring at both chunk sizes: one launch a pass
+    (sub_a / sub_b), equal bit for bit to the plain version and to each
+    crate's solo launch; pms_pass vmapped over the crates launches once."""
+    scene = Crate(_world(), device=cuda).scene
+    variants = [v for v in pmajor_cases.batch_variants(scene, cuda) if v[0].startswith("K10")]
+    assert len(variants) == 3 * len(pmajor.PMS_CHUNKS)
+    for label, run, plain, solo in variants:
+        key = "sub_a" if label.endswith("pass A") else "sub_b"
+        before = dict(pmajor.LAUNCHES)
+        got = run()
+        assert pmajor.LAUNCHES == {**before, key: before[key] + 1}, label
+        assert torch.equal(got, plain()), label
+        assert torch.equal(got, solo()), label
+    pos, vel, alive, cid = pmajor_cases.batch_particles(scene, cuda)
+    coef, amp, tick = pmajor_cases.batch_coefs(cid.shape[0], scene.cell_size, cuda)
+    nx, ny = scene.grid_nx, scene.grid_ny
+    slab = torch.func.vmap(lambda p, v, a, c, m, t: pmajor.pass_a_slab(
+        p, v, a, c, m, t, scene, symm=False))(pos, vel, alive, cid, amp, tick)
+    for chunk in pmajor.PMS_CHUNKS:
+        win = torch.func.vmap(lambda c, a: pmajor.chunk_windows(c, a, nx, ny, chunk))(cid, alive)
+        before = pmajor.LAUNCHES["sub_a"]
+        vm = torch.func.vmap(lambda s, c, w, k: pmajor.pms_pass(s, c, w, k, "a", nx=nx,
+                                                                chunk=chunk))(slab, cid, win, coef)
+        assert pmajor.LAUNCHES["sub_a"] == before + 1
+        assert torch.equal(vm, pmajor.pms_pass_crates(slab, cid, win, coef, "a", nx=nx,
+                                                      chunk=chunk))
+    with pytest.raises(ValueError):  # one coefficient row for every crate
+        pmajor.pms_pass_crates(slab, cid, win, coef[:1], "a", nx=nx, chunk=128)
+    with pytest.raises(ValueError):  # the windows of one crate
+        pmajor.pms_pass_crates(slab, cid, win[0], coef, "a", nx=nx, chunk=128)
 
 
 @pytest.mark.cuda

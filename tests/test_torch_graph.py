@@ -206,11 +206,16 @@ def test_state_assignment_copies_into_the_buffers():
         crate.state = crate.state._replace(pos=crate.state.pos[:-1])
 
 
-@pytest.mark.parametrize("mode", MODES + ("gather",))  # cellwise: seconds a CPU tick here
-def test_batched_body_equals_vmapped_loop(mode):
+# cellwise: seconds a CPU tick here
+@pytest.mark.parametrize("mode", MODES + ("gather", "pmajor_pmsub"))
+def test_batched_body_equals_vmapped_loop(mode, monkeypatch):
     """BatchedCrates.run (the vmapped tick on static buffers, the overflow's
     running max in a static buffer reset each run) == a plain loop of the
-    vmapped step with the run's live_rows, bit for bit."""
+    vmapped step with the run's live_rows, bit for bit ("pmajor_pmsub":
+    pmajor under SAND_CRATE_PMSUB=1)."""
+    if mode.endswith("pmsub"):
+        monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
+        mode = "pmajor"
     raw = copy.deepcopy(load_config(REPO / "configs" / "stirring_cup.yaml").raw)
     raw["world"]["coefficients"]["max_particles"] = 128
     config = load_config_dict(raw)
@@ -314,11 +319,16 @@ def test_new_key_captures_anew_and_graphs_are_bounded(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", MODES + ("cellwise", "gather"))
-def test_batched_replay_equals_eager_on_the_card(cuda, mode):
+@pytest.mark.parametrize("mode", MODES + ("cellwise", "gather", "pmajor_pmsub"))
+def test_batched_replay_equals_eager_on_the_card(cuda, mode, monkeypatch):
     """BatchedCrates.run replays the captured vmapped tick: == the eager
     vmapped loop bit for bit, the overflow's running max included; the
-    p-major and slot-grid passes launch once a tick for the whole batch."""
+    p-major (K1/K2, or K10 under SAND_CRATE_PMSUB=1) and slot-grid passes
+    launch once a tick for the whole batch."""
+    pmsub = mode.endswith("pmsub")
+    if pmsub:
+        monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
+        mode = "pmajor"
     raw = copy.deepcopy(load_config(REPO / "configs" / "stirring_cup.yaml").raw)
     config = load_config_dict(raw)
     base = Params.from_coefficients(config.world_config.coefficients, cuda)
@@ -333,7 +343,7 @@ def test_batched_replay_equals_eager_on_the_card(cuda, mode):
     diag = batch.run(10)
     fresh = int(mode == "chunked")  # a new sweep bound captures anew
     assert graphs.LAUNCHES == {"replay": 10 - fresh, "capture": fresh}
-    want = {"pmajor": {"a": 10, "b": 10}}.get(mode, {})
+    want = {"pmajor": {"sub_a": 10, "sub_b": 10} if pmsub else {"a": 10, "b": 10}}.get(mode, {})
     assert {k: v for k, v in pmajor.LAUNCHES.items() if v} == want
     grid = {"pallas": {"pair_pass_a": 10, "pair_pass_b_emit": 10}}.get(mode, {})
     assert {k: v for k, v in pair_kernel.LAUNCHES.items() if v} == grid

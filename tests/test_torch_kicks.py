@@ -12,10 +12,13 @@ equals fused bit for bit; ``torch.func.vmap`` of the update (the plain
 version, and the operator's path through its vmap rule) equals each crate
 alone bit for bit; the positions-only ghost pass equals the full pass's
 position bit for bit and the JAX package's ``_ghost_core`` position at the
-same tolerance.
+same tolerance; the seven per-kick functions ``physics.apply_*`` against
+the JAX package's at that tolerance (velocity and mean |dv|), and against
+the plain update of their single stage bit for bit.
 
 ``cuda``-marked tests (skipped without a card) hold ``kick_kernel`` of
-csrc/kick.cu, fused and a stage at a time, and ``ghost_kernel<false>`` to
+csrc/kick.cu, fused and a stage at a time (``physics.apply_*`` too: one
+launch each), and ``ghost_kernel<false>`` to
 their plain versions bit for bit on the hard cases and on a random 1M
 state, and vmapped with one launch (a captured tick replaying them:
 tests/test_torch_boundary.py).  This module
@@ -214,6 +217,39 @@ def test_operator_vmap_rule_takes_unbatched_operands():
                    f"crate {b}")
 
 
+APPLY = sorted(kick_cases.APPLY)
+
+
+def _jax_apply(name, c):
+    """(the JAX package's apply_<name>, its arguments) on the solo case c."""
+    import jax.numpy as jnp
+
+    from sand_crate_tpu import physics as jphys
+    from sand_crate_tpu.cellwise import PairSums as JaxPairSums
+
+    t = {k: jnp.asarray(v.numpy()) for k, v in c.items() if isinstance(v, torch.Tensor)}
+    return getattr(jphys, "apply_" + name), kick_cases.apply_arguments(
+        name, t, JaxPairSums, jphys.GhostInfo, jnp.zeros((), jnp.int32))
+
+
+@pytest.mark.parametrize("name", APPLY)
+def test_apply_functions_match_jax(name):
+    """physics.apply_<name> on every case's crates: the JAX package's
+    apply_<name> at the file's tolerance (velocity and mean |dv| over the
+    alive slots), and the plain update of its single stage bit for bit."""
+    for case in CASES:
+        for b, c in enumerate(_crates(case)):
+            fn, args = kick_cases.apply_call(name, c)
+            vel, mean = fn(*args)
+            jfn, jargs = _jax_apply(name, c)
+            jvel, jmean = jfn(*jargs)
+            for k, (g, r) in enumerate(((vel, jvel), (mean, jmean))):
+                np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL,
+                                           err_msg=f"{name} {case} crate {b} [{k}]")
+            _same_bits((vel, mean), kick_cases.apply_plain(name, c),
+                       f"{name} {case} crate {b} vs plain")
+
+
 def test_other_devices_raise():
     c = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v)
          for k, v in kick_cases.inputs("one", "cpu").items()}
@@ -369,6 +405,24 @@ def test_ghost_pos_kernel_bit_identical_to_plain(cuda, case):
         _same_bits(boundary.ghost_pos(*_ghost_pos_args(c)),
                    boundary.ghost_pass(*boundary_cases.ghost_args(c))[0], f"{case} vs full")
     assert boundary.LAUNCHES["ghost_pos"] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", APPLY)
+def test_apply_functions_launch_the_kernel_once(cuda, name):
+    """physics.apply_<name> on the card, on every solo hard case: one
+    launch of the update kernel of its launch kind, bit for bit the plain
+    update of its single stage."""
+    kind = kick.launch_kind(kick_cases.APPLY[name][0])
+    for case in CASES:
+        if case == "batch":
+            continue
+        c = kick_cases.inputs(case, cuda)
+        fn, args = kick_cases.apply_call(name, c)
+        before = dict(kick.LAUNCHES)
+        got = fn(*args)
+        assert kick.LAUNCHES == {**before, kind: before[kind] + 1}, case
+        _same_bits(got, kick_cases.apply_plain(name, c), f"{name} {case}")
 
 
 @pytest.mark.cuda

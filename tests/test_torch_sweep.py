@@ -283,10 +283,10 @@ def test_run_vmapped_sweep_prints_every_variant(capsys):
 
 
 def test_errors_and_the_card_default(monkeypatch):
-    """Every backend vmaps, but K10 takes no crate axis: under
-    SAND_CRATE_PMSUB=1 BatchedCrates refuses pmajor rather than switching
-    schedule.  The sweep entry points run on the card unless the caller
-    asks for the CPU, and raise without one."""
+    """Every backend vmaps, pmajor under SAND_CRATE_PMSUB=1 too (K10 takes
+    a crate axis): BatchedCrates constructs and runs 2 ticks with overflow
+    0.  The sweep entry points run on the card unless the caller asks for
+    the CPU, and raise without one."""
     cfg = _stirring_cup(max_particles=32)
     base = Params.from_coefficients(cfg.world_config.coefficients, "cpu")
     batched = sweep.stack_params([base, base])
@@ -294,8 +294,8 @@ def test_errors_and_the_card_default(monkeypatch):
         assert sweep.BatchedCrates(cfg, batched, forces_mode=mode,
                                    device="cpu").scene.forces_mode == mode
     monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
-    with pytest.raises(ValueError, match="K10"):
-        sweep.BatchedCrates(cfg, batched, forces_mode="pmajor", device="cpu")
+    diag = sweep.BatchedCrates(cfg, batched, forces_mode="pmajor", device="cpu").run(2)
+    assert int(diag.neighbor_overflow.max()) == 0 and int(diag.non_finite.max()) == 0
     monkeypatch.delenv("SAND_CRATE_PMSUB")
     with pytest.raises(ValueError, match="num_ticks"):
         sweep.BatchedCrates(cfg, batched, device="cpu").run(0)
