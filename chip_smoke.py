@@ -1102,7 +1102,7 @@ def phase_tables(label: str, smi: str, inst, ticks: int = INSTRUMENT_TICKS) -> d
         state, _ = instrumented_tick(state, inst.params, inst.scene, inst.generator, eager)
     same_bits(f"(f) {label}: replayed phases vs the eager instrumented_tick", inst.state, state)
     check(torch.equal(inst.generator.get_state(), g1), f"(f) {label}: generator state")
-    check(calls == {"replay": len(replayed.times) * ticks, "capture": 0},
+    check(calls == {"replay": len(replayed.times) * ticks, "capture": 0, "evict": 0},
           f"(f) {label}: graph calls {calls}")
     print(f"  (f) {label} on {smi}: PhaseTimer medians over {ticks} ticks, replayed phases "
           f"(one graph each) / eager instrumented_tick, ms; state == bit for bit, graph calls "
@@ -4547,7 +4547,7 @@ def replay_vs_eager(label: str, crate, ticks: int, edit=None, want_launches=None
           f"{label}: the generator advanced otherwise than eagerly")
     same_bits(label, crate.state, st)
     same_bits(label + " (diagnostics)", diag, want_diag)
-    check(graph_calls == {"replay": ticks, "capture": 0},
+    check(graph_calls == {"replay": ticks, "capture": 0, "evict": 0},
           f"{label}: graph calls {graph_calls} (a replay a tick, no capture after the edit)")
     want = dict.fromkeys(launches, 0)
     want.update(want_launches or {})
@@ -4868,8 +4868,8 @@ def band_graph_cell(label, smi, group, world, settled, params, kw, rebalance, co
     reset(graphs.LAUNCHES)
     split, stats = band(split, *args)
     torch.cuda.synchronize()
-    check(graphs.LAUNCHES == {"replay": 0, "capture": 1}, f"(p) {label}: first call "
-          f"{graphs.LAUNCHES}")
+    check((graphs.LAUNCHES["replay"], graphs.LAUNCHES["capture"]) == (0, 1),
+          f"(p) {label}: first call {graphs.LAUNCHES}")
     peak = (torch.cuda.max_memory_allocated() - alloc0) / 2**30
     torch.cuda.empty_cache()  # a graph's private pool stays reserved
     kept = (torch.cuda.memory_reserved() - reserved0) / 2**30
@@ -4894,7 +4894,8 @@ def band_graph_cell(label, smi, group, world, settled, params, kw, rebalance, co
     for g, st in zip(band.generators.values(), g_replayed):
         check(torch.equal(g.get_state(), st), f"(p) {label}: a shard generator advanced "
                                               "otherwise than eagerly")
-    check(calls == {"replay": GRAPH_TICKS, "capture": 0}, f"(p) {label}: graph calls {calls}")
+    check(calls == {"replay": GRAPH_TICKS, "capture": 0, "evict": 0},
+          f"(p) {label}: graph calls {calls}")
     want_launches = dict.fromkeys(launches, 0)
     want_launches.update({k: D * GRAPH_TICKS for k in counters})
     want_launches.update(boundary_want(GRAPH_TICKS, "band", D))

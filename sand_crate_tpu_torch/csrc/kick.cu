@@ -426,3 +426,31 @@ extern "C" int sc_velocity_update(const KickArgs* args, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (a.stages & kSpring) ? launch<true>(a, s) : launch<false>(a, s);
 }
+
+// Stage marks of the tick (ops/stage_mark.py): an empty kernel a stage end,
+// launched on the tick's stream, so a device trace splits a replayed tick
+// (which has no host frames) into its stages by the marks' names.  Each
+// stage is a type, so the trace names it: stage_mark_kernel<stage::sort>.
+namespace stage {
+struct lifecycle;
+struct sort;
+struct pairs;
+struct tick;
+}  // namespace stage
+
+template <class S>
+__global__ void stage_mark_kernel() {}
+
+// Launch stage `which` (0 lifecycle, 1 sort, 2 pairs, 3 tick) on `stream`;
+// returns cudaGetLastError().
+extern "C" int sc_stage_mark(int which, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (which) {
+    case 0: stage_mark_kernel<stage::lifecycle><<<1, 1, 0, s>>>(); break;
+    case 1: stage_mark_kernel<stage::sort><<<1, 1, 0, s>>>(); break;
+    case 2: stage_mark_kernel<stage::pairs><<<1, 1, 0, s>>>(); break;
+    case 3: stage_mark_kernel<stage::tick><<<1, 1, 0, s>>>(); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

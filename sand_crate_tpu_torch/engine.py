@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from .config import COEFFICIENT_NAMES, Config, WorldConfig
-from .diagnostics import ForceMonitor, PhaseTimer, yaml_block
+from .diagnostics import (FRAMES, ForceMonitor, PhaseTimer, host_read, next_unit, span,
+                          yaml_block)
 from .graphs import StepGraph, clone
 from .instrument import PhaseGraphs
 from .physics import step
@@ -55,6 +56,8 @@ from .recording import load_checkpoint, save_checkpoint
 from .scene import build_scene, init_state
 from .state import FORCE_LABELS, Diagnostics, Params, resolve_device
 
+# The read counters' sites of the state views (diagnostics.host_read).
+_READ_SITES = {f: "engine." + f for f in ("alive", "pos", "vel", "pressure", "segments")}
 
 class Crate:
     """The reference Crate (crate.py:19-371) on the PyTorch port."""
@@ -140,6 +143,7 @@ class Crate:
         # Called only when normal lookup fails: map coefficient names to params.
         if name in COEFFICIENT_NAMES:
             params = object.__getattribute__(self, "params")
+            host_read("engine.coefficient")
             value = getattr(params, name).cpu().numpy()
             return value if value.ndim else value.item()
         raise AttributeError(name)
@@ -198,36 +202,45 @@ class Crate:
 
     @property
     def diameter(self) -> float:
+        host_read("engine.diameter")
         return 2.0 * float(self.params.particle_radius)
 
     # -- state views (playback read contract, playback.py:77-81) -------------
 
+    def _host(self, name: str) -> np.ndarray:
+        """The state's field ``name`` read back to the host."""
+        host_read(_READ_SITES[name])
+        return getattr(self.state, name).cpu().numpy()
+
     def _alive_np(self) -> np.ndarray:
-        return self.state.alive.cpu().numpy()
+        return self._host("alive")
 
     @property
     def particles(self) -> np.ndarray:
-        return self.state.pos.cpu().numpy()[self._alive_np()]
+        return self._host("pos")[self._alive_np()]
 
     @property
     def particle_velocities(self) -> np.ndarray:
-        return self.state.vel.cpu().numpy()[self._alive_np()]
+        return self._host("vel")[self._alive_np()]
 
     @property
     def particles_pressure(self) -> np.ndarray:
-        return self.state.pressure.cpu().numpy()[self._alive_np()]
+        return self._host("pressure")[self._alive_np()]
 
     @property
     def segments(self) -> np.ndarray:
+        host_read("engine.seg_valid")
         valid = self.scene.seg_valid.cpu().numpy()
-        return self.state.segments.cpu().numpy()[valid]
+        return self._host("segments")[valid]
 
     @property
     def particle_count(self) -> int:
+        host_read("engine.particle_count")
         return int(self.state.particle_count)
 
     @property
     def tick(self) -> int:
+        host_read("engine.tick")
         return int(self.state.tick)
 
     # -- stepping -------------------------------------------------------------
@@ -238,17 +251,28 @@ class Crate:
         With ``instrument=True`` the tick runs as timed phases (on the
         card a replay of each phase's graph over the crate's buffers), so
         ``debug_timer`` shows the reference-style per-phase breakdown
-        (crate.py:97-124) in the overlay; the default is the whole step."""
+        (crate.py:97-124) in the overlay; the default is the whole step.
+        Spans (diagnostics.span): ``tick.launch``, ``tick.readback``,
+        ``tick.monitor``, ``tick.prints``.  A tick makes 19 synchronising
+        reads (diagnostics.READS): ``force_dv``, the tick, 4 diagnostics
+        scalars and the 13 coefficients of the overlay."""
+        next_unit()
         if self.instrument:
-            diag = self.phases.step(self.scene, self.generator, self.debug_timer)
-            force_dv = diag.force_dv.cpu().numpy()
-        else:
-            with self.debug_timer("Step"):
-                diag = self.graph.step(self.scene, self.generator)
-            with self.debug_timer("Sync"):
+            with span("tick.launch"):
+                diag = self.phases.step(self.scene, self.generator, self.debug_timer)
+            with span("tick.readback"):
+                host_read("engine.force_dv")
                 force_dv = diag.force_dv.cpu().numpy()
-        self.force_monitor.update(force_dv)
-        self.set_debug_prints(diag)
+        else:
+            with self.debug_timer("Step", "tick.launch"):
+                diag = self.graph.step(self.scene, self.generator)
+            with self.debug_timer("Sync", "tick.readback"):
+                host_read("engine.force_dv")
+                force_dv = diag.force_dv.cpu().numpy()
+        with span("tick.monitor"):
+            self.force_monitor.update(force_dv)
+        with span("tick.prints"):
+            self.set_debug_prints(diag)
         if self.velocity_arrows_every:
             self.update_velocity_arrows(self.velocity_arrows_every)
 
@@ -264,12 +288,19 @@ class Crate:
         """Advance ``num_ticks`` on the device (on the card, ``num_ticks``
         replays of the crate's graph: one program, no host work between
         ticks); reads the last tick's diagnostics back once, at the end,
-        and returns a copy of them."""
-        for _ in range(num_ticks):
-            diag = self.graph.step(self.scene, self.generator)
-        diag = clone(diag)
-        self.force_monitor.update(diag.force_dv.cpu().numpy())
-        self.set_debug_prints(diag)
+        and returns a copy of them.  Spans: ``run.launch``, ``run.readback``,
+        ``run.prints``."""
+        next_unit()
+        with span("run.launch"):
+            for _ in range(num_ticks):
+                diag = self.graph.step(self.scene, self.generator)
+            diag = clone(diag)
+        with span("run.readback"):
+            host_read("engine.force_dv")
+            force_dv = diag.force_dv.cpu().numpy()
+        self.force_monitor.update(force_dv)
+        with span("run.prints"):
+            self.set_debug_prints(diag)
         return diag
 
     def stream_frames(
@@ -286,7 +317,14 @@ class Crate:
         pinned host memory on a side stream, behind an event recorded after
         the chunk's frame copies, and the next chunk is dispatched before
         the previous one's frames are waited for and yielded, so recording
-        never stalls the step loop.  On the CPU the same ticks run eagerly."""
+        never stalls the step loop.  On the CPU the same ticks run eagerly.
+
+        Spans: ``frames.dispatch`` (a chunk's replays and frame copies
+        enqueued), ``frames.copy_issue`` (its copies to pinned memory
+        enqueued), ``frames.wait`` (the wait for the chunk before it) and
+        ``frames.yield`` (one a frame: its host views made; the consumer's
+        own time lies outside every span).  Each frame is a unit;
+        diagnostics.FRAMES counts the frames and bytes."""
         cuda = self.state.pos.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.state.pos.device) if cuda else None
         pending = None  # (host frames, copy-done event, device frames) of a chunk
@@ -296,29 +334,37 @@ class Crate:
             if frames_left > 0:
                 n = min(chunk_frames, frames_left)
                 frames_left -= n
-                frames = self.graph.frames(self.scene, self.generator, n, ticks_per_frame)
+                with span("frames.dispatch"):
+                    frames = self.graph.frames(self.scene, self.generator, n, ticks_per_frame)
+                FRAMES["frames"] += n
+                FRAMES["bytes"] += sum(v.nbytes for v in frames.values())
                 if cuda:
-                    computed = torch.cuda.Event()
-                    computed.record()
-                    with torch.cuda.stream(copy_stream):
-                        copy_stream.wait_event(computed)
-                        host = {
-                            k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
-                                v, non_blocking=True)
-                            for k, v in frames.items()
-                        }
-                        done = torch.cuda.Event()
-                        done.record(copy_stream)
+                    with span("frames.copy_issue"):
+                        computed = torch.cuda.Event()
+                        computed.record()
+                        with torch.cuda.stream(copy_stream):
+                            copy_stream.wait_event(computed)
+                            host = {
+                                k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
+                                    v, non_blocking=True)
+                                for k, v in frames.items()
+                            }
+                            done = torch.cuda.Event()
+                            done.record(copy_stream)
                     # The device frames stay referenced until the copy is done.
                     ready = (host, done, frames)
                 else:
                     ready = (frames, None, None)
             if pending is not None:
                 host, done, _ = pending
-                if done is not None:
-                    done.synchronize()
+                with span("frames.wait"):
+                    if done is not None:
+                        done.synchronize()
                 for i in range(host["pos"].shape[0]):
-                    yield {k: v[i].numpy() for k, v in host.items()}
+                    next_unit()
+                    with span("frames.yield"):
+                        frame = {k: v[i].numpy() for k, v in host.items()}
+                    yield frame
             pending = ready
 
     def save_checkpoint(self, path) -> Path:
@@ -352,11 +398,18 @@ class Crate:
     def set_debug_prints(self, diag=None) -> None:
         """Same overlay text layout as the reference (crate.py:131-136)."""
         text = f"Tick: {self.tick}\n"
-        count = int(diag.particle_count) if diag is not None else self.particle_count
+        if diag is not None:
+            host_read("engine.particle_count")
+            count = int(diag.particle_count)
+        else:
+            count = self.particle_count
         text += f"Particles: {count}\n"
         if diag is not None:
+            host_read("engine.non_finite")
             bad = int(diag.non_finite)
+            host_read("engine.neighbor_overflow")
             dropped = int(diag.neighbor_overflow)
+            host_read("engine.spawn_truncated")
             truncated = int(diag.spawn_truncated)
             if bad:
                 text += f"WARNING non-finite particles: {bad}\n"
@@ -366,13 +419,15 @@ class Crate:
                 text += f"emission truncated: {truncated}\n"
         text += self.debug_timer.report()
         text += f"\n\n{self.force_monitor.report()}"
-        text += f"\n\n{self.get_coefficient_debug()}"
+        with span("tick.prints.coefficients"):
+            text += f"\n\n{self.get_coefficient_debug()}"
         self.debug_prints = text
 
     def get_coefficient_debug(self) -> str:
         """Live coefficient dump (crate.py:367-371)."""
         items = []
         for name in self.editable_coefficients():
+            host_read("engine.coefficients")
             v = getattr(self.params, name).cpu().numpy()
             items.append({name: v.tolist() if v.ndim else v.item()})
         return yaml_block(items)

@@ -51,9 +51,15 @@ eagerly: the ticks, each copied back into the static buffers; nothing is
 captured.  A capture that fails raises.
 
 The kernel wrappers count a launch where they launch (``pmajor.LAUNCHES``,
-``pair_kernel.LAUNCHES``, ``boundary.LAUNCHES``, ``kick.LAUNCHES``).  A capture launches
+``pair_kernel.LAUNCHES``, ``boundary.LAUNCHES``, ``kick.LAUNCHES``,
+``pair_batch.LAUNCHES``, the stage marks' ``stage_mark.LAUNCHES``).  A capture launches
 nothing, so each counter's rise over the capture is taken back and added
 once per replay instead: the counters go on counting kernels that ran.
+:data:`LAUNCHES` counts replays, captures and evictions; a capture (its
+warm-up and record) is the span ``graph.capture`` and an eviction
+``graph.evict`` (``diagnostics.span``).  :class:`StepGraph` marks the end
+of each tick on the stream (``stage_mark``: ``tick``) after the copy into
+the static state.
 """
 
 from __future__ import annotations
@@ -64,7 +70,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .ops import boundary, kick, pair_batch, pair_kernel, pmajor
+from . import diagnostics
+from .ops import boundary, kick, pair_batch, pair_kernel, pmajor, stage_mark
 from .state import CrateState, Diagnostics, Params
 
 # Captured graphs alive at once in the process.
@@ -74,9 +81,10 @@ MAX_ROLLOUT_BUFFERS = 4
 
 # The kernel launch counters that a replay advances by their capture's rise.
 COUNTERS = (pmajor.LAUNCHES, pair_kernel.LAUNCHES, boundary.LAUNCHES, kick.LAUNCHES,
-            pair_batch.LAUNCHES)
-# Graph launches (one cudaGraphLaunch each) and captures since the last reset.
-LAUNCHES = {"replay": 0, "capture": 0}
+            pair_batch.LAUNCHES, stage_mark.LAUNCHES)
+# Graph launches (one cudaGraphLaunch each), captures, and graphs evicted to
+# make room for a capture, since the last reset.
+LAUNCHES = {"replay": 0, "capture": 0, "evict": 0}
 
 # The frame fields of a trajectory, taken from the state after each frame.
 FRAME_FIELDS = ("pos", "alive", "pressure", "segments")
@@ -150,8 +158,10 @@ def _evict(keep: int) -> None:
     while len(_LIVE) > keep:
         (_, key), ref = _LIVE.popitem(last=False)
         owner = ref()
-        if owner is not None:
-            owner._graphs.pop(key, None)
+        if owner is not None and key in owner._graphs:
+            with diagnostics.span("graph.evict"):
+                del owner._graphs[key]
+            LAUNCHES["evict"] += 1
 
 
 def warm_up(device, body):
@@ -246,8 +256,9 @@ class GraphSet:
         if cap is not None:
             return launch(cap)
         self._make_room()
-        out = warm_up(self.device, body)
-        self._keep(key, record(self.device, body, generators, pins))
+        with diagnostics.span("graph.capture"):
+            out = warm_up(self.device, body)
+            self._keep(key, record(self.device, body, generators, pins))
         return out
 
 
@@ -300,6 +311,7 @@ class StepGraph(GraphSet):
             copy_into(self.state, new)
             if self.worst is not None:
                 torch.maximum(self.worst, diag.neighbor_overflow, out=self.worst)
+            stage_mark.mark(self.state.tick, "tick")
         if self.worst is not None:
             diag = diag._replace(neighbor_overflow=self.worst)
         return diag

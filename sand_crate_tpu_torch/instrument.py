@@ -27,7 +27,7 @@ from typing import Callable
 
 import torch
 
-from . import graphs, physics
+from . import diagnostics, graphs, physics
 from .ops import kick, pmajor
 from .state import NUM_FORCES, CrateState, Diagnostics, Params, Scene
 
@@ -174,8 +174,9 @@ class PhaseGraphs(graphs.GraphSet):
         caps = self._lookup(key)
         if caps is None:
             self._make_room()
-            diag = graphs.warm_up(dev, lambda: self._eager(scene, generator, timer))
-            self._keep(key, self._capture(scene, generator))
+            with diagnostics.span("graph.capture"):
+                diag = graphs.warm_up(dev, lambda: self._eager(scene, generator, timer))
+                self._keep(key, self._capture(scene, generator))
             return diag
         for name, cap in caps:
             with timer(name):

@@ -56,6 +56,7 @@ from .ops import boundary, kick, pair_batch
 from .ops.chunked import neighbor_forces_chunked_sorted
 from .ops.pallas_forces import neighbor_forces_pallas_sorted
 from .ops.pmajor import neighbor_forces_pmajor_sorted
+from .ops.stage_mark import mark
 from .state import NUM_FORCES, CrateState, Diagnostics, Params, Scene
 
 EPS = 1e-12
@@ -389,7 +390,8 @@ def neighbor_stage(
     ``alive == sorted_cid < NC``.  The dense and gather backends keep slot
     order.  Dense and cellwise draw their collider noise, one (P, 2)
     uniform array, from ``generator``; gather draws one per directed edge.
-    ``live_rows`` bounds the chunked sweep (ops/chunked.py)."""
+    ``live_rows`` bounds the chunked sweep (ops/chunked.py).  The sorted
+    backends mark the end of their sort (ops/stage_mark.py)."""
     diam = params.diameter
     if scene.forces_mode in SLOT_ORDER_MODES:
         if scene.forces_mode == "gather":
@@ -409,6 +411,7 @@ def neighbor_stage(
     ghost = _ghost_core(
         prepos, alive, segments, body_lin_vel, body_ang_vel, params, scene
     )
+    mark(tick, "sort")
     args = (
         ghost.pos,
         vel,
@@ -496,7 +499,9 @@ def step(
     noise.  ``live_rows`` is the chunked backend's sweep bound for batched
     crates, an upper bound on this crate's alive count that is the same for
     every crate of a vmapped batch (ops/chunked.py; other backends ignore
-    it); sweep.BatchedCrates computes it for each ``run``."""
+    it); sweep.BatchedCrates computes it for each ``run``.  The ends of
+    the lifecycle, the sort and the pair stage are marked on the stream
+    (ops/stage_mark.py; the tick's own end is marked by graphs.StepGraph)."""
     # -- lifecycle ---------------------------------------------------------
     state, spawn_truncated = spawn_particles(state, params, scene, generator)
     state = cull_particles(state, params)
@@ -504,6 +509,7 @@ def step(
 
     # -- boundary ghosts + hard wall (crate.py:97-99) ------------------------
     ghost = ghost_phase(state, params, scene)
+    mark(state.tick, "lifecycle")
 
     # -- cell sort + pair sums (crate.py:102-108, 161-358) --------------------
     ops = neighbor_stage(
@@ -512,6 +518,7 @@ def step(
         body_lin_vel=state.body_lin_vel, body_ang_vel=state.body_ang_vel,
         generator=generator, live_rows=live_rows,
     )
+    mark(state.tick, "pairs")
 
     # -- kicks, wall bounce, CCD and integrate (crate.py:109-129, 177-200) ------
     # ops/kick.py: the kicks (tension, gravity, pressure, the spring when the

@@ -29,10 +29,19 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from .diagnostics import host_read
 from .state import CrateState, Params, params_from_numpy, state_from_numpy
 
 FRAME_KEYS = ("pos", "alive", "pressure", "segments")
 TRAJECTORY_FORMAT = "sand_crate_tpu/trajectory/v1"
+
+
+def _to_host(x) -> np.ndarray:
+    """A frame field as a fresh host array (a tensor copied back)."""
+    if isinstance(x, torch.Tensor):
+        host_read("recording.frame")
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.asarray(x)
 
 
 class TrajectoryWriter:
@@ -49,12 +58,9 @@ class TrajectoryWriter:
     def append(self, frame: dict) -> None:
         """Add one frame dict (pos (P,2), alive (P,), pressure (P,), segments)
         of numpy arrays or tensors (copied to the host: a tensor may be a
-        static buffer that the next tick overwrites)."""
-        self._buffer.append({
-            k: (frame[k].detach().to("cpu", copy=True).numpy()
-                if isinstance(frame[k], torch.Tensor) else np.asarray(frame[k]))
-            for k in FRAME_KEYS if k in frame
-        })
+        static buffer that the next tick overwrites; each tensor is one
+        read in diagnostics.READS)."""
+        self._buffer.append({k: _to_host(frame[k]) for k in FRAME_KEYS if k in frame})
         self._frames += 1
         if len(self._buffer) >= self.shard_frames:
             self._flush()

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .config import Config
+from .diagnostics import host_read, next_unit, span
 from .graphs import StepGraph, clone, rollout_graph
 from .physics import step
 from .recording import TrajectoryWriter
@@ -161,8 +162,12 @@ class BatchedCrates:
         if self.scene.forces_mode != "chunked":
             return None
         sc = self.scene
+        host_read("sweep.alive_count")
         cur = int(self.state.alive.sum(dim=1).max())
-        exp = float(sc.src_flow.sum()) * float(self.params.dt.max()) * num_ticks
+        host_read("sweep.src_flow")
+        flow = float(sc.src_flow.sum())
+        host_read("sweep.dt")
+        exp = flow * float(self.params.dt.max()) * num_ticks
         slack = min(int(exp + 6.0 * exp**0.5 + 16), num_ticks * sc.num_sources * sc.max_spawn)
         return min(sc.capacity, cur + slack)
 
@@ -172,19 +177,27 @@ class BatchedCrates:
         the call's ticks (a static running max, reset here): on pallas the
         alive particles past their cell's capacity, on pmajor 0 (its ranges
         are exact).  The sweep bound ``live_rows`` is computed once per
-        call, and a new bound captures the tick anew."""
+        call, and a new bound captures the tick anew.  Spans
+        (diagnostics.span): ``batch.live_rows``, ``batch.launch``,
+        ``batch.clone``."""
         if num_ticks < 1:
             raise ValueError(f"num_ticks must be at least 1, got {num_ticks}")
-        live_rows = self.live_rows(num_ticks)
-        self.graph.reset_overflow()
-        for _ in range(num_ticks):
-            diag = self.graph.step(self.scene, self.generator, live_rows)
-        return clone(diag)
+        next_unit()
+        with span("batch.live_rows"):
+            live_rows = self.live_rows(num_ticks)
+        with span("batch.launch"):
+            self.graph.reset_overflow()
+            for _ in range(num_ticks):
+                diag = self.graph.step(self.scene, self.generator, live_rows)
+        with span("batch.clone"):
+            return clone(diag)
 
     def particle_counts(self) -> np.ndarray:
+        host_read("sweep.particle_counts")
         return self.state.alive.sum(dim=1).cpu().numpy()
 
     def positions(self) -> np.ndarray:
+        host_read("sweep.positions")
         return self.state.pos.cpu().numpy()
 
 
@@ -268,7 +281,9 @@ def run_datagen(
         st = crates.state
         writer.append(dict(pos=st.pos, alive=st.alive, pressure=st.pressure,
                            segments=st.segments))
+        host_read("sweep.neighbor_overflow")
         overflow = max(overflow, int(diag.neighbor_overflow.max()))
+        host_read("sweep.non_finite")
         non_finite = max(non_finite, int(diag.non_finite.max()))
         print(f"datagen frame {i + 1}/{n_frames} (tick {(i + 1) * sample_every})")
     path = writer.close(meta={"crates": n_crates, "sample_every": sample_every})

@@ -281,7 +281,7 @@ def test_replay_equals_eager_on_the_card(cuda, mode):
     crate.run(5)
     crate.viscosity = 2.5
     diag = crate.run(5)
-    assert graphs.LAUNCHES == {"replay": 10, "capture": 0}
+    assert graphs.LAUNCHES == {"replay": 10, "capture": 0, "evict": 0}
     want = {"pmajor": {"a": 10, "b": 10}}.get(mode, {})
     assert {k: v for k, v in pmajor.LAUNCHES.items() if v} == want
     grid = {"pallas": {"pair_pass_a": 10, "pair_pass_b_emit": 10}}.get(mode, {})
@@ -304,18 +304,19 @@ def test_new_key_captures_anew_and_graphs_are_bounded(cuda, monkeypatch):
     _reset_counts()
     monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
     crate.run(3)
-    assert graphs.LAUNCHES == {"replay": 2, "capture": 1}
+    assert (graphs.LAUNCHES["replay"], graphs.LAUNCHES["capture"]) == (2, 1)
     assert pmajor.LAUNCHES == {"a": 0, "b": 0, "sub_a": 3, "sub_b": 3}
     monkeypatch.delenv("SAND_CRATE_PMSUB")
     crate.run(2)
-    assert graphs.LAUNCHES == {"replay": 4, "capture": 1}
+    assert (graphs.LAUNCHES["replay"], graphs.LAUNCHES["capture"]) == (4, 1)
     others = [Crate(dam_break_world(3000), seed=i, device=cuda) for i in range(graphs.MAX_GRAPHS)]
     for other in others:
         other.run(1)
     assert not crate.graph._graphs
     _reset_counts()
     crate.run(2)
-    assert graphs.LAUNCHES == {"replay": 1, "capture": 1}
+    # the capture evicts the least recently used of the MAX_GRAPHS live graphs
+    assert graphs.LAUNCHES == {"replay": 1, "capture": 1, "evict": 1}
 
 
 @pytest.mark.cuda
@@ -342,7 +343,7 @@ def test_batched_replay_equals_eager_on_the_card(cuda, mode, monkeypatch):
     _reset_counts()
     diag = batch.run(10)
     fresh = int(mode == "chunked")  # a new sweep bound captures anew
-    assert graphs.LAUNCHES == {"replay": 10 - fresh, "capture": fresh}
+    assert (graphs.LAUNCHES["replay"], graphs.LAUNCHES["capture"]) == (10 - fresh, fresh)
     want = {"pmajor": {"sub_a": 10, "sub_b": 10} if pmsub else {"a": 10, "b": 10}}.get(mode, {})
     assert {k: v for k, v in pmajor.LAUNCHES.items() if v} == want
     grid = {"pallas": {"pair_pass_a": 10, "pair_pass_b_emit": 10}}.get(mode, {})

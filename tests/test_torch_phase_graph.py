@@ -152,7 +152,7 @@ def test_replayed_phases_equal_eager_on_the_card(cuda, mode):
         if t == 2:
             crate.viscosity = 2.5
         diag = crate.phases.step(crate.scene, crate.generator, crate.debug_timer)
-    assert graphs.LAUNCHES == {"replay": TICKS * n_phases, "capture": 0}
+    assert graphs.LAUNCHES == {"replay": TICKS * n_phases, "capture": 0, "evict": 0}
     replayed = crate.generator.get_state()
     crate.generator.set_state(g0)
     state, timer = s0, PhaseTimer()
