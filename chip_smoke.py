@@ -185,8 +185,9 @@ prints its wall time as "[phase] name: s"):
    step sends; each shard's spill must be its runs past the halo cap);
    BAND_TICKS ticks at BAND_MIG_CAP with noise: overflow (the halo spill)
    and migration_dropped 0 every tick, non_finite 0, uids unique, the alive
-   set kept but for particles culled outside the box, K1/K2 launched once
-   per band per tick, the sent edge-row runs beside the halo cap; the
+   set kept but for particles culled outside the box, K1/K2 and the pair
+   prep (slab A alone) launched once per band per tick, the sent edge-row
+   runs beside the halo cap; the
    band and single-device steps timed in turns (steps/s, p50); the same
    with rebalanced edges (the edges every BAND_EDGES_EVERY ticks,
    shard_alive max/mean against the uniform split's).  (m2) the pallas
@@ -421,6 +422,9 @@ RUNAWAY_SHARE = 1e-3
 SOURCE = "sand_crate_tpu_torch/csrc/pmajor.cu"
 REPLACES = "sand_crate_tpu/ops/pmajor.py:183"
 REPLACES_K10 = "sand_crate_tpu/ops/pmajor.py:685"
+PREP_SOURCE = "sand_crate_tpu_torch/csrc/pm_prep.cu"
+PREP_REPLACES = "sand_crate_tpu/ops/pmajor.py:129,1006"  # feature_rows, _windows fusions
+PREP_REPLACES_B = "sand_crate_tpu/ops/pmajor.py:175"  # finalize_cp's fusion
 GRID_SOURCE = "sand_crate_tpu_torch/csrc/grid_pair.cu"
 PROBE_SOURCE = "sand_crate_tpu_torch/csrc/probes.cu"
 PROBE_REPLACES = {
@@ -501,20 +505,28 @@ GRAPH_BATCH_TURN_TICKS = 6
 # ran as separate passes (torch kicks, a clamp kernel), the figure the fused
 # velocity update is read against (PERF.md section 6)
 SEPARATE_KICKS_P50 = 1.878
+# the p-major pair glue's calls (csrc/pm_prep.cu), once a tick on every
+# p-major schedule; a band step takes the prep (slab A of its own sorted
+# crate) once a band and the plain ranges and slab B of its spliced slab
+PREP_KEYS = ("pmajor.prep", "pmajor.slab_b")
 # (o1): label -> (Crate options, environment knob, kernel counters that rise
 # once a tick)
 GRAPH_1M = {
-    "pmajor": ({}, None, ("pmajor.a", "pmajor.b")),
-    "pmajor SAND_CRATE_PMSUB=1": ({}, "SAND_CRATE_PMSUB", ("pmajor.sub_a", "pmajor.sub_b")),
-    "pmajor SAND_CRATE_PMAJOR_GATE=1": ({}, "SAND_CRATE_PMAJOR_GATE", ("pmajor.a", "pmajor.b")),
+    "pmajor": ({}, None, ("pmajor.a", "pmajor.b", *PREP_KEYS)),
+    "pmajor SAND_CRATE_PMSUB=1": ({}, "SAND_CRATE_PMSUB",
+                                  ("pmajor.sub_a", "pmajor.sub_b", *PREP_KEYS)),
+    "pmajor SAND_CRATE_PMAJOR_GATE=1": ({}, "SAND_CRATE_PMAJOR_GATE",
+                                        ("pmajor.a", "pmajor.b", *PREP_KEYS)),
     "pallas": (dict(forces_mode="pallas", cell_capacity=GRID_SLOTS), None,
                ("grid.pair_pass_a", "grid.pair_pass_b_emit")),
 }
 # (p): the band step as one graph a tick: label -> (Scene options, rebalance,
 # kernel counters that rise once a band a tick)
 BAND_GRAPH_CELLS = {
-    "uniform p-major": (dict(forces_mode="pmajor"), False, ("pmajor.a", "pmajor.b")),
-    "rebalanced p-major": (dict(forces_mode="pmajor"), True, ("pmajor.a", "pmajor.b")),
+    "uniform p-major": (dict(forces_mode="pmajor"), False,
+                        ("pmajor.a", "pmajor.b", "pmajor.prep")),
+    "rebalanced p-major": (dict(forces_mode="pmajor"), True,
+                           ("pmajor.a", "pmajor.b", "pmajor.prep")),
     "uniform pallas": (dict(forces_mode="pallas", cell_capacity=GRID_SLOTS), False,
                        ("grid.pair_pass_a", "grid.pair_pass_b_emit")),
 }
@@ -545,8 +557,8 @@ PAIR_SOURCE = "sand_crate_tpu_torch/csrc/pair_batch.cu"
 PAIR_REPLACES = {"dense": "sand_crate_tpu/cellwise.py:334",
                  "window": "sand_crate_tpu/ops/chunked.py:50"}
 # Each backend's pair kernels (kernel_counts keys), once a pass a tick.
-PAIR_KEYS = {"pmajor": ("pmajor.a", "pmajor.b"),
-             "pmajor PMSUB": ("pmajor.sub_a", "pmajor.sub_b"),
+PAIR_KEYS = {"pmajor": ("pmajor.a", "pmajor.b", *PREP_KEYS),
+             "pmajor PMSUB": ("pmajor.sub_a", "pmajor.sub_b", *PREP_KEYS),
              "pallas": ("grid.pair_pass_a", "grid.pair_pass_b_emit"),
              "dense": ("pairs.dense_order", "pairs.dense_a", "pairs.dense_b"),
              "chunked": ("pairs.window_a", "pairs.window_b")}
@@ -724,6 +736,79 @@ def kernels_vs_plain(crate):
         print(f"  {r['name']} {'two-sided' if sc.pmajor_symm else 'one-sided'}: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) (median, CUDA events)")
+    return rows
+
+
+def pair_prep_rows(crate):
+    """The pair glue's kernels (csrc/pm_prep.cu) against their plain torch
+    chains at the crate's (settled) state, on the main path's inputs: slab
+    A and the ranges (pair_prep, with and without the ranges), slab B and
+    the cell pressure (pass_b_prep), bit for bit; then each timed beside
+    its plain chain and its bytes bound (each input byte read once, each
+    output written once: pos, vel, alive, cid 21 B a slot in, slab A and the
+    ranges 56 B out, the cell table 4 B a cell; slab A's positions and row
+    and pass A's four sums 36 B in, slab B and p_i 36 B out).  The ranges
+    alone (the cell table pass, every cell written, and six table reads a
+    slot) are read as prep with ranges less prep without, beside
+    candidate_ranges' two searchsorteds."""
+    import torch
+
+    from sand_crate_tpu_torch.cellwise import cell_ids_grid
+    from sand_crate_tpu_torch.ops import pmajor
+
+    st, sc, pr = crate.state, crate.scene, crate.params
+    sorted_cid, order = torch.sort(cell_ids_grid(st.pos, st.alive, sc), stable=True)
+    alive = sorted_cid < sc.num_cells
+    P, nx, ny = sorted_cid.shape[0], sc.grid_nx, sc.grid_ny
+    args = (st.pos[order], st.vel[order], alive, sorted_cid,
+            pr.diameter * pr.collider_noise_level, st.tick, sc)
+    symm = sc.pmajor_symm
+
+    def prep(ranges=True):
+        return pmajor.pair_prep(*args, symm=symm, ranges=ranges)
+
+    def prep_plain(ranges=True):
+        return pmajor.pair_prep_plain(*args, symm=symm, ranges=ranges)
+
+    slab_a, ranges = prep()
+    want_a, want_r = prep_plain()
+    err = max(exact("pair_prep slab A", slab_a, want_a),
+              exact("pair_prep ranges", ranges, want_r))
+    alone, none = prep(False)
+    check(none is None, "pair_prep without the ranges returned ranges")
+    exact("pair_prep slab A without the ranges", alone, want_a)
+    table_bytes = 4 * (nx * ny + 1)
+    coef = pmajor.coef_stack(pr.diameter, pr.target_pressure, pr.spring_overlap_balance)
+    out_a = pmajor.pm_pass(slab_a, ranges, coef, "a", symm=symm)
+    fold = sc.fold_pairs and not sc.enable_spring
+    glue = (slab_a, out_a, pr.ignored_pressure, pr.surface_smoothing,
+            pr.pressure_amplifier if fold else None)
+
+    def slab_b():
+        return pmajor.pass_b_prep(*glue)
+
+    def slab_b_plain():
+        return pmajor.pass_b_prep_plain(*glue)
+
+    got, want = slab_b(), slab_b_plain()
+    err_b = max(exact("pass_b_prep slab B", got[0], want[0]),
+                exact("pass_b_prep cell pressure", got[1], want[1]))
+    rows = [kernel_row("pm_prep", PREP_SOURCE, PREP_REPLACES, err, cuda_ms(prep, 20),
+                       cuda_ms(prep_plain, 5), (21 + 56) * P + table_bytes, 0.0),
+            kernel_row("pm_slab_b", PREP_SOURCE, PREP_REPLACES_B, err_b, cuda_ms(slab_b, 20),
+                       cuda_ms(slab_b_plain, 5), (36 + 36) * P, 0.0)]
+    no_ranges = cuda_ms(lambda: prep(False), 20)
+    searches = cuda_ms(lambda: pmajor.candidate_ranges(sorted_cid, alive, nx, ny), 5)
+    print(f"  pair glue kernels == plain chains bit for bit ({P} slots, {int(alive.sum())} "
+          f"alive, grid {nx}x{ny}; fold {fold}, symm {symm}); the cell table writes all "
+          f"{nx * ny + 1} cells ({table_bytes / 1e6:.2f} MB)")
+    print(f"  ranges: prep with {rows[0]['ms']:.4f} ms less prep without {no_ranges:.4f} ms "
+          f"= {rows[0]['ms'] - no_ranges:.4f} ms (cell table + six reads a slot); "
+          f"candidate_ranges (two searchsorteds) {searches:.4f} ms")
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain chain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+              f"{r['bound_ms'] / r['ms']:.2f} (median, CUDA events)")
     return rows
 
 
@@ -945,7 +1030,8 @@ def gate_path(crate):
 
     with knob("SAND_CRATE_PMAJOR_GATE"):
         drive(crate, GATE_TICKS, "gate path", pmajor.LAUNCHES,
-              {"a": GATE_TICKS, "b": GATE_TICKS, "sub_a": 0, "sub_b": 0}, allow_culls=True)
+              {"a": GATE_TICKS, "b": GATE_TICKS, "sub_a": 0, "sub_b": 0, "prep": GATE_TICKS,
+               "slab_b": GATE_TICKS}, allow_culls=True)
         gate = pair_sums(crate)
     with knob("SAND_CRATE_PMSUB"):
         sub = pair_sums(crate)
@@ -1011,7 +1097,8 @@ def collisions_1m(crate):
               f"(medians over {2 * TURN_TICKS} ticks in two turns; sum of phase medians); "
               f"launches {launches[label]}")
     k10 = launches["K10 (SAND_CRATE_PMSUB=1)"]
-    check(k10 == {"a": 0, "b": 0, "sub_a": 2 * TURN_TICKS, "sub_b": 2 * TURN_TICKS},
+    check(k10 == {"a": 0, "b": 0, "sub_a": 2 * TURN_TICKS, "sub_b": 2 * TURN_TICKS,
+                  "prep": 2 * TURN_TICKS, "slab_b": 2 * TURN_TICKS},
           f"instrumented K10 launches {k10}")
     return k10
 
@@ -3123,7 +3210,7 @@ def cli_path(smi: str, recording_dir) -> None:
         wall = time.perf_counter() - t0
     launches = kernel_counts()
     want = {k: 0 for k in launches}
-    want.update({"pmajor.a": CLI_TICKS, "pmajor.b": CLI_TICKS})
+    want.update(dict.fromkeys(("pmajor.a", "pmajor.b", *PREP_KEYS), CLI_TICKS))
     check(launches == want, f"CLI run launches {launches} != {want}")
     crate = pb.crate
     st, sc = crate.state, crate.scene
@@ -3279,8 +3366,8 @@ def runaway_check(smi: str) -> None:
     counts = kernel_counts()
     pm_runs = 1 + len(RUNAWAY_VARIANTS)
     want = {k: 0 for k in counts}
-    want.update({"pmajor.a": pm_runs * RUNAWAY_TICKS, "pmajor.b": pm_runs * RUNAWAY_TICKS,
-                 "grid.pair_pass_a": RUNAWAY_TICKS, "grid.pair_pass_b_emit": RUNAWAY_TICKS})
+    want.update(dict.fromkeys(("pmajor.a", "pmajor.b", *PREP_KEYS), pm_runs * RUNAWAY_TICKS))
+    want.update({"grid.pair_pass_a": RUNAWAY_TICKS, "grid.pair_pass_b_emit": RUNAWAY_TICKS})
     print(f"  launches {counts}; wall (host clock + synchronize) and peak allocation beyond "
           "what is held: " + ", ".join(f"{m} {wall[m] / ran[m] * 1e3:.3f} ms/tick "
                                       f"{peak[m] / 2**30:.2f} GiB" for m in crates))
@@ -3565,13 +3652,14 @@ def spatial_bands(smi: str) -> dict:
                                              f"(m1) uniform, mig_cap {BAND_MIG_CAP}")
         counts = kernel_counts()
         want = {k: 0 for k in counts}
-        want.update({"pmajor.a": D * BAND_TICKS, "pmajor.b": D * BAND_TICKS})
+        want.update(dict.fromkeys(("pmajor.a", "pmajor.b", "pmajor.prep"), D * BAND_TICKS))
         print(f"  (m1) uniform bands, {BAND_TICKS} ticks with noise: launches {counts}; "
               f"overflow 0, migration_dropped 0, migration_deferred {deferred}, alive "
               f"{int(stats['particle_count'])} of {n0}, uids unique, non_finite 0; "
               f"shard_alive {stats['shard_alive'].tolist()}")
         check(counts == want, f"(m1) launches {counts} != {want}")
         launches["pm_pass_a"], launches["pm_pass_b"] = counts["pmajor.a"], counts["pmajor.b"]
+        launches["pm_prep"] = counts["pmajor.prep"]
         print(f"  (m1) sent edge-row runs (top, bottom) per shard, first tick / last tick: "
               f"{sent0} / {stats['shard_sent'].tolist()} (halo cap {hc})")
         uniform_alive = stats["shard_alive"].float()
@@ -3611,6 +3699,7 @@ def spatial_bands(smi: str) -> dict:
         counts = kernel_counts()
         check(counts == want, f"(m1) rebalanced launches {counts} != {want}")
         launches["pm_pass_a"] += counts["pmajor.a"]
+        launches["pm_prep"] += counts["pmajor.prep"]
         launches["pm_pass_b"] += counts["pmajor.b"]
         per = rstats["shard_alive"].float()
         print(f"  (m1) rebalanced, {BAND_TICKS} ticks: launches {counts}; migration_deferred "
@@ -3952,7 +4041,8 @@ def engine_tools(smi: str) -> dict:
         print(f"(n1) sustained {SOAK_TICKS / wall:.3f} steps/s over {SOAK_TICKS} ticks on {smi}; "
               f"K1/K2 launches {launched}; the soak returns {rc}")
         check(rc == 0, "(n1) the 1M soak broke an invariant")
-        check(launched == {"a": SOAK_TICKS, "b": SOAK_TICKS, "sub_a": 0, "sub_b": 0},
+        check(launched == {"a": SOAK_TICKS, "b": SOAK_TICKS, "sub_a": 0, "sub_b": 0,
+                           "prep": SOAK_TICKS, "slab_b": SOAK_TICKS},
               f"(n1) launches {launched}")
         del crate
 
@@ -4969,11 +5059,14 @@ def main() -> int:
 
     # -- 2. build (a) ------------------------------------------------------------
     with phase("build"):
-        cuda_build.build("pmajor", "grid_pair", "probes", "boundary", "kick", "pair_batch")
+        cuda_build.build("pmajor", "grid_pair", "probes", "boundary", "kick", "pair_batch",
+                         "pm_prep")
         print("build: pmajor.cu (K1/K2, K10), grid_pair.cu (K3-K9), probes.cu (P1-P4), "
               "boundary.cu (B1, full and positions-only), kick.cu (B2, the velocity "
-              "update) and pair_batch.cu (D1, D2), one nvcc each, in parallel")
-        print_ptxas(("pmajor", "grid_pair", "probes", "boundary", "kick", "pair_batch"))
+              "update), pair_batch.cu (D1, D2) and pm_prep.cu (the p-major pair glue), one "
+              "nvcc each, in parallel")
+        print_ptxas(("pmajor", "grid_pair", "probes", "boundary", "kick", "pair_batch",
+                     "pm_prep"))
 
     # -- 3. world --------------------------------------------------------------
     with phase("world"):
@@ -4990,6 +5083,8 @@ def main() -> int:
         print(f"settle: {SETTLE_TICKS} ticks")
         print("pmajor kernels vs plain versions (same device inputs):")
         rows = kernels_vs_plain(crate)
+        print("pair glue kernels (csrc/pm_prep.cu) vs their plain chains:")
+        prep_rows = pair_prep_rows(crate)
         print("K1/K2 vs plain versions on the hard inputs (ops/pmajor_cases.py):")
         hard_cases(crate.scene)
 
@@ -5019,13 +5114,16 @@ def main() -> int:
     with phase("pmajor main path"):
         launches, rate, p50, wall = drive(
             crate, MAIN_TICKS, "pmajor main path", pmajor.LAUNCHES,
-            {"a": MAIN_TICKS, "b": MAIN_TICKS, "sub_a": 0, "sub_b": 0})
+            {"a": MAIN_TICKS, "b": MAIN_TICKS, "sub_a": 0, "sub_b": 0, "prep": MAIN_TICKS,
+             "slab_b": MAIN_TICKS})
         print(f"pmajor main path on {smi}: {n0} particles, {rate:.3f} steps/s "
               f"({wall / MAIN_TICKS * 1000:.3f} ms/step mean over {MAIN_TICKS} ticks, "
               f"host clock + synchronize; replayed graphs), eager loop step p50 {p50:.3f} ms (CUDA "
               f"events, {P50_TICKS} ticks)")
         for r in rows:
             r["launches"] = launches[r["name"][-1]]
+        for r, key in zip(prep_rows, ("prep", "slab_b")):
+            r["launches"] = launches[key]
         # the update a stage a launch and the clamp alone: the instrumented
         # tick's, phase (f)
         main_keys = {"ghost_pass": "boundary.ghost", "ghost_pos": "boundary.ghost_pos",
@@ -5042,7 +5140,8 @@ def main() -> int:
         sub_crate.run(SETTLE_TICKS)
         launches, rate, p50, wall = drive(
             sub_crate, MAIN_TICKS, "PMSUB main path", pmajor.LAUNCHES,
-            {"a": 0, "b": 0, "sub_a": MAIN_TICKS, "sub_b": MAIN_TICKS}, allow_culls=True)
+            {"a": 0, "b": 0, "sub_a": MAIN_TICKS, "sub_b": MAIN_TICKS, "prep": MAIN_TICKS,
+             "slab_b": MAIN_TICKS}, allow_culls=True)
         print(f"PMSUB main path on {smi}: {n0} particles, {rate:.3f} steps/s "
               f"({wall / MAIN_TICKS * 1000:.3f} ms/step mean over {MAIN_TICKS} ticks, "
               f"host clock + synchronize; replayed graphs), eager loop step p50 {p50:.3f} ms (CUDA "
@@ -5078,13 +5177,18 @@ def main() -> int:
         escape_check(smi)
 
     # -- 6. pmajor trajectory: kernel path vs plain path, both on the card ------
+    prep_swaps = [(pmajor, "pair_prep", pmajor.pair_prep_plain),
+                  (pmajor, "pass_b_prep", pmajor.pass_b_prep_plain)]
     with phase("pmajor trajectory"):
-        trajectory("pmajor trajectory", "pmajor", [(pmajor, "pm_pass", pmajor.pm_pass_plain)],
-                   pmajor.LAUNCHES, {"a": TRAJ_TICKS, "b": TRAJ_TICKS, "sub_a": 0, "sub_b": 0})
+        trajectory("pmajor trajectory", "pmajor", [(pmajor, "pm_pass", pmajor.pm_pass_plain),
+                                                   *prep_swaps],
+                   pmajor.LAUNCHES, {"a": TRAJ_TICKS, "b": TRAJ_TICKS, "sub_a": 0, "sub_b": 0,
+                                     "prep": TRAJ_TICKS, "slab_b": TRAJ_TICKS})
     with phase("PMSUB trajectory"), knob("SAND_CRATE_PMSUB"):
         trajectory("PMSUB trajectory", "pmajor",
-                   [(pmajor, "pms_pass", pmajor.pms_pass_plain)], pmajor.LAUNCHES,
-                   {"a": 0, "b": 0, "sub_a": TRAJ_TICKS, "sub_b": TRAJ_TICKS})
+                   [(pmajor, "pms_pass", pmajor.pms_pass_plain), *prep_swaps], pmajor.LAUNCHES,
+                   {"a": 0, "b": 0, "sub_a": TRAJ_TICKS, "sub_b": TRAJ_TICKS,
+                    "prep": TRAJ_TICKS, "slab_b": TRAJ_TICKS})
 
     # -- 7. grid kernels against their plain versions ---------------------------
     with phase("grid settle + kernels vs plain"):
@@ -5210,7 +5314,7 @@ def main() -> int:
     # -- (m) spatial bands: pmajor and pallas at 1M, the small legs, the entries ----
     with phase("spatial bands"):
         band_launches = spatial_bands(smi)
-        for r in rows + grid_rows:
+        for r in rows + grid_rows + prep_rows:
             if r["name"] in band_launches:
                 r["band_launches"] = band_launches[r["name"]]
 
@@ -5219,6 +5323,8 @@ def main() -> int:
         tool_launches = engine_tools(smi)
         for r in rows:
             r["tools_launches"] = tool_launches["pmajor." + r["name"][-1]]
+        for r, key in zip(prep_rows, PREP_KEYS):
+            r["tools_launches"] = tool_launches[key]
         for r in grid_rows:
             r["tools_launches"] = tool_launches["grid." + r["name"]]
         for r in pair_rows:  # (n2)'s dense wave_machine soak, (n7) and (n8) on chunked
@@ -5232,8 +5338,8 @@ def main() -> int:
     with phase("band graphs"):
         band_graphs(smi)
 
-    print(json.dumps({"kernels": rows + k10_rows + grid_rows + probe_rows + b_rows + pair_rows
-                      + axis_rows}))
+    print(json.dumps({"kernels": rows + prep_rows + k10_rows + grid_rows + probe_rows + b_rows
+                      + pair_rows + axis_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

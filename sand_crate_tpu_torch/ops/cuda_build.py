@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 SOURCE_FLAGS = {
     "pmajor": ("-fmad=false",), "grid_pair": ("-fmad=false",), "probes": ("-fmad=false",),
     "boundary": ("-fmad=false",), "kick": ("-fmad=false",), "pair_batch": ("-fmad=false",),
+    "pm_prep": ("-fmad=false",),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -38,6 +38,18 @@ vectorised torch versions, which CPU tensors run:
   vmapped step under ``SAND_CRATE_PMSUB=1`` launches K10 once a pass for
   every crate.
 
+The glue around the passes -- slab A (offset-encoded, jittered positions,
+velocities, rows), the exact ranges, the cell pressure and slab B -- has
+plain versions (:func:`pass_a_slab`, :func:`candidate_ranges`,
+:func:`finalize_cp`, :func:`pass_b_slab`), which CPU tensors run, and two
+entries through the custom operators ``torch.ops.sand_crate.pm_prep`` /
+``.pm_slab_b`` (:func:`pair_prep`, :func:`pass_b_prep`): on CUDA tensors
+they launch the kernels of ``csrc/pm_prep.cu`` (a cell-start table then a
+thread per slot for slab A and the ranges; a thread per slot for slab B),
+one call for a crate axis, with the plain versions' bits.  The band step
+(``spatial.py``) takes :func:`pair_prep`'s slab A of its own sorted crate
+and the plain ranges and slab B of its spliced slab.
+
 Both visit every candidate, so no pair is lost and ``PairSums.overflow`` is
 0 — where the JAX kernels' fixed window budgets (``w``, ``VCAP_SUB``) can
 lose and count pairs.  The environment knobs of the JAX package are read at
@@ -77,8 +89,11 @@ SLAB_F = 8
 
 # Kernel launches per pass since the last reset, counted by pm_pass (K1/K2:
 # "a", "b"; one for a whole crate axis) and pms_pass (K10: "sub_a",
-# "sub_b") where they launch a CUDA kernel (never for the plain versions).
-LAUNCHES = {"a": 0, "b": 0, "sub_a": 0, "sub_b": 0}
+# "sub_b") where they launch a CUDA kernel (never for the plain versions);
+# the pair glue's calls of csrc/pm_prep.cu, one a call for a whole crate
+# axis: pair_prep ("prep": slab A, and the ranges through their cell table)
+# and pass_b_prep ("slab_b").
+LAUNCHES = {"a": 0, "b": 0, "sub_a": 0, "sub_b": 0, "prep": 0, "slab_b": 0}
 
 # Selves per chunk of the plain versions (bounds their (selves, span, 8)
 # candidate gathers).
@@ -572,10 +587,15 @@ def pass_a_slab(pos, vel, alive, sorted_cid, noise_amp, tick, scene: Scene, *, s
     With ``symm`` both positions of a pair are jittered, so the
     single-particle amplitude is scaled by 1/sqrt(2) to keep the pair-delta
     jitter variance at the reference's one-sided level."""
+    return _slab_a(pos, vel, alive, sorted_cid, noise_amp, tick, scene.grid_nx, scene.grid_ny,
+                   symm)
+
+
+def _slab_a(pos, vel, alive, sorted_cid, noise_amp, tick, nx, ny, symm):
     if symm:
         noise_amp = noise_amp * 0.7071067811865476
     pxo, pyo, npx, npy, vx, vy = feature_rows(pos, vel, alive, noise_amp, tick)
-    row = torch.where(alive, sorted_cid // scene.grid_nx, scene.grid_ny).to(torch.float32)
+    row = torch.where(alive, sorted_cid // nx, ny).to(torch.float32)
     return torch.stack([pxo, pyo, npx, npy, vx, vy, row, torch.zeros_like(row)], dim=1)
 
 
@@ -585,6 +605,193 @@ def pass_b_slab(slab_a, out_a, cp_slab, surface_smoothing):
     sm = surface_smoothing.to(torch.float32)
     cols = [slab_a[:, :4], cp_slab[:, None], (sm * out_a[1:3]).T, slab_a[:, A_ROW:A_ROW + 1]]
     return torch.cat(cols, dim=1).contiguous()
+
+
+# --------------------------------------------------------------------------
+# the pair glue on the card: csrc/pm_prep.cu
+# --------------------------------------------------------------------------
+
+
+def pair_prep_plain(pos, vel, alive, sorted_cid, noise_amp, tick, scene: Scene, *, symm,
+                    ranges=True):
+    """The plain pair prep of one crate: (:func:`pass_a_slab`,
+    :func:`candidate_ranges`, or None without ``ranges``)."""
+    slab = pass_a_slab(pos, vel, alive, sorted_cid, noise_amp, tick, scene, symm=symm)
+    nx, ny = scene.grid_nx, scene.grid_ny
+    return slab, candidate_ranges(sorted_cid, alive, nx, ny) if ranges else None
+
+
+def pass_b_prep_plain(slab_a, out_a, ignored_pressure, surface_smoothing,
+                      pressure_amplifier=None):
+    """The plain pass-B prep of one crate: (:func:`pass_b_slab`, the cell
+    pressure :func:`finalize_cp`), the slab's pressure column scaled by
+    ``1 + pressure_amplifier`` where one is given (the folded pass B)."""
+    cp = finalize_cp(out_a[0], out_a[3], ignored_pressure)
+    cp_slab = cp if pressure_amplifier is None else cp * (1.0 + pressure_amplifier)
+    return pass_b_slab(slab_a, out_a, cp_slab, surface_smoothing), cp
+
+
+def _prep_lib():
+    lib = cuda_build.load("pm_prep")
+    if lib.sc_pm_prep.argtypes is None:  # pointers as c_void_p: ctypes would cut them to int
+        lib.sc_pm_prep.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.sc_pm_prep.restype = ctypes.c_int
+        lib.sc_pm_slab_b.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.sc_pm_slab_b.restype = ctypes.c_int
+    return lib
+
+
+def _check_operands(fn, checks):
+    """Dtype, shape and contiguity of each (name, tensor, dtype, shape),
+    then one CUDA device for all: nothing launches before every check."""
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous {dtype} tensor of shape "
+                f"{shape}, got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+            )
+    device = checks[0][1].device
+    if device.type != "cuda" or any(t.device != device for _, t, _, _ in checks):
+        raise ValueError(f"{fn}: every operand must lie on one CUDA device, got "
+                         f"{sorted({str(t.device) for _, t, _, _ in checks})}")
+
+
+def _launch_prep(pos, vel, alive, sorted_cid, noise_amp, tick, nx, ny, symm, ranges):
+    """csrc/pm_prep.cu's pm_cell_start_kernel and pm_prep_kernel (the
+    kernel alone without ``ranges``) over a crate axis, counted once in
+    ``LAUNCHES["prep"]``."""
+    B, P = pos.shape[:2]
+    f32 = torch.float32
+    _check_operands("pair_prep", [
+        ("pos", pos, f32, (B, P, 2)), ("vel", vel, f32, (B, P, 2)),
+        ("alive", alive, torch.bool, (B, P)), ("sorted_cid", sorted_cid, torch.int32, (B, P)),
+        ("noise_amp", noise_amp, f32, (B,)), ("tick", tick, torch.int32, (B,))])
+    dev = pos.device
+    slab = torch.empty((B, P, SLAB_F), dtype=f32, device=dev)
+    out = torch.empty((B, 6 if ranges else 0, P), dtype=torch.int32, device=dev)
+    # the cell table: scratch, written and read inside the call
+    start = torch.empty((B, nx * ny + 1) if ranges else (0,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):  # launch on the tensors' card
+        err = _prep_lib().sc_pm_prep(
+            pos.data_ptr(), vel.data_ptr(), alive.data_ptr(), sorted_cid.data_ptr(),
+            noise_amp.data_ptr(), tick.data_ptr(), start.data_ptr(), slab.data_ptr(),
+            out.data_ptr(), P, B, nx, ny, int(symm), int(ranges),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pair_prep kernels ({B} crates) failed: cudaError {err}")
+    LAUNCHES["prep"] += 1
+    return slab, out
+
+
+def _launch_slab_b(slab_a, out_a, ignored_pressure, surface_smoothing, pressure_amplifier,
+                   fold):
+    """csrc/pm_prep.cu's pm_slab_b_kernel over a crate axis, counted in
+    ``LAUNCHES["slab_b"]``."""
+    B, P = slab_a.shape[:2]
+    f32 = torch.float32
+    _check_operands("pass_b_prep", [
+        ("slab_a", slab_a, f32, (B, P, SLAB_F)), ("out_a", out_a, f32, (B, 6, P)),
+        ("ignored_pressure", ignored_pressure, f32, (B,)),
+        ("surface_smoothing", surface_smoothing, f32, (B,)),
+        ("pressure_amplifier", pressure_amplifier, f32, (B,))])
+    slab_b = torch.empty_like(slab_a)
+    cp = torch.empty((B, P), dtype=f32, device=slab_a.device)
+    with torch.cuda.device(slab_a.device):
+        err = _prep_lib().sc_pm_slab_b(
+            slab_a.data_ptr(), out_a.data_ptr(), ignored_pressure.data_ptr(),
+            surface_smoothing.data_ptr(), pressure_amplifier.data_ptr(), slab_b.data_ptr(),
+            cp.data_ptr(), P, B, int(fold), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pass_b_prep kernel ({B} crates) failed: cudaError {err}")
+    LAUNCHES["slab_b"] += 1
+    return slab_b, cp
+
+
+@torch.library.custom_op(
+    "sand_crate::pm_prep", mutates_args=(),
+    schema="(Tensor pos, Tensor vel, Tensor alive, Tensor sorted_cid, Tensor noise_amp, "
+           "Tensor tick, int nx, int ny, int symm, int ranges) -> (Tensor, Tensor)")
+def _prep_op(pos, vel, alive, sorted_cid, noise_amp, tick, nx, ny, symm, ranges):
+    """The pair prep over a leading crate axis: pos, vel (B, P, 2), alive,
+    sorted_cid (B, P), noise_amp, tick (B,) -> slab A (B, P, 8) and the
+    ranges (B, 6, P), or (B, 0, P) without ``ranges``.  CPU tensors run the
+    plain chain of :func:`pair_prep_plain` crate by crate; CUDA tensors
+    launch the kernels once."""
+    if pos.device.type == "cuda":
+        return _launch_prep(pos, vel, alive, sorted_cid, noise_amp, tick, nx, ny, symm, ranges)
+    if pos.device.type == "cpu":
+        def plain(p, v, a, c, m, t):
+            slab = _slab_a(p, v, a, c, m, t, nx, ny, bool(symm))
+            return slab, (candidate_ranges(c, a, nx, ny) if ranges
+                          else c.new_zeros((0, c.shape[0])))
+
+        return crates_plain("pm_prep", plain, (pos, vel, alive, sorted_cid, noise_amp, tick))
+    raise ValueError(f"pair_prep: tensors on {pos.device}; expected cpu or cuda")
+
+
+register_crate_vmap(_prep_op, 6)
+
+
+@torch.library.custom_op(
+    "sand_crate::pm_slab_b", mutates_args=(),
+    schema="(Tensor slab_a, Tensor out_a, Tensor ignored_pressure, Tensor surface_smoothing, "
+           "Tensor pressure_amplifier, int fold) -> (Tensor, Tensor)")
+def _slab_b_op(slab_a, out_a, ignored_pressure, surface_smoothing, pressure_amplifier, fold):
+    """The pass-B prep over a leading crate axis: slab_a (B, P, 8), out_a
+    (B, 6, P), ignored_pressure, surface_smoothing, pressure_amplifier (B,)
+    (read only where ``fold``) -> slab B (B, P, 8), cp (B, P).  CPU tensors
+    run :func:`pass_b_prep_plain` crate by crate; CUDA tensors launch the
+    kernel once."""
+    if slab_a.device.type == "cuda":
+        return _launch_slab_b(slab_a, out_a, ignored_pressure, surface_smoothing,
+                              pressure_amplifier, fold)
+    if slab_a.device.type == "cpu":
+        return crates_plain(
+            "pm_slab_b",
+            lambda s, o, ig, sm, pa: pass_b_prep_plain(s, o, ig, sm, pa if fold else None),
+            (slab_a, out_a, ignored_pressure, surface_smoothing, pressure_amplifier))
+    raise ValueError(f"pass_b_prep: tensors on {slab_a.device}; expected cpu or cuda")
+
+
+register_crate_vmap(_slab_b_op, 5)
+
+
+def pair_prep(pos, vel, alive, sorted_cid, noise_amp, tick, scene: Scene, *, symm: bool,
+              ranges: bool = True):
+    """Slab A and the exact candidate ranges of one crate's sorted slots ->
+    (slab (P, 8) f32, ranges (6, P) i32, or None without ``ranges``: K10
+    finds its own), as :func:`pass_a_slab` and :func:`candidate_ranges`.
+
+    Through the ``sand_crate::pm_prep`` operator as a batch of one (under
+    ``torch.func.vmap`` its vmap rule launches once for the whole batch):
+    CPU tensors run :func:`pair_prep_plain`; CUDA tensors launch
+    csrc/pm_prep.cu's cell table and prep kernels on the current stream,
+    the same bits, counted in ``LAUNCHES["prep"]``.  ``sorted_cid`` must be
+    sorted, the dead slots' ids NC, as the tick's cell sort leaves them."""
+    on_cpu_or_cuda("pair_prep", pos)
+    slab, rng = torch.ops.sand_crate.pm_prep(pos[None], vel[None], alive[None],
+                                             sorted_cid[None], noise_amp[None], tick[None],
+                                             scene.grid_nx, scene.grid_ny, int(symm),
+                                             int(ranges))
+    return slab[0], rng[0] if ranges else None
+
+
+def pass_b_prep(slab_a, out_a, ignored_pressure, surface_smoothing, pressure_amplifier=None):
+    """Slab B and the cell pressure of one crate -> (slab (P, 8) f32, cp
+    (P,) f32), as :func:`pass_b_prep_plain`: the slab's pressure column
+    times ``1 + pressure_amplifier`` where one is given (the folded pass
+    B).  Through the ``sand_crate::pm_slab_b`` operator as a batch of one:
+    CPU tensors run the plain version; CUDA tensors launch csrc/pm_prep.cu's
+    pm_slab_b_kernel (once for a vmapped batch too, counted in
+    ``LAUNCHES["slab_b"]``)."""
+    on_cpu_or_cuda("pass_b_prep", slab_a)
+    fold = pressure_amplifier is not None
+    slab_b, cp = torch.ops.sand_crate.pm_slab_b(
+        slab_a[None], out_a[None], ignored_pressure[None], surface_smoothing[None],
+        (pressure_amplifier if fold else ignored_pressure)[None], int(fold))
+    return slab_b[0], cp[0]
 
 
 def schedule() -> str:
@@ -634,7 +841,8 @@ def neighbor_forces_pmajor_sorted(
     dtype = pos.dtype
     nx, ny = scene.grid_nx, scene.grid_ny
 
-    slab_a = pass_a_slab(pos, vel, alive, sorted_cid, noise_amp, tick, scene, symm=symm)
+    slab_a, ranges = pair_prep(pos, vel, alive, sorted_cid, noise_amp, tick, scene, symm=symm,
+                               ranges=sched != "pmsub")
     coef = coef_stack(diameter, target_pressure, spring_overlap_balance)
     if sched == "pmsub":
         windows = chunk_windows(sorted_cid, alive, nx, ny, PMS_CHUNK)
@@ -642,16 +850,12 @@ def neighbor_forces_pmajor_sorted(
         def pair_pass(slab, mode, **kw):
             return pms_pass(slab, sorted_cid, windows, coef, mode, nx=nx, chunk=PMS_CHUNK, **kw)
     else:
-        ranges = candidate_ranges(sorted_cid, alive, nx, ny)
-
         def pair_pass(slab, mode, **kw):
             return pm_pass(slab, ranges, coef, mode, symm=symm, **kw)
 
     out_a = pair_pass(slab_a, "a")
-    w_sum, cnt = out_a[0], out_a[3]
-    cp = finalize_cp(w_sum, cnt, ignored_pressure)
-    cp_slab = cp * (1.0 + pressure_amplifier) if fold else cp
-    slab_b = pass_b_slab(slab_a, out_a, cp_slab, surface_smoothing)
+    slab_b, cp = pass_b_prep(slab_a, out_a, ignored_pressure, surface_smoothing,
+                             pressure_amplifier if fold else None)
     out_b = pair_pass(slab_b, "b", fold=fold, spring=scene.enable_spring)
 
     # Dead selves have empty candidate ranges (or sit past their chunk's
@@ -663,7 +867,7 @@ def neighbor_forces_pmajor_sorted(
         pressure_real=zeros2 if fold else out_b[2:4].T.to(dtype),
         spring_real=out_b[4:6].T.to(dtype) if scene.enable_spring else zeros2,
         visc_vsum=out_a[4:6].T.to(dtype),
-        nbr_cnt=cnt.to(dtype),
+        nbr_cnt=out_a[3].to(dtype),
         overflow=torch.zeros((), dtype=torch.int32, device=pos.device),
     )
 

@@ -28,7 +28,8 @@ pair sums, the kicks in reference order, CCD, integrate, and the stats.
 The pair sums take one of three routes:
 
 * **pmajor** (:func:`_band_sums_pmajor`): the band sorted by global cell
-  id, its feature rows keyed by its own sorted index, its top and bottom
+  id, its feature rows (``pair_prep``'s slab A, without ranges) keyed by
+  its own sorted index, its top and bottom
   edge-row runs (at most :func:`_halo_cap` each; the spill is counted)
   sent to the neighbors, the slab spliced ``[above halo | band | below
   halo]``, K1 (``pm_pass`` "a") over it with exact ``candidate_ranges``,
@@ -468,8 +469,9 @@ def _band_sums_pmajor(pos, vel, alive, scene: Scene, comm, tick, params: Params,
     sorted_cid, order = torch.sort(cid, stable=True)
     alive_s = alive[order]
     n_alive = alive.sum(dtype=I32)
-    slab = pm.pass_a_slab(pos[order], vel[order], alive_s, sorted_cid,
-                          params.diameter * params.collider_noise_level, tick, scene, symm=symm)
+    slab, _ = pm.pair_prep(pos[order], vel[order], alive_s, sorted_cid,
+                           params.diameter * params.collider_noise_level, tick, scene, symm=symm,
+                           ranges=False)
 
     # -- edge runs (contiguous in the sorted slab) ------------------------------
     top_end = torch.searchsorted(sorted_cid, ((lo + 1) * nx).reshape(1), out_int32=True)[0]

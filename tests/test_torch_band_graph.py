@@ -310,7 +310,8 @@ def test_band_replay_equals_eager_on_the_card(cuda_group, mode, rebalance):
     _reset_counts()
     got, got_stats = _graph_loop(step, split, params, edges, TICKS)
     assert graphs.LAUNCHES == {"replay": TICKS, "capture": 0, "evict": 0}
-    want_pm = {"a": N_SHARDS * TICKS, "b": N_SHARDS * TICKS} if mode == "pmajor" else {}
+    want_pm = (dict.fromkeys(("a", "b", "prep"), N_SHARDS * TICKS) if mode == "pmajor"
+               else {})
     assert {k: v for k, v in pmajor.LAUNCHES.items() if v} == want_pm
     want_grid = ({"pair_pass_a": N_SHARDS * TICKS, "pair_pass_b_emit": N_SHARDS * TICKS}
                  if mode == "pallas" else {})

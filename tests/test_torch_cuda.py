@@ -72,13 +72,15 @@ def test_kernels_bit_identical_to_plain(cuda, case):
 
 @pytest.mark.cuda
 def test_crate_runs_through_the_kernels(cuda):
-    """Crate.run launches each pass once per tick and keeps the invariants."""
+    """Crate.run launches each pass and each half of the pair glue once per
+    tick and keeps the invariants."""
     crate = Crate(_world(), device=cuda)
     n0 = crate.particle_count
     for mode in pmajor.LAUNCHES:
         pmajor.LAUNCHES[mode] = 0
     diag = crate.run(10)
-    assert pmajor.LAUNCHES == {"a": 10, "b": 10, "sub_a": 0, "sub_b": 0}
+    assert pmajor.LAUNCHES == {"a": 10, "b": 10, "sub_a": 0, "sub_b": 0, "prep": 10,
+                               "slab_b": 10}
     assert int(diag.particle_count) == n0
     assert int(diag.non_finite) == 0 and int(diag.neighbor_overflow) == 0
 
@@ -108,14 +110,16 @@ def test_k10_bit_identical_to_plain_and_k1k2(cuda, case):
 @pytest.mark.cuda
 def test_pmsub_crate_runs_through_k10(cuda, monkeypatch):
     """Under SAND_CRATE_PMSUB=1, Crate.run launches K10 once per pass per
-    tick and K1/K2 never, and keeps the invariants."""
+    tick (and the pair glue's prep, without its ranges, and slab B) and
+    K1/K2 never, and keeps the invariants."""
     monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
     crate = Crate(_world(), device=cuda)
     n0 = crate.particle_count
     for mode in pmajor.LAUNCHES:
         pmajor.LAUNCHES[mode] = 0
     diag = crate.run(10)
-    assert pmajor.LAUNCHES == {"a": 0, "b": 0, "sub_a": 10, "sub_b": 10}
+    assert pmajor.LAUNCHES == {"a": 0, "b": 0, "sub_a": 10, "sub_b": 10, "prep": 10,
+                               "slab_b": 10}
     assert int(diag.particle_count) == n0 and int(diag.non_finite) == 0
 
 

@@ -269,27 +269,38 @@ def _reset_counts():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", MODES + ("cellwise", "gather"))
-def test_replay_equals_eager_on_the_card(cuda, mode):
+@pytest.mark.parametrize("mode", MODES + ("cellwise", "gather", "pmajor_1m"))
+def test_replay_equals_eager_on_the_card(cuda, mode, monkeypatch):
     """Replayed ticks (the tick captured first) == the eager loop of
     physics.step bit for bit, with a viscosity edit between two runs that
-    captures nothing anew; the kernel counters rise once a pass a tick."""
-    crate = Crate(_world("stirring_cup"), seed=5, forces_mode=mode, device=cuda)
+    captures nothing anew; the kernel counters rise once a pass a tick.
+    The p-major eager loop runs the plain pair glue (pair_prep_plain,
+    pass_b_prep_plain: the torch chain), so the replayed kernels of
+    csrc/pm_prep.cu are held to it; "pmajor_1m" is the bench's 1,001,700
+    particle dam break over 20 ticks."""
+    big = mode == "pmajor_1m"
+    mode = "pmajor" if big else mode
+    world = dam_break_world(1_000_000) if big else _world("stirring_cup")
+    half = 10 if big else 5
+    crate = Crate(world, seed=5, forces_mode=mode, device=cuda)
     crate.run(4)
     s0, p0, g0 = _clone(crate.state), _clone(crate.params), crate.generator.get_state()
     _reset_counts()
-    crate.run(5)
+    crate.run(half)
     crate.viscosity = 2.5
-    diag = crate.run(5)
-    assert graphs.LAUNCHES == {"replay": 10, "capture": 0, "evict": 0}
-    want = {"pmajor": {"a": 10, "b": 10}}.get(mode, {})
+    diag = crate.run(half)
+    n = 2 * half
+    assert graphs.LAUNCHES == {"replay": n, "capture": 0, "evict": 0}
+    want = {"pmajor": {"a": n, "b": n, "prep": n, "slab_b": n}}.get(mode, {})
     assert {k: v for k, v in pmajor.LAUNCHES.items() if v} == want
-    grid = {"pallas": {"pair_pass_a": 10, "pair_pass_b_emit": 10}}.get(mode, {})
+    grid = {"pallas": {"pair_pass_a": n, "pair_pass_b_emit": n}}.get(mode, {})
     assert {k: v for k, v in pair_kernel.LAUNCHES.items() if v} == grid
+    monkeypatch.setattr(pmajor, "pair_prep", pmajor.pair_prep_plain)
+    monkeypatch.setattr(pmajor, "pass_b_prep", pmajor.pass_b_prep_plain)
     crate.generator.set_state(g0)
-    state, _, _ = _eager(s0, p0, crate.scene, crate.generator, 5)
+    state, _, _ = _eager(s0, p0, crate.scene, crate.generator, half)
     p0 = p0._replace(viscosity=torch.full_like(p0.viscosity, 2.5))
-    state, want_diag, _ = _eager(state, p0, crate.scene, crate.generator, 5)
+    state, want_diag, _ = _eager(state, p0, crate.scene, crate.generator, half)
     _assert_same(crate.state, state)
     _assert_same(diag, want_diag)
 
@@ -305,7 +316,7 @@ def test_new_key_captures_anew_and_graphs_are_bounded(cuda, monkeypatch):
     monkeypatch.setenv("SAND_CRATE_PMSUB", "1")
     crate.run(3)
     assert (graphs.LAUNCHES["replay"], graphs.LAUNCHES["capture"]) == (2, 1)
-    assert pmajor.LAUNCHES == {"a": 0, "b": 0, "sub_a": 3, "sub_b": 3}
+    assert pmajor.LAUNCHES == {"a": 0, "b": 0, "sub_a": 3, "sub_b": 3, "prep": 3, "slab_b": 3}
     monkeypatch.delenv("SAND_CRATE_PMSUB")
     crate.run(2)
     assert (graphs.LAUNCHES["replay"], graphs.LAUNCHES["capture"]) == (4, 1)
@@ -344,7 +355,9 @@ def test_batched_replay_equals_eager_on_the_card(cuda, mode, monkeypatch):
     diag = batch.run(10)
     fresh = int(mode == "chunked")  # a new sweep bound captures anew
     assert (graphs.LAUNCHES["replay"], graphs.LAUNCHES["capture"]) == (10 - fresh, fresh)
-    want = {"pmajor": {"sub_a": 10, "sub_b": 10} if pmsub else {"a": 10, "b": 10}}.get(mode, {})
+    glue = {"prep": 10, "slab_b": 10}
+    want = {"pmajor": {"sub_a": 10, "sub_b": 10, **glue} if pmsub
+            else {"a": 10, "b": 10, **glue}}.get(mode, {})
     assert {k: v for k, v in pmajor.LAUNCHES.items() if v} == want
     grid = {"pallas": {"pair_pass_a": 10, "pair_pass_b_emit": 10}}.get(mode, {})
     assert {k: v for k, v in pair_kernel.LAUNCHES.items() if v} == grid
